@@ -1,0 +1,522 @@
+"""The replica step — the DARE protocol for R replicas as one batched
+tensor program.
+
+The JAX package writes the step for ONE replica against a named axis
+(``lax.all_gather`` / ``psum`` across replicas, run under ``vmap`` or
+``shard_map``). Here the replica axis is an explicit leading dimension:
+every per-replica scalar is an ``[R]`` tensor, and each collective
+becomes a read of the stacked ``[R, ...]`` tensor that every receiver
+filters through its own ``peer_mask`` row (``heard [R, R]``: receiver
+i, sender j). A ``psum`` is a sum over the sender dimension. The phases
+and their reference mechanisms are those of
+``rdma_paxos_tpu/consensus/step.py:replica_step``:
+
+A control gather · B one-round election (removed in the stable step) ·
+C leader append · D window fan-out · E term-gated absorb · CONFIG
+derivation · F ack gather + quorum commit scan (``ops/quorum.py``, the
+CUDA kernel on the card) · G apply echo, pruning, committed-config
+checkpoint.
+
+The state is updated in place (the JAX step donates it) and returned.
+The step never synchronises with the host: every decision is a tensor
+select, so it queues on the card without stalls. The CONFIG full-ring
+rescan is computed for every replica and selected where the cached
+source entry was invalidated — the result the JAX ``lax.cond`` gives,
+without a host round trip.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from rdma_paxos_tpu_torch.consensus.log import (
+    EntryType, M_GIDX, M_TERM, M_TYPE, META_W, absorb_window,
+    append_batch, extract_window, gather_rows, last_term, slot_of,
+    term_at)
+from rdma_paxos_tpu_torch.consensus.state import (
+    ConfigState, ReplicaState, Role, U32_MASK)
+from rdma_paxos_tpu_torch.ops.quorum import R_PAD, commit_scan, pack_scal
+
+I32 = torch.int32
+I32_MIN = -(1 << 31)
+I32_MAX = (1 << 31) - 1
+
+# control-gather columns
+(C_TERM, C_ROLE, C_END, C_COMMIT, C_LTERM, C_APPLY, C_TMO,
+ C_VTERM, C_VFOR, C_QDEP, C_HEAD, C_N) = range(12)
+# window-message scalar columns
+S_VALID, S_WSTART, S_WCOUNT, S_TERM, S_PREV, S_COMMIT, S_HEAD, S_N = range(8)
+
+
+@dataclasses.dataclass
+class StepInput:
+    """Host->device inputs of one step, ``[R, ...]``."""
+
+    batch_data: torch.Tensor    # [R, B, slot_words] i32
+    batch_meta: torch.Tensor    # [R, B, META_W] i32
+    batch_count: torch.Tensor   # [R] i32
+    timeout_fired: torch.Tensor  # [R] i32
+    peer_mask: torch.Tensor     # [R, R] i32 — row i: who replica i hears
+    apply_done: torch.Tensor    # [R] i32
+    queue_depth: torch.Tensor   # [R] i32
+
+
+@dataclasses.dataclass
+class StepOutput:
+    """Device->host results of one step, ``[R]`` (``peer_acked [R, R]``)."""
+
+    term: torch.Tensor
+    role: torch.Tensor
+    leader_id: torch.Tensor
+    voted_term: torch.Tensor
+    voted_for: torch.Tensor
+    head: torch.Tensor
+    apply: torch.Tensor
+    commit: torch.Tensor
+    end: torch.Tensor
+    hb_seen: torch.Tensor
+    became_leader: torch.Tensor
+    acked: torch.Tensor
+    accepted: torch.Tensor
+    peer_acked: torch.Tensor
+    leadership_verified: torch.Tensor
+    burst_hint: torch.Tensor
+    rebase_delta: torch.Tensor
+
+
+OUTPUT_FIELDS = tuple(f.name for f in dataclasses.fields(StepOutput))
+
+
+def make_step_input(cfg, n_replicas: int, *, device) -> StepInput:
+    """An idle (no client traffic, no timeout) input for R replicas."""
+    R = n_replicas
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=I32, device=device)
+    return StepInput(
+        batch_data=z(R, cfg.batch_slots, cfg.slot_words),
+        batch_meta=z(R, cfg.batch_slots, META_W),
+        batch_count=z(R), timeout_fired=z(R),
+        peer_mask=torch.ones((R, R), dtype=I32, device=device),
+        apply_done=z(R), queue_depth=z(R))
+
+
+def _lex_argmax(valid: torch.Tensor, keys) -> torch.Tensor:
+    """Per row of ``valid [..., n]``: index of the lexicographically
+    largest ``keys`` among valid entries, ties to the SMALLEST index;
+    -1 if none is valid."""
+    v = valid
+    for k in keys:
+        kk = torch.where(v, k, I32_MIN)
+        v = v & (kk == kk.max(-1, keepdim=True).values)
+    n = v.shape[-1]
+    idx = torch.arange(n, dtype=I32, device=v.device)
+    first = torch.where(v, idx, n).min(-1).values
+    return torch.where(first < n, first, -1).to(I32)
+
+
+def _members(bitmask: torch.Tensor, n: int) -> torch.Tensor:
+    """``[R] u32-in-int64`` bitmasks -> ``[R, n]`` 0/1 i32 membership."""
+    r = torch.arange(n, device=bitmask.device)
+    return ((bitmask[:, None] >> r) & 1).to(I32)
+
+
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    """i32 words reinterpreted as u32, held in int64."""
+    return words.to(torch.int64) & U32_MASK
+
+
+def _maj(members: torch.Tensor) -> torch.Tensor:
+    return (members.sum(-1) // 2 + 1).to(I32)
+
+
+def _pick(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[r, idx[r]]`` for ``t [R, n, ...]``, ``idx [R]`` (clamped >= 0)."""
+    r = torch.arange(t.shape[0], device=t.device)
+    return t[r, torch.clamp(idx, min=0).long()]
+
+
+def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
+                 n_replicas: int, fanout: str = "gather",
+                 elections: bool = True, audit: bool = False,
+                 telemetry: bool = False, txn: bool = False
+                 ) -> Tuple[ReplicaState, StepOutput]:
+    """One protocol step of all R replicas (see the module docstring).
+
+    ``fanout="gather"`` selects the dominant leader's window row per
+    receiver (split-brain safe under partitions); ``"psum"`` sums the
+    leader windows over senders, sound only under full connectivity.
+    ``elections=False`` is the stable step: Phase B removed, identical
+    results whenever no election timer fired."""
+    if audit or telemetry or txn:
+        raise NotImplementedError(
+            "the audit=, telemetry= and txn= step variants are not ported")
+    if fanout not in ("gather", "psum"):
+        raise ValueError(f"unknown fanout {fanout!r}")
+    R, W = n_replicas, cfg.window_slots
+    dev = state.term.device
+    log = state.log
+    me = torch.arange(R, dtype=I32, device=dev)
+    peer = me[None, :]                                     # sender index
+    eye = me[:, None] == peer
+    heard = inp.peer_mask.bool()                           # [R, R]
+
+    in_new = _members(state.bitmask_new, R)                # [R, R]
+    in_old = _members(state.bitmask_old, R)
+    transit = (state.cid_state == int(ConfigState.TRANSIT)).to(I32)
+    ext = state.cid_state == int(ConfigState.EXTENDED)
+    in_vote = torch.where(ext[:, None], in_old, in_new)
+    maj_vote = _maj(in_vote)
+    maj_old = _maj(in_old)
+    i_member = (torch.diagonal(in_vote) > 0) | (
+        (transit > 0) & (torch.diagonal(in_old) > 0))
+    my_lterm = last_term(log, state.end)
+
+    # ---- Phase A: control gather (every receiver reads the stack) ----
+    g_term, g_end, g_lterm = state.term, state.end, my_lterm
+    g_apply = torch.minimum(inp.apply_done, state.commit)
+    rec_upd0 = heard & (state.voted_term[None, :] > state.vote_rec_term)
+    vote_rec_term1 = torch.where(rec_upd0, state.voted_term[None, :],
+                                 state.vote_rec_term)
+    vote_rec_for1 = torch.where(rec_upd0, state.voted_for[None, :],
+                                state.vote_rec_for)
+
+    # ---- Phase B: one-round election ----
+    if not elections:
+        new_voted_term, new_voted_for = state.voted_term, state.voted_for
+        vote_rec_term2, vote_rec_for2 = vote_rec_term1, vote_rec_for1
+        became = torch.zeros(R, dtype=torch.bool, device=dev)
+        max_heard = torch.where(heard, g_term[None, :], I32_MIN).max(1).values
+        new_term = torch.maximum(state.term, max_heard)
+        role = torch.where(new_term > state.term, int(Role.FOLLOWER),
+                           state.role).to(I32)
+        i_lead = role == int(Role.LEADER)
+        leader_id = torch.where(new_term > state.term, -1,
+                                state.leader_id).to(I32)
+        end1 = state.end
+        log2, end2 = append_batch(
+            log, state.end, state.head, inp.batch_data, inp.batch_meta,
+            torch.where(i_lead, inp.batch_count, 0).to(I32), new_term)
+    else:
+        is_cand = (inp.timeout_fired > 0)[None, :] & (in_vote > 0)
+        cand_term = g_term + 1                             # [R] by sender
+        i_cand = torch.diagonal(is_cand) & (state.role != int(Role.LEADER))
+        can_grant = (
+            heard & is_cand
+            & (cand_term[None, :] >= state.term[:, None])
+            & ((cand_term[None, :] > state.voted_term[:, None])
+               | ((cand_term[None, :] == state.voted_term[:, None])
+                  & (peer == state.voted_for[:, None])))
+            & ((g_lterm[None, :] > my_lterm[:, None])
+               | ((g_lterm[None, :] == my_lterm[:, None])
+                  & (g_end[None, :] >= state.end[:, None]))))
+        keys = [k[None, :].expand(R, R) for k in (cand_term, g_lterm, g_end)]
+        best = _lex_argmax(can_grant, keys)
+        my_vote = torch.where(i_cand, me,
+                              torch.where(i_member, best, -1)).to(I32)
+        vote_cast = my_vote >= 0
+        new_voted_term = torch.where(
+            vote_cast,
+            torch.maximum(state.voted_term,
+                          cand_term[torch.clamp(my_vote, min=0).long()]),
+            state.voted_term)
+        new_voted_for = torch.where(vote_cast, my_vote, state.voted_for)
+
+        got = (my_vote[None, :] == me[:, None]) & heard
+        rec_upd = heard & (new_voted_term[None, :] > vote_rec_term1)
+        vote_rec_term2 = torch.where(rec_upd, new_voted_term[None, :],
+                                     vote_rec_term1)
+        vote_rec_for2 = torch.where(rec_upd, new_voted_for[None, :],
+                                    vote_rec_for1)
+        got_i = got.to(I32)
+        win = (i_cand & ((got_i * in_vote).sum(1) >= maj_vote)
+               & torch.where(transit > 0,
+                             (got_i * in_old).sum(1) >= maj_old, True))
+
+        my_term1 = torch.where(i_cand, state.term + 1, state.term)
+        eff_term = torch.where(is_cand, cand_term[None, :], g_term[None, :])
+        max_heard = torch.where(heard, eff_term, I32_MIN).max(1).values
+        new_term = torch.maximum(my_term1, max_heard)
+        role = torch.where(
+            win, int(Role.LEADER),
+            torch.where(new_term > my_term1, int(Role.FOLLOWER),
+                        torch.where(i_cand, int(Role.CANDIDATE),
+                                    state.role))).to(I32)
+        became = win & (state.role != int(Role.LEADER))
+        i_lead = role == int(Role.LEADER)
+        leader_id = torch.where(
+            win, me, torch.where(new_term > state.term, -1,
+                                 state.leader_id)).to(I32)
+
+        # ---- Phase C: leader append (NOOP on election, then batch) ----
+        noop_data = torch.zeros((R, 1, cfg.slot_words), dtype=I32, device=dev)
+        noop_meta = torch.zeros((R, 1, META_W), dtype=I32, device=dev)
+        noop_meta[..., M_TYPE] = int(EntryType.NOOP)
+        log1, end1 = append_batch(log, state.end, state.head, noop_data,
+                                  noop_meta, became.to(I32), new_term)
+        log2, end2 = append_batch(
+            log1, end1, state.head, inp.batch_data, inp.batch_meta,
+            torch.where(i_lead, inp.batch_count, 0).to(I32), new_term)
+
+    # ---- Phase D: leader fan-out ----
+    others = heard & (in_new > 0) & ~eye
+    min_end = torch.where(others, g_end[None, :], I32_MAX).min(1).values
+    wstart = torch.minimum(torch.maximum(min_end, end2 - W), end2)
+    wstart = torch.clamp(torch.maximum(wstart, state.head), min=0)
+    wcount = torch.clamp(end2 - wstart, 0, W).to(I32)
+    wdata, wmeta = extract_window(log2, wstart, W)
+    prev_term = torch.where(wstart > 0, term_at(log2, wstart - 1), 0)
+    min_apply = torch.where(heard & (in_new > 0), g_apply[None, :],
+                            I32_MAX).min(1).values
+
+    contrib = i_lead.to(I32)
+    msg_scal = torch.stack([
+        torch.ones_like(wstart), wstart, wcount, new_term, prev_term,
+        state.commit, state.head], dim=1) * contrib[:, None]  # [R, S_N]
+    claim = heard & (msg_scal[None, :, S_VALID] > 0)
+    dom = _lex_argmax(claim, [msg_scal[None, :, S_TERM].expand(R, R)])
+    has_msg = dom >= 0
+    dsafe = torch.clamp(dom, min=0).long()
+    m_scal = msg_scal[dsafe]                               # [R, S_N]
+    m_term = m_scal[:, S_TERM]
+    if fanout == "psum":
+        m_data = (wdata * contrib[:, None, None]).sum(0, dtype=torch.int64
+                                                       ).to(I32)
+        m_meta = (wmeta * contrib[:, None, None]).sum(0, dtype=torch.int64
+                                                       ).to(I32)
+        m_data = m_data[None].expand(R, -1, -1)
+        m_meta = m_meta[None].expand(R, -1, -1)
+    else:
+        m_data = (wdata * contrib[:, None, None])[dsafe]
+        m_meta = (wmeta * contrib[:, None, None])[dsafe]
+
+    # ---- Phase E: term-gated absorb ----
+    use = has_msg & (m_scal[:, S_VALID] > 0) & (m_term >= new_term)
+    new_term2 = torch.where(use, torch.maximum(new_term, m_term), new_term)
+    role2 = torch.where(
+        use & ((m_term > new_term) | (dom != me)),
+        torch.where(i_lead & (dom == me), role, int(Role.FOLLOWER)),
+        role).to(I32)
+    leader_id2 = torch.where(use, dom, leader_id)
+    i_lead2 = role2 == int(Role.LEADER)
+
+    m_wstart, m_wcount = m_scal[:, S_WSTART], m_scal[:, S_WCOUNT]
+    gap = m_wstart > end2
+    local_prev = torch.where(m_wstart > 0, term_at(log2, m_wstart - 1), 0)
+    prev_ok = (m_wstart == 0) | (local_prev == m_scal[:, S_PREV])
+    can_absorb = use & ~gap & prev_ok
+    log3, end3 = absorb_window(log2, end2, m_data, m_meta, m_wstart,
+                               torch.where(can_absorb, m_wcount, 0))
+    end3 = torch.where(use & ~gap & ~prev_ok,
+                       torch.maximum(m_wstart - 1, state.commit), end3)
+    commit1 = torch.where(
+        can_absorb & ~i_lead2,
+        torch.maximum(state.commit,
+                      torch.minimum(torch.minimum(m_scal[:, S_COMMIT], end3),
+                                    state.commit + W)),
+        state.commit)
+    head1 = torch.where(
+        can_absorb,
+        torch.maximum(state.head, torch.minimum(m_scal[:, S_HEAD], commit1)),
+        state.head)
+
+    # ---- CONFIG derivation (latest CONFIG in the log, else checkpoint) ----
+    sw = log3.slot_words
+    wend_abs = m_wstart + m_wcount
+    stale_src = state.cfg_src >= end3
+    wp = torch.clamp(state.cfg_src - m_wstart, 0, W - 1)
+    wp_meta = _pick(m_meta, wp)
+    same_entry = ((wp_meta[:, M_GIDX] == state.cfg_src)
+                  & (wp_meta[:, M_TYPE] == int(EntryType.CONFIG))
+                  & (wp_meta[:, M_TERM] == state.cfg_src_term))
+    replaced = (can_absorb & (state.cfg_src >= m_wstart)
+                & (state.cfg_src < wend_abs) & ~same_entry)
+    cfg_invalid = (state.cfg_src >= 0) & (stale_src | replaced)
+
+    all_meta = log3.meta
+    all_gidx = all_meta[..., M_GIDX]                       # [R, n_slots]
+    live = ((all_meta[..., M_TYPE] == int(EntryType.CONFIG))
+            & (all_gidx >= head1[:, None]) & (all_gidx < end3[:, None]))
+    pos = _lex_argmax(live, [all_gidx])
+    found = pos >= 0
+    rw = _pick(log3.buf, pos)                              # [R, cols]
+    base_src = torch.where(
+        cfg_invalid, torch.where(found, rw[:, sw + M_GIDX], -1),
+        state.cfg_src)
+    base_sterm = torch.where(
+        cfg_invalid, torch.where(found, rw[:, sw + M_TERM], 0),
+        state.cfg_src_term)
+    base_old = torch.where(
+        cfg_invalid, torch.where(found, _u32(rw[:, 0]), state.ccfg_old),
+        state.bitmask_old)
+    base_new = torch.where(
+        cfg_invalid, torch.where(found, _u32(rw[:, 1]), state.ccfg_new),
+        state.bitmask_new)
+    base_cid = torch.where(
+        cfg_invalid, torch.where(found, rw[:, 2], state.ccfg_cid),
+        state.cid_state)
+    base_epoch = torch.where(
+        cfg_invalid, torch.where(found, rw[:, 3], state.ccfg_epoch),
+        state.epoch)
+
+    # newest CONFIG in the absorbed window
+    w_offs = torch.arange(W, dtype=I32, device=dev)
+    w_gidx = m_wstart[:, None] + w_offs
+    w_is_cfg = (can_absorb[:, None] & (w_offs < m_wcount[:, None])
+                & (m_meta[..., M_TYPE] == int(EntryType.CONFIG))
+                & (m_meta[..., M_GIDX] == w_gidx)
+                & (w_gidx >= head1[:, None]) & (w_gidx < end3[:, None]))
+    wpos = _lex_argmax(w_is_cfg, [w_gidx])
+    w_words = _pick(m_data, wpos)
+    w_src = torch.where(wpos >= 0, m_wstart + wpos, -1)
+    w_term = _pick(m_meta, wpos)[:, M_TERM]
+
+    # newest CONFIG in the just-appended batch
+    Bn = inp.batch_meta.shape[1]
+    b_offs = torch.arange(Bn, dtype=I32, device=dev)
+    b_is_cfg = ((b_offs < (end2 - end1)[:, None])
+                & (inp.batch_meta[..., M_TYPE] == int(EntryType.CONFIG))
+                & ((end1[:, None] + b_offs) < end3[:, None]))
+    bpos = _lex_argmax(b_is_cfg, [b_offs.expand(R, Bn)])
+    b_words = _pick(inp.batch_data, bpos)
+    b_src = torch.where(bpos >= 0, end1 + bpos, -1)
+
+    cand_src = torch.stack([base_src, w_src, b_src], 1).to(I32)
+    cand_sterm = torch.stack([
+        base_sterm, torch.where(wpos >= 0, w_term, 0),
+        torch.where(bpos >= 0, new_term, 0)], 1).to(I32)
+    pick = torch.clamp(
+        _lex_argmax(cand_src >= -1, [cand_src, cand_sterm]), min=0)
+    cfg_src2 = _pick(cand_src, pick)
+    cfg_src_term2 = _pick(cand_sterm, pick)
+    bm_old2 = _pick(torch.stack([base_old, _u32(w_words[:, 0]),
+                                 _u32(b_words[:, 0])], 1), pick)
+    bm_new2 = _pick(torch.stack([base_new, _u32(w_words[:, 1]),
+                                 _u32(b_words[:, 1])], 1), pick)
+    cid2 = _pick(torch.stack([base_cid, w_words[:, 2], b_words[:, 2]], 1),
+                 pick)
+    epoch2 = _pick(torch.stack([base_epoch, w_words[:, 3], b_words[:, 3]],
+                               1), pick)
+    in_new2 = _members(bm_new2, R)
+    in_old2 = _members(bm_old2, R)
+    maj_old2 = _maj(in_old2)
+    transit2 = (cid2 == int(ConfigState.TRANSIT)).to(I32)
+    q_mask2 = torch.where(cid2 == int(ConfigState.EXTENDED), bm_old2,
+                          bm_new2)
+    in_q2 = _members(q_mask2, R)
+    maj_q2 = _maj(in_q2)
+
+    # ---- Phase F: ack gather + quorum commit scan ----
+    my_ack = torch.where(can_absorb, m_wstart + m_wcount, 0).to(I32)
+    ack_dom = torch.where(can_absorb, dom, -1)
+    peer_acked = heard & (ack_dom[None, :] == me[:, None])     # [R, R]
+    acks_pad = torch.zeros((R, R_PAD), dtype=I32, device=dev)
+    acks_pad[:, :R] = torch.where(peer_acked, my_ack[None, :], 0)
+    cwin_g = state.commit[:, None] + w_offs                  # [R, W]
+    cwin_meta = gather_rows(log3.buf, cwin_g)[..., sw:]      # [R, W, MW]
+    scanned = commit_scan(
+        acks_pad, cwin_meta[..., M_TERM].contiguous(),
+        pack_scal(state.commit, new_term2, end3, bm_old2, q_mask2,
+                  transit2, maj_old2, maj_q2))
+    commit2 = torch.where(i_lead2, torch.maximum(state.commit, scanned),
+                          commit1)
+
+    # ---- Phase G: apply echo, pruning, committed-config checkpoint ----
+    apply2 = torch.minimum(torch.maximum(
+        torch.maximum(state.apply, inp.apply_done), head1), commit2)
+    pressure = (end3 - head1) > (3 * cfg.n_slots) // 4
+    head2 = torch.where(
+        i_lead2 & pressure,
+        torch.minimum(torch.maximum(torch.maximum(head1, min_apply), head1),
+                      apply2),
+        head1)
+    hard = (end3 - head1) > (7 * cfg.n_slots) // 8
+    head2 = torch.where(i_lead2 & hard, torch.maximum(head2, apply2), head2)
+
+    crossed = ((cwin_meta[..., M_TYPE] == int(EntryType.CONFIG))
+               & (cwin_meta[..., M_GIDX] == cwin_g)
+               & (cwin_g < commit2[:, None]))
+    xpos = _lex_argmax(crossed, [cwin_g])
+    xw = gather_rows(log3.buf, (state.commit + torch.clamp(xpos, min=0)
+                                )[:, None])[:, 0]
+    newer = (xpos >= 0) & (xw[:, 3] > state.ccfg_epoch)
+    cc1_old = torch.where(newer, _u32(xw[:, 0]), state.ccfg_old)
+    cc1_new = torch.where(newer, _u32(xw[:, 1]), state.ccfg_new)
+    cc1_cid = torch.where(newer, xw[:, 2], state.ccfg_cid)
+    cc1_epoch = torch.where(newer, xw[:, 3], state.ccfg_epoch)
+    promote = (cfg_src2 >= 0) & (cfg_src2 < commit2) & (epoch2 > cc1_epoch)
+
+    pa = peer_acked.to(I32)
+    new_state = ReplicaState(
+        log=log3, term=new_term2, role=role2, leader_id=leader_id2,
+        voted_term=new_voted_term, voted_for=new_voted_for,
+        vote_rec_term=vote_rec_term2, vote_rec_for=vote_rec_for2,
+        head=head2, apply=apply2, commit=commit2, end=end3,
+        cid_state=cid2, bitmask_old=bm_old2, bitmask_new=bm_new2,
+        epoch=epoch2, cfg_src=cfg_src2, cfg_src_term=cfg_src_term2,
+        ccfg_old=torch.where(promote, bm_old2, cc1_old),
+        ccfg_new=torch.where(promote, bm_new2, cc1_new),
+        ccfg_cid=torch.where(promote, cid2, cc1_cid),
+        ccfg_epoch=torch.where(promote, epoch2, cc1_epoch),
+    )
+    is_leader_row = state.role[None, :] == int(Role.LEADER)
+    max_end = torch.where(heard, g_end[None, :], 0).max(1).values
+    min_head = torch.where(heard, state.head[None, :], I32_MAX).min(1).values
+    out = StepOutput(
+        term=new_term2, role=role2, leader_id=leader_id2,
+        voted_term=new_voted_term, voted_for=new_voted_for,
+        head=head2, apply=apply2, commit=commit2, end=end3,
+        hb_seen=(has_msg & use).to(I32),
+        became_leader=became.to(I32),
+        acked=can_absorb.to(I32),
+        accepted=(end2 - end1).to(I32),
+        peer_acked=pa,
+        leadership_verified=(
+            i_lead2 & ((pa * in_q2).sum(1) >= maj_q2)
+            & ((transit2 <= 0) | ((pa * in_old2).sum(1) >= maj_old2))
+        ).to(I32),
+        burst_hint=torch.where(heard & is_leader_row,
+                               inp.queue_depth[None, :], 0
+                               ).max(1).values.to(I32),
+        rebase_delta=torch.where(
+            max_end >= cfg.rebase_threshold,
+            torch.clamp(min_head & ~(cfg.n_slots - 1), min=0), 0).to(I32),
+    )
+    return new_state, out
+
+
+# per-replica scalar outputs the host rules consume, packed into ONE
+# [..., len(SCAN_KEYS)] i32 matrix; ``accepted`` is cumulative across a
+# scan. Order is part of the host contract — append only.
+SCAN_KEYS = ("term", "role", "leader_id", "voted_term", "voted_for",
+             "head", "apply", "commit", "end", "hb_seen",
+             "became_leader", "acked", "accepted",
+             "leadership_verified", "rebase_delta", "burst_hint")
+
+
+def scan_scalars(out: StepOutput, accepted_total: torch.Tensor
+                 ) -> torch.Tensor:
+    """Stack one step's :data:`SCAN_KEYS` outputs along a trailing axis,
+    with the cumulative ``accepted_total`` in the ``accepted`` column."""
+    return torch.stack([
+        (accepted_total if k == "accepted" else getattr(out, k)).to(I32)
+        for k in SCAN_KEYS], dim=-1)
+
+
+def scan_readback(out: StepOutput, accepted_total: torch.Tensor, *,
+                  audit: bool = False, telemetry: bool = False) -> dict:
+    """One scan step's readback dict: the scalar matrix + ``peer_acked``."""
+    if audit or telemetry:
+        raise NotImplementedError(
+            "the audit= and telemetry= scan readbacks are not ported")
+    return dict(scal=scan_scalars(out, accepted_total),
+                peer_acked=out.peer_acked)
+
+
+def fetch_window(log, start: torch.Tensor, *, window_slots: int):
+    """Host helper: ``window_slots`` entries from ``start [R]`` of every
+    replica's log — newly committed payloads for replay."""
+    return extract_window(log, start, window_slots)

@@ -1,0 +1,108 @@
+"""Single-device builders of the protocol step: R replicas stacked on
+one device (the JAX package's ``vmap``-simulated replica axis).
+
+Each builder returns a plain function over tensors; there is nothing to
+compile, so a "build" only binds the static configuration. The fused
+K-step burst and scan are Python loops of the stable step (the JAX
+``lax.scan``). The state is updated in place and returned. The
+multi-device (spmd, 2-D mesh) builders belong to the multi-device
+slice.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from rdma_paxos_tpu_torch.consensus.log import extract_window
+from rdma_paxos_tpu_torch.consensus.state import (
+    ReplicaState, make_replica_state, map_state)
+from rdma_paxos_tpu_torch.consensus.step import (
+    OUTPUT_FIELDS, StepInput, StepOutput, replica_step, scan_readback)
+
+
+def stack_states(cfg, n_replicas: int, group_size: int, *, device
+                 ) -> ReplicaState:
+    """Batched initial state: every field gains a leading replica axis."""
+    one = make_replica_state(cfg, group_size, n_replicas, device=device)
+    return map_state(
+        lambda x: x.expand((n_replicas,) + tuple(x.shape)).clone(), one)
+
+
+def _stack_outputs(outs) -> StepOutput:
+    return StepOutput(**{k: torch.stack([getattr(o, k) for o in outs])
+                         for k in OUTPUT_FIELDS})
+
+
+def build_sim_step(cfg, n_replicas: int, *, fanout: str = "gather",
+                   elections: bool = True, audit: bool = False,
+                   telemetry: bool = False, txn: bool = False):
+    """``fn(state, inp) -> (state, out)``: one step of all replicas."""
+    return functools.partial(
+        replica_step, cfg=cfg, n_replicas=n_replicas, fanout=fanout,
+        elections=elections, audit=audit, telemetry=telemetry, txn=txn)
+
+
+def _burst_steps(cfg, n_replicas, fanout, state, datas, metas, counts,
+                 peer_mask, applied, qdepth):
+    """The K stable steps of a burst: no timeouts fire, the host apply
+    cursors ``applied`` stay frozen (the host cannot replay mid-burst),
+    ``qdepth`` is the backlog remaining beyond the burst."""
+    zeros_r = torch.zeros_like(applied)
+    for k in range(datas.shape[0]):
+        inp = StepInput(batch_data=datas[k], batch_meta=metas[k],
+                        batch_count=counts[k], timeout_fired=zeros_r,
+                        peer_mask=peer_mask, apply_done=applied,
+                        queue_depth=qdepth)
+        state, out = replica_step(state, inp, cfg=cfg,
+                                  n_replicas=n_replicas, fanout=fanout,
+                                  elections=False)
+        yield state, out
+
+
+def build_sim_burst(cfg, n_replicas: int, *, fanout: str = "gather",
+                    audit: bool = False, telemetry: bool = False):
+    """K protocol steps in one call: ``burst(state, datas [K,R,B,sw],
+    metas [K,R,B,MW], counts [K,R], peer_mask [R,R], applied [R],
+    qdepth [R]) -> (state, outs)`` with every output field stacked
+    ``[K, ...]``."""
+    if audit or telemetry:
+        raise NotImplementedError(
+            "the audit= and telemetry= burst variants are not ported")
+
+    def burst(state, datas, metas, counts, peer_mask, applied, qdepth):
+        outs = []
+        for state, out in _burst_steps(cfg, n_replicas, fanout, state,
+                                       datas, metas, counts, peer_mask,
+                                       applied, qdepth):
+            outs.append(out)
+        return state, _stack_outputs(outs)
+    return burst
+
+
+def build_sim_scan(cfg, n_replicas: int, *, replay_slots: int,
+                   fanout: str = "gather", audit: bool = False,
+                   telemetry: bool = False):
+    """The K-window scan tier: the burst's K steps with ONE consolidated
+    readback — ``scal [K, R, len(SCAN_KEYS)]`` (``accepted``
+    cumulative), ``peer_acked [K, R, R]`` and ``replay_slots`` rows per
+    replica from the PRE-scan apply cursors of the post-scan log
+    (``replay_data``/``replay_meta``)."""
+    if audit or telemetry:
+        raise NotImplementedError(
+            "the audit= and telemetry= scan variants are not ported")
+
+    def scan(state, datas, metas, counts, peer_mask, applied, qdepth):
+        acc = torch.zeros_like(applied)
+        ys = []
+        for state, out in _burst_steps(cfg, n_replicas, fanout, state,
+                                       datas, metas, counts, peer_mask,
+                                       applied, qdepth):
+            acc = acc + out.accepted
+            ys.append(scan_readback(out, acc))
+        res = {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
+        res["replay_data"], res["replay_meta"] = extract_window(
+            state.log, applied, replay_slots)
+        return state, res
+    return scan

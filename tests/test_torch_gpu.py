@@ -1,0 +1,44 @@
+"""Kernel checks that need the card: each CUDA kernel of the port against
+its plain PyTorch version, on the card. Marked ``gpu``; each test
+decides at run time and skips without a CUDA device. On the card:
+``python -m pytest -m gpu tests/test_torch_gpu.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+@pytest.mark.parametrize("N,W", [(3, 16), (13, 128), (192, 2048)])
+def test_commit_scan_kernel_equals_plain(N, W):
+    _need_card()
+    from rdma_paxos_tpu_torch.ops.quorum import (
+        R_PAD, commit_scan, commit_scan_cuda, commit_scan_ref)
+    rng = np.random.default_rng(N * W)
+    commit = rng.integers(0, 1000, N)
+    ends = np.zeros((N, R_PAD), np.int64)
+    ends[:, :13] = commit[:, None] + rng.integers(-3, W + 4, (N, 13))
+    ends[:, :13] *= rng.random((N, 13)) < 0.9
+    bm = rng.integers(0, 1 << 13, (N, 2))
+    bm[:, 1] |= (rng.random(N) < 0.3) << 31
+    scal = np.stack([commit, rng.integers(1, 3, N),
+                     commit + rng.integers(0, W + 4, N), bm[:, 0], bm[:, 1],
+                     rng.integers(0, 2, N), np.full(N, 2), np.full(N, 3)], 1)
+    dev = torch.device("cuda")
+
+    def t(a):
+        return torch.from_numpy((np.asarray(a) & 0xFFFFFFFF).astype(
+            np.uint32).view(np.int32)).to(dev)
+    e, tm, s = t(ends), t(rng.integers(0, 3, (N, W))), t(scal)
+    want = commit_scan_ref(e, tm, s)
+    assert torch.equal(commit_scan_cuda(e, tm, s), want)
+    before = commit_scan.launches
+    assert torch.equal(commit_scan(e, tm, s), want)
+    assert commit_scan.launches == before + 1
+    torch.cuda.synchronize()

@@ -1,0 +1,157 @@
+"""Port parity: ``replica_step`` over the stacked replica axis against the
+JAX package's ``build_sim_step`` on seeded multi-step schedules —
+elections (full and stable programs), partitions and asymmetric links
+via ``peer_mask``, CONFIG entries, a wedged apply that forces pruning,
+both fan-outs. Every StepOutput field and the whole post-state are
+compared after every step, with exact equality."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rdma_paxos_tpu.config import LogConfig as JCfg
+from rdma_paxos_tpu.consensus.step import StepInput as JInput
+from rdma_paxos_tpu.parallel.mesh import (
+    build_sim_step as j_build_step, stack_states as j_stack)
+from rdma_paxos_tpu_torch.config import LogConfig
+from rdma_paxos_tpu_torch.consensus.log import EntryType, M_LEN, M_TYPE, META_W
+from rdma_paxos_tpu_torch.consensus.state import ConfigState, clone_state
+from rdma_paxos_tpu_torch.consensus.step import (
+    OUTPUT_FIELDS, StepInput, make_step_input, replica_step)
+from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
+from rdma_paxos_tpu_torch.parallel.mesh import build_sim_step, stack_states
+
+# tiny tensors: one intra-op thread per process keeps parallel test
+# workers from oversubscribing the cores
+torch.set_num_threads(1)
+
+GEO = dict(n_slots=64, slot_bytes=32, window_slots=16, batch_slots=8)
+CFG, JCFG = LogConfig(**GEO), JCfg(**GEO)
+INPUT_FIELDS = ("batch_data", "batch_meta", "batch_count",
+                "timeout_fired", "peer_mask", "apply_done", "queue_depth")
+
+
+def random_input(rng, R, fanout, commit, applied, wedged, epoch):
+    """One step's host inputs: client batches (a few CONFIG entries),
+    timeouts, links, the host apply echo."""
+    B, sw = CFG.batch_slots, CFG.slot_words
+    data = rng.integers(-99, 99, (R, B, sw)).astype(np.int32)
+    meta = np.zeros((R, B, META_W), np.int32)
+    meta[..., M_TYPE] = int(EntryType.SEND)
+    meta[..., M_LEN] = rng.integers(0, CFG.slot_bytes + 1, (R, B))
+    meta[..., 2:4] = rng.integers(0, 9, (R, B, 2))
+    full = (1 << R) - 1
+    for r, b in zip(*np.nonzero(rng.random((R, B)) < 0.04)):
+        meta[r, b, M_TYPE] = int(EntryType.CONFIG)
+        epoch[0] += 1
+        cid = int(rng.choice([ConfigState.STABLE, ConfigState.TRANSIT,
+                              ConfigState.EXTENDED]))
+        new = full if rng.random() < 0.6 else full & ~(1 << int(
+            rng.integers(R)))
+        data[r, b, :4] = [full, new, cid, epoch[0]]
+    peer = np.ones((R, R), np.int32)
+    if fanout == "gather":
+        u = rng.random()
+        if u < 0.25:
+            cut = int(rng.integers(1, R))
+            perm = rng.permutation(R)
+            for grp in (perm[:cut], perm[cut:]):
+                for i in grp:
+                    peer[i] = 0
+                    peer[i, grp] = 1
+        elif u < 0.35:
+            peer = (rng.random((R, R)) < 0.7).astype(np.int32)
+            np.fill_diagonal(peer, 1)
+    for r in range(R):
+        if r not in wedged:
+            applied[r] = max(applied[r], commit[r] - rng.integers(0, 3))
+    return dict(
+        batch_data=data, batch_meta=meta,
+        batch_count=rng.integers(0, B + 2, R).astype(np.int32),
+        timeout_fired=(rng.random(R) < 0.12).astype(np.int32),
+        peer_mask=peer, apply_done=applied.astype(np.int32),
+        queue_depth=rng.integers(0, 50, R).astype(np.int32))
+
+
+def assert_same(jst, jout, tst, tout, tag):
+    for k in OUTPUT_FIELDS:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(jout, k)), getattr(tout, k).numpy(),
+            err_msg=f"{tag}: output {k}")
+    js, ts = replica_state_to_numpy(jst), replica_state_to_numpy(tst)
+    for k in js:
+        np.testing.assert_array_equal(js[k], ts[k],
+                                      err_msg=f"{tag}: state {k}")
+
+
+@pytest.mark.parametrize("R,fanout,seed", [
+    (3, "gather", 0), (5, "gather", 1), (3, "psum", 2), (3, "gather", 3)])
+def test_step_schedule_matches_jax(R, fanout, seed):
+    rng = np.random.default_rng(seed)
+    jsteps = {e: j_build_step(JCFG, R, fanout=fanout, elections=e)
+              for e in (True, False)}
+    tsteps = {e: build_sim_step(CFG, R, fanout=fanout, elections=e)
+              for e in (True, False)}
+    jst = j_stack(JCFG, R, R)
+    tst = stack_states(CFG, R, R, device="cpu")
+    commit = np.zeros(R, np.int64)
+    applied = np.zeros(R, np.int64)
+    wedged = {R - 1} if seed == 3 else set()
+    epoch = [0]
+    forced = 0
+    for step in range(48):
+        inp = random_input(rng, R, fanout, commit, applied, wedged, epoch)
+        if step == 0:
+            inp["timeout_fired"][:] = 0
+            inp["timeout_fired"][0] = 1
+        # stable program when no timer fired (as the engine does), and
+        # sometimes the full program anyway: both must match JAX
+        elections = bool(inp["timeout_fired"].any()) or rng.random() < 0.3
+        jin = JInput(**{k: jnp.asarray(inp[k]) for k in INPUT_FIELDS})
+        tin = StepInput(**{k: torch.from_numpy(inp[k])
+                           for k in INPUT_FIELDS})
+        jst, jout = jsteps[elections](jst, jin)
+        tst, tout = tsteps[elections](tst, tin)
+        assert_same(jst, jout, tst, tout, f"step {step} el={elections}")
+        commit = tout.commit.numpy().astype(np.int64)
+        head = tout.head.numpy()
+        forced += int(any(head[r] > applied[r] for r in wedged))
+    assert commit.max() >= 2 * CFG.window_slots, "schedule never committed"
+    if wedged:
+        assert forced, "the wedged replica was never pruned past"
+
+
+def test_stable_equals_full_without_timeouts():
+    """Within the port: with no timer fired, the stable step and the
+    full step give identical results."""
+    R = 3
+    rng = np.random.default_rng(11)
+    a = stack_states(CFG, R, R, device="cpu")
+    inp = make_step_input(CFG, R, device="cpu")
+    inp.timeout_fired[0] = 1
+    a, _ = replica_step(a, inp, cfg=CFG, n_replicas=R)       # elect 0
+    for _ in range(6):
+        inp = random_input(rng, R, "gather", np.zeros(R, np.int64),
+                           np.zeros(R, np.int64), set(), [0])
+        inp["timeout_fired"][:] = 0
+        b = clone_state(a)
+        tin = StepInput(**{k: torch.from_numpy(inp[k])
+                           for k in INPUT_FIELDS})
+        a, oa = replica_step(a, tin, cfg=CFG, n_replicas=R, elections=True)
+        b, ob = replica_step(b, tin, cfg=CFG, n_replicas=R,
+                             elections=False)
+        for k in OUTPUT_FIELDS:
+            assert torch.equal(getattr(oa, k), getattr(ob, k)), k
+        sa, sb = replica_state_to_numpy(a), replica_state_to_numpy(b)
+        for k in sa:
+            np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+
+
+def test_unported_flags_raise():
+    R = 3
+    st = stack_states(CFG, R, R, device="cpu")
+    inp = make_step_input(CFG, R, device="cpu")
+    for flag in ("audit", "telemetry", "txn"):
+        with pytest.raises(NotImplementedError):
+            replica_step(st, inp, cfg=CFG, n_replicas=R, **{flag: True})
