@@ -18,9 +18,13 @@ exits non-zero without its result line):
    ``ReplicatedKVS(cap=65536)``. Every acknowledged write must read back
    from all 3 replicas and through the leader's read-index ``get``; the
    same seeded run on the CPU must give bit-equal replay streams,
-   replica state and KVS tables; the commit-scan kernel must have been
-   launched exactly once per protocol step;
-5. times at geometry (a), with the card's name and power limit;
+   replica state and KVS tables; the commit-window kernel must have been
+   launched exactly once per protocol step, and the stand-alone
+   commit-scan kernel never;
+5. launches and times at geometry (a), with the card's name and power
+   limit: CUDA kernels per ``step()``, each kernel's device time beside
+   its bound and its plain version (the commit window also at 64 groups
+   x 3 replicas), steps/s and entries/s, the device and host profiles;
 6. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -155,6 +159,101 @@ def phase_kernel_checks(dev) -> dict:
     return dict(max_abs_err=0, instances=n_inst)
 
 
+def wrap(a) -> np.ndarray:
+    """int64 values -> the i32 values they wrap to."""
+    return ((np.asarray(a, np.int64) + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def window_case(rng, dev, *, G: int, R: int, W: int, n_slots: int,
+                commit=None, lead_p=0.6, cfg_p=0.15, transit_p=0.3,
+                bit31=False):
+    """Seeded commit-window instances, N = G groups x R replicas, on
+    ``dev``: a ring (128-byte payloads, as the main path's) whose window
+    rows carry terms near ``my_term`` and CONFIG rows, most stamped with
+    their own index; acks near the window. Returns the positional and
+    keyword arguments of ``commit_window``."""
+    from rdma_paxos_tpu_torch.consensus.log import (
+        EntryType, M_GIDX, M_TERM, M_TYPE, META_W)
+    N, sw = G * R, 32
+    buf = np.zeros((N, n_slots, sw + META_W), np.int32)
+    buf[..., sw:] = rng.integers(-50, 50, (N, n_slots, META_W), np.int32)
+    commit = (rng.integers(0, 4 * n_slots, N) if commit is None
+              else np.full(N, commit, np.int64))
+    my_term = rng.integers(1, 4, N)
+    g = wrap(commit[:, None] + np.arange(W))                  # [N, W]
+    at = (np.arange(N)[:, None], g & (n_slots - 1))
+    buf[at + (sw + M_TERM,)] = my_term[:, None] + rng.integers(-1, 2, (N, W))
+    buf[at + (sw + M_TYPE,)] = np.where(rng.random((N, W)) < cfg_p,
+                                        int(EntryType.CONFIG),
+                                        int(EntryType.SEND))
+    buf[at + (sw + M_GIDX,)] = wrap(np.where(rng.random((N, W)) < 0.8,
+                                             g, g + n_slots))
+    full = (1 << R) - 1
+    bm_old = full & rng.integers(0, 1 << R, N) | (rng.random(N) < 0.5) * full
+    bm_new = full & rng.integers(0, 1 << R, N) | (rng.random(N) < 0.5) * full
+    if bit31:
+        bm_new |= (rng.random(N) < 0.7).astype(np.int64) << 31
+        bm_old |= (rng.random(N) < 0.3).astype(np.int64) << 31
+
+    def maj(bm):
+        return np.array([bin(int(b)).count("1") // 2 + 1 for b in bm])
+    kw = {k: i32(v, dev) for k, v in dict(
+        commit=commit, my_term=my_term,
+        my_end=wrap(commit + rng.integers(0, W + 6, N)),
+        transit=rng.random(N) < transit_p, maj_old=maj(bm_old),
+        maj_new=maj(bm_new),
+        commit1=wrap(commit + rng.integers(0, W, N))).items()}
+    kw.update(bm_old=torch.from_numpy(bm_old).to(dev),
+              bm_new=torch.from_numpy(bm_new).to(dev),
+              i_lead=torch.from_numpy(rng.random(N) < lead_p).to(dev))
+    args = (torch.from_numpy(buf).to(dev),
+            torch.from_numpy(rng.random((N, R)) < 0.8).to(dev),
+            i32(wrap(commit + rng.integers(-3, W + 4, N)), dev))
+    return args, kw
+
+
+# edge cases of the commit window (see tests/test_torch_window.py)
+WINDOW_EDGES = {
+    "ring wrap": lambda n_slots: dict(commit=2 * n_slots - 7),
+    "i32 wrap": lambda n_slots: dict(commit=(1 << 31) - 9),
+    "transit": lambda n_slots: dict(transit_p=1.0),
+    "bit 31": lambda n_slots: dict(bit31=True),
+    "no leader": lambda n_slots: dict(lead_p=0.0),
+    "no CONFIG": lambda n_slots: dict(cfg_p=0.0),
+    "all CONFIG": lambda n_slots: dict(cfg_p=1.0),
+}
+
+
+def phase_window_checks(dev) -> dict:
+    from rdma_paxos_tpu_torch.ops.quorum import (
+        commit_window_cuda, commit_window_ref)
+    rng = np.random.default_rng(SEED + 2)
+    cases = [(dict(G=G, R=r, W=W, n_slots=max(64, 4 * W)), {})
+             for G, r in ((1, 3), (1, 13), (64, 3)) for W in (16, 128, 2048)]
+    cases += [(dict(G=4, R=3, W=W, n_slots=4 * W), edge(4 * W))
+              for W in (16, 2048) for edge in WINDOW_EDGES.values()]
+    n_inst, found = 0, 0
+    for shape, extra in cases:
+        args, kw = window_case(rng, dev, **shape, **extra)
+        got = commit_window_cuda(*args, w=shape["W"], **kw)
+        want = commit_window_ref(*args, w=shape["W"], **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("commit2", "xpos"), got, want):
+            bad = int((a != b).sum())
+            check(bad == 0, f"commit_window kernel != plain in {name} on "
+                            f"{bad} of {len(a)} instances ({shape}, {extra}):"
+                            f" {a[a != b][:8].tolist()} vs "
+                            f"{b[a != b][:8].tolist()}")
+        n_inst += len(got[0])
+        found += int((want[1] >= 0).sum())
+    check(0 < found < n_inst, "the crossing search was never exercised")
+    print(f"kernel check: commit_window == commit_window_ref on {n_inst} "
+          f"instances in {len(cases)} batches (N in 3/13/192, W in "
+          f"16/128/2048; edge cases: {', '.join(WINDOW_EDGES)}; "
+          f"{found} with a crossing CONFIG row), max_abs_err 0", flush=True)
+    return dict(max_abs_err=0, instances=n_inst)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -202,7 +301,7 @@ def drive(port, geo: str, dev, kvs_ops: int) -> dict:
     from rdma_paxos_tpu_torch.models.kvs import CMD_W, OP_INCR, decode_val
     from rdma_paxos_tpu_torch.models.replicated_kvs import (
         TXN_CMD_W, ReplicatedKVS)
-    from rdma_paxos_tpu_torch.ops.quorum import commit_scan
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
     from rdma_paxos_tpu_torch.runtime.sim import SimCluster
     geom, fanout = GEOMETRIES[geo]
     cfg = LogConfig(**geom)
@@ -210,7 +309,8 @@ def drive(port, geo: str, dev, kvs_ops: int) -> dict:
     rng = np.random.default_rng(SEED)
     c = SimCluster(cfg, R, fanout=fanout, device=dev)
     kv = ReplicatedKVS(c, cap=65536)
-    launches0, steps0 = commit_scan.launches, c.step_index
+    launches0, steps0 = (commit_window.launches,
+                         commit_scan.launches), c.step_index
     t0 = time.perf_counter()
 
     lead = c.run_until_elected(0)
@@ -270,7 +370,8 @@ def drive(port, geo: str, dev, kvs_ops: int) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = c.step_index - steps0
-    launches = commit_scan.launches - launches0
+    launches = (commit_window.launches - launches0[0],
+                commit_scan.launches - launches0[1])
 
     # every acknowledged write reads back, from all 3 replicas and
     # through the leader's read-index path
@@ -302,13 +403,14 @@ def drive(port, geo: str, dev, kvs_ops: int) -> dict:
 
 
 def phase_main_path(port, geo: str, dev, kvs_ops: int) -> dict:
-    from rdma_paxos_tpu_torch.ops.quorum import commit_scan
-    commit_scan.launches = 0
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    commit_window.launches = commit_scan.launches = 0
     gpu = drive(port, geo, dev, kvs_ops)
-    launches = commit_scan.launches
-    check(gpu["launches"] == launches == gpu["steps"] > 0,
-          f"commit_scan launched {launches} times in {gpu['steps']} "
-          f"protocol steps")
+    launches = commit_window.launches
+    check(gpu["launches"] == (launches, commit_scan.launches)
+          and launches == gpu["steps"] > 0 and commit_scan.launches == 0,
+          f"commit_window launched {launches} times and commit_scan "
+          f"{commit_scan.launches} times in {gpu['steps']} protocol steps")
     t0 = time.perf_counter()
     cpu = drive(port, geo, torch.device("cpu"), kvs_ops)
     for k in ("steps", "acked", "replayed"):
@@ -323,7 +425,8 @@ def phase_main_path(port, geo: str, dev, kvs_ops: int) -> dict:
     same = f"bit-equal ({time.perf_counter() - t0:.1f} s on the CPU)"
     geom, fanout = GEOMETRIES[geo]
     print(f"main path ({geo}) {geom} fanout={fanout}: "
-          f"{gpu['steps']} protocol steps, {launches} commit_scan launches, "
+          f"{gpu['steps']} protocol steps, {launches} commit_window "
+          f"launches, 0 commit_scan launches, "
           f"{sum(1 for _ in gpu['replayed'][0])} committed entries, "
           f"{gpu['acked']} acked KVS ops read back on 3/3 replicas, "
           f"{gpu['wall']:.2f} s on the card; CPU replay {same}", flush=True)
@@ -371,7 +474,7 @@ def device_profile(fn):
 
 # the host-side stages of one engine step, for the host profile
 HOST_STAGES = ("step", "submit_many", "begin_step", "pack_rows", "_dev",
-               "replica_step", "commit_scan", "finish", "_readback",
+               "replica_step", "commit_window", "finish", "_readback",
                "_replay_committed", "decode_window")
 
 
@@ -392,42 +495,92 @@ def host_profile(fn) -> dict:
     return out
 
 
-def phase_times(dev, card: str) -> dict:
-    from rdma_paxos_tpu_torch.config import LogConfig
-    from rdma_paxos_tpu_torch.ops.quorum import (
-        R_PAD, commit_scan_cuda, commit_scan_ref)
-    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
-    geom, fanout = GEOMETRIES["a"]
-    cfg = LogConfig(**geom)
-    W, B = cfg.window_slots, cfg.batch_slots
+def kernel_time(kname: str, launch, plain, nbytes: int, nops: int) -> dict:
+    """One kernel at one shape. ``ms`` is its own device time from the
+    profiler, or None (not measured) when the profiler sees no kernel of
+    that name; ``call_ms`` the wrapper's per-call rate back to back (CUDA
+    events; host-bound: ctypes, checks, the output allocation); the
+    bound is the larger of ``nbytes`` over the memory rate and ``nops``
+    over the 32-bit ALU rate."""
+    call_ms = cuda_time_ms(launch, 2000)
+    plain_ms = cuda_time_ms(plain, 50)
+    _, kprof = device_profile(lambda: [launch() for _ in range(500)])
+    kern = [(n, us) for k, (n, us) in kprof.items() if f"{kname}_kernel" in k]
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = nops / ALU_OPS_PER_S * 1e3
+    return dict(ms=kern[0][1] / kern[0][0] / 1e3 if kern else None,
+                call_ms=call_ms, plain_ms=plain_ms,
+                bound_ms=max(b_bytes, b_ops), b_bytes=b_bytes, b_ops=b_ops,
+                bound_by="operations" if b_ops >= b_bytes else "bytes")
 
-    # the kernel at the main path's shapes: N = R instances, W rows.
-    # CUDA events over back-to-back wrapper calls give the per-call rate
-    # (host-bound: ctypes + checks); the profiler gives the kernel's own
-    # device time, which is the number reported as the kernel's time
+
+def kernel_line(name: str, t: dict) -> str:
+    own = (f"{t['ms'] * 1e3:.2f} us device time" if t["ms"] is not None
+           else "not measured (the profiler saw no kernel)")
+    return (f"{name} kernel {own} ({t['call_ms'] * 1e3:.2f} us per wrapper "
+            f"call back to back), plain {t['plain_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.4f} us by {t['bound_by']} (bytes "
+            f"{t['b_bytes'] * 1e3:.4f} us, ops {t['b_ops'] * 1e3:.4f} us)")
+
+
+def named_members(bm_old, bm_new) -> list:
+    """Per instance: the columns its two u32 member bitmasks name."""
+    return [bin((int(a) | int(b)) & 0xFFFFFFFF).count("1")
+            for a, b in zip(bm_old, bm_new)]
+
+
+def phase_kernel_times(dev, card: str) -> dict:
+    """The kernels at the main path's shapes (geometry (a): W = 2048 rows,
+    N = R = 3 instances), the commit window also at N = 64 x 3."""
+    from rdma_paxos_tpu_torch.ops.quorum import (
+        R_PAD, commit_scan_cuda, commit_scan_ref, commit_window_cuda,
+        commit_window_ref)
+    geom, _ = GEOMETRIES["a"]
+    W, n_slots = geom["window_slots"], geom["n_slots"]
     rng = np.random.default_rng(SEED + 1)
     ends, terms, scal = scan_cases(rng, R, W)
     e, t, s = i32(ends, dev), i32(terms, dev), i32(scal, dev)
-    call_ms = cuda_time_ms(lambda: commit_scan_cuda(e, t, s), 2000)
-    p_ms = cuda_time_ms(lambda: commit_scan_ref(e, t, s), 200)
-    _, kprof = device_profile(
-        lambda: [commit_scan_cuda(e, t, s) for _ in range(500)])
-    kern = [(n, us) for k, (n, us) in kprof.items() if "commit_scan" in k]
-    k_ms = kern[0][1] / kern[0][0] / 1e3 if kern else call_ms
-    k_src = "profiler device time" if kern else "events (profiler saw none)"
     # bytes: every input read once, the output written once. Operations:
     # what this run's data needs — per row, a compare and an add for each
     # column its two member bitmasks name, and six fixed tests (two
     # majorities, my_end, transit, the prefix, the term guard)
-    nbytes = R * (R_PAD + W + 8) * 4 + R * 4
-    named = [bin((int(a) | int(b)) & 0xFFFFFFFF).count("1")
-             for a, b in scal[:, 3:5]]
-    nops = sum(W * (2 * m + 6) for m in named)
-    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    b_ops = nops / ALU_OPS_PER_S * 1e3
-    bound_ms = max(b_bytes, b_ops)
+    scan = kernel_time(
+        "commit_scan", lambda: commit_scan_cuda(e, t, s),
+        lambda: commit_scan_ref(e, t, s),
+        R * (R_PAD + W + 8) * 4 + R * 4,
+        sum(W * (2 * m + 6) for m in named_members(scal[:, 3], scal[:, 4])))
+    print(f"times at geometry (a) on {card}, N = {R}, W = {W}: "
+          + kernel_line("commit_scan", scan), flush=True)
 
-    # end to end: full batches through the stable step and through bursts
+    window = {}
+    for G in (1, 64):
+        args, kw = window_case(rng, dev, G=G, R=R, W=W, n_slots=n_slots)
+        N = G * R
+        # bytes: three metadata words of each window row (type, term,
+        # gidx), the acks, the scalars, the [2, N] output. Operations: the
+        # scan's per row, plus four for the crossing search (type, gidx,
+        # g < commit2, the max)
+        window[N] = kernel_time(
+            "commit_window",
+            lambda: commit_window_cuda(*args, w=W, **kw),
+            lambda: commit_window_ref(*args, w=W, **kw),
+            N * W * 12 + N * R + N * 4 + N * (7 * 4 + 2 * 8 + 1) + 2 * N * 4,
+            sum(W * (2 * m + 10) for m in named_members(
+                kw["bm_old"].tolist(), kw["bm_new"].tolist())))
+        print(f"times at geometry (a) on {card}, N = {N} ({G} group(s) x "
+              f"{R}), W = {W}: " + kernel_line("commit_window", window[N]),
+              flush=True)
+    return dict(commit_scan=scan, commit_window=window[R])
+
+
+def phase_times(dev, card: str) -> None:
+    """End to end at geometry (a): full batches through the stable step
+    and through bursts, then the device and host profiles of ``step()``."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, fanout = GEOMETRIES["a"]
+    cfg = LogConfig(**geom)
+    B = cfg.batch_slots
     c = SimCluster(cfg, R, fanout=fanout, device=dev)
     lead = c.run_until_elected(0)
     payload = b"x" * 16
@@ -460,16 +613,18 @@ def phase_times(dev, card: str) -> dict:
             c.step()
     wall_ms, sprof = device_profile(ten_steps)
     busy_ms = sum(us for _, us in sprof.values()) / 1e3
+    n_kern = sum(n for k, (n, _) in sprof.items()
+                 if not k.startswith(("Memcpy", "Memset")))
+    n_copy = sum(n for _, (n, _) in sprof.items()) - n_kern
+    print(f"launches per step() at geometry (a) on {card} (torch.profiler, "
+          f"10 steps): {n_kern / 10:.1f} CUDA kernels, {n_copy / 10:.1f} "
+          f"copies and memsets", flush=True)
     host = host_profile(ten_steps)
     top = sorted(sprof.items(), key=lambda kv: -kv[1][1])[:6]
-    print(f"times at geometry (a) on {card}: commit_scan kernel "
-          f"{k_ms * 1e3:.2f} us ({k_src}; {call_ms * 1e3:.2f} us per "
-          f"wrapper call back to back), plain {p_ms * 1e3:.2f} us, bound "
-          f"{bound_ms * 1e3:.4f} us (ops {b_ops * 1e3:.4f} us, bytes "
-          f"{b_bytes * 1e3:.4f} us); step(): {rates['step'][0]:.1f} steps/s "
-          f"{rates['step'][1]:.0f} committed entries/s; step_burst(): "
-          f"{rates['burst'][0]:.1f} steps/s {rates['burst'][1]:.0f} "
-          f"committed entries/s", flush=True)
+    print(f"end to end at geometry (a) on {card}: step(): "
+          f"{rates['step'][0]:.1f} steps/s {rates['step'][1]:.0f} committed "
+          f"entries/s; step_burst(): {rates['burst'][0]:.1f} steps/s "
+          f"{rates['burst'][1]:.0f} committed entries/s", flush=True)
     busy = (f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall, idle "
             f"share {1 - busy_ms / wall_ms:.3f}" if sprof else
             "device time not measured (the profiler saw none)")
@@ -480,8 +635,6 @@ def phase_times(dev, card: str) -> dict:
           f"inclusive ms per step; inflates Python-heavy code): "
           + ", ".join(f"{k} {v / 10:.2f}" for k, v in host.items()),
           flush=True)
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                bound_by="operations" if b_ops >= b_bytes else "bytes")
 
 
 def main() -> int:
@@ -513,19 +666,24 @@ def main() -> int:
     print(f"build: {len(libs)} kernel(s) in {time.perf_counter() - t0:.1f} s"
           f" ({report})", flush=True)
 
-    chk = phase_kernel_checks(dev)
+    checks = dict(commit_scan=phase_kernel_checks(dev),
+                  commit_window=phase_window_checks(dev))
     main_runs = [phase_main_path(port, g, dev, kvs_ops=3000)
                  for g in GEOMETRIES]
-    tm = phase_times(dev, smi)
+    times = phase_kernel_times(dev, smi)
+    phase_times(dev, smi)
 
+    launches = dict(commit_window=sum(m["launches"] for m in main_runs),
+                    commit_scan=0)
     print(json.dumps({"kernels": [{
-        "name": "commit_scan", "route": "cuda",
+        "name": k, "route": "cuda",
         "source": "rdma_paxos_tpu_torch/csrc/commit_scan.cu",
         "replaces": "rdma_paxos_tpu/ops/quorum.py:144",
-        "launches": sum(m["launches"] for m in main_runs),
-        "max_abs_err": chk["max_abs_err"], "ms": tm["ms"],
-        "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-        "bound_by": tm["bound_by"], "library_ms": None}]}), flush=True)
+        "launches": launches[k], "max_abs_err": checks[k]["max_abs_err"],
+        **{f: times[k][f] for f in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+        "library_ms": None} for k in ("commit_scan", "commit_window")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0

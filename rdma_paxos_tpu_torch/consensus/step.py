@@ -13,9 +13,10 @@ and their reference mechanisms are those of
 
 A control gather · B one-round election (removed in the stable step) ·
 C leader append · D window fan-out · E term-gated absorb · CONFIG
-derivation · F ack gather + quorum commit scan (``ops/quorum.py``, the
-CUDA kernel on the card) · G apply echo, pruning, committed-config
-checkpoint.
+derivation · F ack gather + quorum commit scan · G apply echo, pruning,
+committed-config checkpoint. F and G's commit-crossing window search
+are one call, ``ops/quorum.py:commit_window`` (one CUDA kernel that
+reads the ring in place on the card).
 
 The state is updated in place (the JAX step donates it) and returned.
 The step never synchronises with the host: every decision is a tensor
@@ -38,10 +39,10 @@ from rdma_paxos_tpu_torch.consensus.log import (
     term_at)
 from rdma_paxos_tpu_torch.consensus.state import (
     ConfigState, ReplicaState, Role, U32_MASK)
-from rdma_paxos_tpu_torch.ops.quorum import R_PAD, commit_scan, pack_scal
+from rdma_paxos_tpu_torch.ops.quorum import (
+    I32_MIN, commit_window, lex_argmax)
 
 I32 = torch.int32
-I32_MIN = -(1 << 31)
 I32_MAX = (1 << 31) - 1
 
 # control-gather columns
@@ -102,20 +103,6 @@ def make_step_input(cfg, n_replicas: int, *, device) -> StepInput:
         batch_count=z(R), timeout_fired=z(R),
         peer_mask=torch.ones((R, R), dtype=I32, device=device),
         apply_done=z(R), queue_depth=z(R))
-
-
-def _lex_argmax(valid: torch.Tensor, keys) -> torch.Tensor:
-    """Per row of ``valid [..., n]``: index of the lexicographically
-    largest ``keys`` among valid entries, ties to the SMALLEST index;
-    -1 if none is valid."""
-    v = valid
-    for k in keys:
-        kk = torch.where(v, k, I32_MIN)
-        v = v & (kk == kk.max(-1, keepdim=True).values)
-    n = v.shape[-1]
-    idx = torch.arange(n, dtype=I32, device=v.device)
-    first = torch.where(v, idx, n).min(-1).values
-    return torch.where(first < n, first, -1).to(I32)
 
 
 def _members(bitmask: torch.Tensor, n: int) -> torch.Tensor:
@@ -214,7 +201,7 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
                | ((g_lterm[None, :] == my_lterm[:, None])
                   & (g_end[None, :] >= state.end[:, None]))))
         keys = [k[None, :].expand(R, R) for k in (cand_term, g_lterm, g_end)]
-        best = _lex_argmax(can_grant, keys)
+        best = lex_argmax(can_grant, keys)
         my_vote = torch.where(i_cand, me,
                               torch.where(i_member, best, -1)).to(I32)
         vote_cast = my_vote >= 0
@@ -277,7 +264,7 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
         torch.ones_like(wstart), wstart, wcount, new_term, prev_term,
         state.commit, state.head], dim=1) * contrib[:, None]  # [R, S_N]
     claim = heard & (msg_scal[None, :, S_VALID] > 0)
-    dom = _lex_argmax(claim, [msg_scal[None, :, S_TERM].expand(R, R)])
+    dom = lex_argmax(claim, [msg_scal[None, :, S_TERM].expand(R, R)])
     has_msg = dom >= 0
     dsafe = torch.clamp(dom, min=0).long()
     m_scal = msg_scal[dsafe]                               # [R, S_N]
@@ -340,7 +327,7 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     all_gidx = all_meta[..., M_GIDX]                       # [R, n_slots]
     live = ((all_meta[..., M_TYPE] == int(EntryType.CONFIG))
             & (all_gidx >= head1[:, None]) & (all_gidx < end3[:, None]))
-    pos = _lex_argmax(live, [all_gidx])
+    pos = lex_argmax(live, [all_gidx])
     found = pos >= 0
     rw = _pick(log3.buf, pos)                              # [R, cols]
     base_src = torch.where(
@@ -369,7 +356,7 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
                 & (m_meta[..., M_TYPE] == int(EntryType.CONFIG))
                 & (m_meta[..., M_GIDX] == w_gidx)
                 & (w_gidx >= head1[:, None]) & (w_gidx < end3[:, None]))
-    wpos = _lex_argmax(w_is_cfg, [w_gidx])
+    wpos = lex_argmax(w_is_cfg, [w_gidx])
     w_words = _pick(m_data, wpos)
     w_src = torch.where(wpos >= 0, m_wstart + wpos, -1)
     w_term = _pick(m_meta, wpos)[:, M_TERM]
@@ -380,7 +367,7 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     b_is_cfg = ((b_offs < (end2 - end1)[:, None])
                 & (inp.batch_meta[..., M_TYPE] == int(EntryType.CONFIG))
                 & ((end1[:, None] + b_offs) < end3[:, None]))
-    bpos = _lex_argmax(b_is_cfg, [b_offs.expand(R, Bn)])
+    bpos = lex_argmax(b_is_cfg, [b_offs.expand(R, Bn)])
     b_words = _pick(inp.batch_data, bpos)
     b_src = torch.where(bpos >= 0, end1 + bpos, -1)
 
@@ -389,7 +376,7 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
         base_sterm, torch.where(wpos >= 0, w_term, 0),
         torch.where(bpos >= 0, new_term, 0)], 1).to(I32)
     pick = torch.clamp(
-        _lex_argmax(cand_src >= -1, [cand_src, cand_sterm]), min=0)
+        lex_argmax(cand_src >= -1, [cand_src, cand_sterm]), min=0)
     cfg_src2 = _pick(cand_src, pick)
     cfg_src_term2 = _pick(cand_sterm, pick)
     bm_old2 = _pick(torch.stack([base_old, _u32(w_words[:, 0]),
@@ -409,20 +396,17 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     in_q2 = _members(q_mask2, R)
     maj_q2 = _maj(in_q2)
 
-    # ---- Phase F: ack gather + quorum commit scan ----
+    # ---- Phase F: ack gather + quorum commit scan, with Phase G's
+    # commit-crossing CONFIG search over the same window rows (one
+    # kernel launch on the card: ops/quorum.py:commit_window) ----
     my_ack = torch.where(can_absorb, m_wstart + m_wcount, 0).to(I32)
     ack_dom = torch.where(can_absorb, dom, -1)
     peer_acked = heard & (ack_dom[None, :] == me[:, None])     # [R, R]
-    acks_pad = torch.zeros((R, R_PAD), dtype=I32, device=dev)
-    acks_pad[:, :R] = torch.where(peer_acked, my_ack[None, :], 0)
-    cwin_g = state.commit[:, None] + w_offs                  # [R, W]
-    cwin_meta = gather_rows(log3.buf, cwin_g)[..., sw:]      # [R, W, MW]
-    scanned = commit_scan(
-        acks_pad, cwin_meta[..., M_TERM].contiguous(),
-        pack_scal(state.commit, new_term2, end3, bm_old2, q_mask2,
-                  transit2, maj_old2, maj_q2))
-    commit2 = torch.where(i_lead2, torch.maximum(state.commit, scanned),
-                          commit1)
+    commit2, xpos = commit_window(
+        log3.buf, peer_acked, my_ack, w=W, commit=state.commit,
+        my_term=new_term2, my_end=end3, bm_old=bm_old2, bm_new=q_mask2,
+        transit=transit2, maj_old=maj_old2, maj_new=maj_q2, i_lead=i_lead2,
+        commit1=commit1)
 
     # ---- Phase G: apply echo, pruning, committed-config checkpoint ----
     apply2 = torch.minimum(torch.maximum(
@@ -436,10 +420,6 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     hard = (end3 - head1) > (7 * cfg.n_slots) // 8
     head2 = torch.where(i_lead2 & hard, torch.maximum(head2, apply2), head2)
 
-    crossed = ((cwin_meta[..., M_TYPE] == int(EntryType.CONFIG))
-               & (cwin_meta[..., M_GIDX] == cwin_g)
-               & (cwin_g < commit2[:, None]))
-    xpos = _lex_argmax(crossed, [cwin_g])
     xw = gather_rows(log3.buf, (state.commit + torch.clamp(xpos, min=0)
                                 )[:, None])[:, 0]
     newer = (xpos >= 0) & (xw[:, 3] > state.ccfg_epoch)

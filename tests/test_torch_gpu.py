@@ -1,7 +1,8 @@
 """Kernel checks that need the card: each CUDA kernel of the port against
 its plain PyTorch version, on the card. Marked ``gpu``; each test
-decides at run time and skips without a CUDA device. On the card:
-``python -m pytest -m gpu tests/test_torch_gpu.py``."""
+decides at run time and skips without a CUDA device. On the card
+(which has no JAX, so tests/conftest.py is skipped):
+``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``."""
 
 import numpy as np
 import pytest
@@ -41,4 +42,25 @@ def test_commit_scan_kernel_equals_plain(N, W):
     before = commit_scan.launches
     assert torch.equal(commit_scan(e, tm, s), want)
     assert commit_scan.launches == before + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("G,R,W", [(1, 3, 2048), (1, 13, 128), (64, 3, 2048)])
+def test_commit_window_kernel_equals_plain(G, R, W):
+    """N = G x R instances in {3, 13, 192}, on the seeded rings of
+    ``chip_smoke.py`` (main-path width: 2048-row window, 8192 slots)."""
+    _need_card()
+    from chip_smoke import window_case
+    from rdma_paxos_tpu_torch.ops.quorum import (
+        commit_window, commit_window_cuda, commit_window_ref)
+    rng = np.random.default_rng(G * R * W)
+    args, kw = window_case(rng, torch.device("cuda"), G=G, R=R, W=W,
+                           n_slots=4 * W)
+    want = commit_window_ref(*args, w=W, **kw)
+    got = commit_window_cuda(*args, w=W, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    before = commit_window.launches
+    got = commit_window(*args, w=W, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert commit_window.launches == before + 1
     torch.cuda.synchronize()
