@@ -25,7 +25,22 @@ exits non-zero without its result line):
    limit: CUDA kernels per ``step()``, each kernel's device time beside
    its bound and its plain version (the commit window also at 64 groups
    x 3 replicas), steps/s and entries/s, the device and host profiles;
-6. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+6. the front door, at geometry (a): (6a) a pre-queued record of 20480
+   SEND events of 100 bytes on 8 connections through the leader's shim
+   handler of a pipelined ``ClusterDriver`` on the card — every event
+   acked once with status 0, the committed stream in submit order and
+   equal to a serial run on the CPU, ``max_inflight_dispatches >= 2``,
+   one ``commit_window`` launch per protocol step; acked events/s,
+   commit latency, dispatches, kernels per step, the card's idle share,
+   the readback thread's ``_post_step`` time per event and a cProfile of
+   the serial loop's post-step stages; (6b) three
+   ``native/toyserver`` apps under ``LD_PRELOAD=native/interpose.so``
+   served by the driver on the card: election by the timers, 2000 SETs
+   from 4 clients read back from both followers' apps, every replica's
+   stable store holding the CONNECT/SEND/CLOSE stream, and a failover
+   that serves a write to the remaining follower; requests/s and
+   request latency;
+7. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -33,9 +48,15 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import os
+import shutil
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -637,6 +658,491 @@ def phase_times(dev, card: str) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the front door
+# ---------------------------------------------------------------------------
+
+FRONT_CONNS = 8
+FRONT_EVENTS = 20480         # past one fused burst (an 8191-entry ring)
+FRONT_BYTES = 100
+TIMERS_OFF = dict(elec_timeout_low=1e9, elec_timeout_high=2e9)
+
+
+def front_record(n: int, size: int, seed: int = SEED) -> list:
+    """``n`` seeded payloads of ``size`` bytes."""
+    rows = np.random.default_rng(seed).integers(0, 256, (n, size), np.uint8)
+    return [r.tobytes() for r in rows]
+
+
+# the driver's post-step host stages, for the host profile of (6a)
+POST_STAGES = (("driver.py", "_post_step"),
+               ("driver.py", "_apply_new_entries"),
+               ("hostpath.py", "plan_segment"), ("proxy.py", "release"),
+               ("metrics.py", "observe"), ("spans.py", "ack_release"),
+               ("driver.py", "_observe_step"),
+               ("driver.py", "_failure_detector"),
+               ("driver.py", "_update_leader_view"))
+
+
+def post_stages(pr) -> dict:
+    """Inclusive ms of each :data:`POST_STAGES` function in a cProfile
+    (the outermost of same-named functions of one file)."""
+    import pstats
+    out = dict.fromkeys(POST_STAGES, 0.0)
+    for (f, _line, name), row in pstats.Stats(pr).stats.items():
+        key = (Path(f).name, name)
+        if key in out and "rdma_paxos_tpu_torch" in f:
+            out[key] = max(out[key], row[3] * 1e3)
+    return out
+
+
+def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
+                     n_conns: int, pipeline: int, profile: str = ""
+                     ) -> dict:
+    """The pre-queued record through the leader's shim handler of a
+    ``ClusterDriver`` on ``dev`` (the JAX idiom of
+    ``tests/test_pipeline.py``): elect replica 0, queue a CONNECT per
+    connection and every payload as a SEND, then run the loop until all
+    are acked. Commit-window launches are counted from just before the
+    loop starts to just after it stops. ``profile="device"`` runs the
+    loop under ``torch.profiler``; ``profile="host"`` steps the serial
+    loop on the calling thread under cProfile instead of running the
+    loop threads (from Python 3.12 on, cProfile sees every thread, and
+    its per-function times mix when two run Python at once)."""
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
+    from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
+    d = ClusterDriver(LogConfig(**geom), R, fanout=fanout, pipeline=pipeline,
+                      timeout_cfg=TimeoutConfig(**TIMERS_OFF), device=dev)
+    out = {}
+    try:
+        d.prewarm()
+        d.runtimes[0].timer._deadline = 0.0
+        d.step()
+        check(d.leader() == 0, "replica 0 was not elected")
+        bursts = []
+        begin_burst = d.cluster.begin_burst
+
+        def counted_burst(*a, **k):
+            bursts.append(1)
+            return begin_burst(*a, **k)
+        d.cluster.begin_burst = counted_burst
+        pr = None
+        if profile == "host":
+            import cProfile
+            pr = cProfile.Profile()
+        post_step, post_s = d._post_step, [0.0]
+
+        def timed_post_step(res):
+            t = time.perf_counter()
+            try:
+                return post_step(res)
+            finally:
+                post_s[0] += time.perf_counter() - t
+        d._post_step = timed_post_step
+        h = d._make_handler(0)
+        conns = [(0 << 24) | (100 + i) for i in range(n_conns)]
+        for c in conns:
+            check(isinstance(h(2, c, b""), PendingEvent),
+                  "the leader did not replicate a CONNECT")
+        evs = [h(3, conns[i % n_conns], p) for i, p in enumerate(payloads)]
+        check(all(isinstance(e, PendingEvent) for e in evs),
+              "the leader refused a SEND")
+        rel = np.zeros(len(evs))
+        fired = np.zeros(len(evs), np.int64)
+
+        def mark(i, _status):
+            rel[i] = time.perf_counter()
+            fired[i] += 1
+        for i, e in enumerate(evs):
+            e.attach(functools.partial(mark, i))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        commit_window.launches = 0
+        steps0, bursts[:], post_s[0] = d.cluster.step_index, [], 0.0
+        d._phase_prof.acc.clear()
+        prof = None
+        if profile == "device":
+            from torch.profiler import ProfilerActivity, profile as tprof
+            prof = tprof(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        if pr is not None:
+            pr.enable()
+            while not evs[-1].done.is_set():
+                check(time.perf_counter() - t0 < 300, "the record stalled")
+                d.step()
+            pr.disable()
+        else:
+            d.run(period=0.001)
+        for i, e in enumerate(evs):
+            check(e.done.wait(300), f"event {i} was never acked")
+        wall = float(rel.max()) - t0
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+            prof.__exit__(None, None, None)
+        time.sleep(0.2)          # let the follower frontiers settle
+        d.stop()
+        check(d.loop_error is None, f"the loop crashed: {d.loop_error!r}")
+        out.update(
+            launches=commit_window.launches,
+            steps=d.cluster.step_index - steps0, bursts=len(bursts),
+            wall=wall, fired=fired, statuses=[e.status for e in evs],
+            latency=rel - np.array([e.t0 for e in evs]),
+            hist=d.obs.metrics.get("commit_latency_seconds", replica=0),
+            max_inflight=d.cluster.max_inflight_dispatches,
+            post_step_ms=post_s[0] * 1e3, phases=d._phase_prof.sums(),
+            streams=[list(s) for s in d.cluster.replayed])
+        if pr is not None:
+            out["host_ms"] = post_stages(pr)
+        if prof is not None:
+            kern = [(e.count, getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0))
+                    for e in prof.key_averages()]
+            names = [e.key for e in prof.key_averages()]
+            out["kernels"] = sum(n for (n, us), k in zip(kern, names)
+                                 if us > 0 and not k.startswith(
+                                     ("Memcpy", "Memset")))
+            out["busy_ms"] = sum(us for n, us in kern if us > 0) / 1e3
+            out["prof_wall_ms"] = prof_wall * 1e3
+    finally:
+        d.stop()
+    return out
+
+
+def hist_quantile(h: dict, q: float) -> float:
+    """Upper bound of the bucket holding quantile ``q`` of a registry
+    histogram (its ``as_dict`` form)."""
+    total, acc = h["count"], 0
+    for bound, n in h["buckets"].items():
+        acc += n
+        if acc >= q * total:
+            return float("inf") if bound == "+Inf" else float(bound)
+    return float("inf")
+
+
+def phase_front_driver(dev, card: str) -> dict:
+    """(6a): the pipelined driver at geometry (a) on the card."""
+    geom, fanout = GEOMETRIES["a"]
+    payloads = front_record(FRONT_EVENTS, FRONT_BYTES)
+    runs = {}
+    for name, d_, pl, prof in (("pipelined", dev, 2, ""),
+                               ("serial", dev, 0, ""),
+                               ("device-profiled", dev, 2, "device"),
+                               ("host-profiled", dev, 0, "host"),
+                               ("cpu serial", torch.device("cpu"), 0, "")):
+        t = time.perf_counter()
+        runs[name] = drive_front_door(d_, geom, fanout, payloads,
+                                      FRONT_CONNS, pl, profile=prof)
+        runs[name]["elapsed"] = time.perf_counter() - t
+    ref = runs["cpu serial"]
+    for name, r in runs.items():
+        check(r["statuses"] == [0] * FRONT_EVENTS and (r["fired"] == 1).all(),
+              f"{name}: not every event was acked once with status 0")
+        sends = [p for (t, _c, _q, p) in r["streams"][0] if t == 3]
+        check(sends == payloads,
+              f"{name}: the committed SENDs are not the record in order")
+        check(r["streams"][0] == ref["streams"][0],
+              f"{name}: the committed stream differs from the CPU serial run")
+        check(all(s == r["streams"][0] for s in r["streams"]),
+              f"{name}: replicas committed different streams")
+        # the CPU reference runs the plain version: no launch to count
+        check(r["launches"] == r["steps"] > 0 or name == "cpu serial",
+              f"{name}: {r['launches']} commit_window launches in "
+              f"{r['steps']} protocol steps")
+    for name in ("pipelined", "device-profiled"):
+        check(runs[name]["max_inflight"] >= 2,
+              f"{name}: the pipeline never overlapped dispatches")
+    for name in ("pipelined", "serial"):
+        r = runs[name]
+        lat = np.sort(r["latency"])
+        print(f"front door (6a) on {card}, geometry (a) fanout={fanout}, "
+              f"{name} driver (pipeline={2 if name == 'pipelined' else 0}):"
+              f" {FRONT_EVENTS} SEND events of {FRONT_BYTES} B on "
+              f"{FRONT_CONNS} connections acked in {r['wall'] * 1e3:.1f} ms"
+              f" = {FRONT_EVENTS / r['wall']:.0f} acked events/s; commit "
+              f"latency (intake -> ack, pre-queued record) p50 "
+              f"{lat[len(lat) // 2] * 1e3:.1f} ms p99 "
+              f"{lat[int(len(lat) * 0.99)] * 1e3:.1f} ms exact, "
+              f"commit_latency_seconds buckets p50 <= "
+              f"{hist_quantile(r['hist'], 0.5)} s p99 <= "
+              f"{hist_quantile(r['hist'], 0.99)} s; {r['bursts']} bursts "
+              f"and {r['steps']} protocol steps dispatched, "
+              f"{r['launches']} commit_window launches, "
+              f"max_inflight_dispatches {r['max_inflight']}; _post_step "
+              f"{r['post_step_ms'] * 1e3 / FRONT_EVENTS:.2f} us per acked "
+              f"event (wall, on the "
+              f"{'readback' if name == 'pipelined' else 'loop'} thread); "
+              f"phases ms: " + ", ".join(
+                  f"{k} {v['total_us'] / 1e3:.1f}"
+                  for k, v in r["phases"].items()), flush=True)
+    p = runs["device-profiled"]
+    print(f"front door (6a) device profile on {card}: "
+          f"{p['kernels'] / p['steps']:.1f} CUDA kernels per protocol step "
+          f"({p['kernels']} in {p['steps']} steps, torch.profiler, "
+          f"pipeline=2); device busy {p['busy_ms']:.2f} ms of "
+          f"{p['prof_wall_ms']:.2f} ms wall, idle share "
+          f"{1 - p['busy_ms'] / p['prof_wall_ms']:.3f}", flush=True)
+    h = runs["host-profiled"]
+    print(f"front door (6a) host profile on {card} (cProfile of the serial "
+          f"loop stepped on one thread, inclusive us per acked event; "
+          f"inflates Python): "
+          + ", ".join(f"{k[1]} {v * 1e3 / FRONT_EVENTS:.2f}"
+                      for k, v in h["host_ms"].items()), flush=True)
+    print(f"front door (6a): committed streams of the card's runs equal the "
+          f"CPU serial run's ({ref['elapsed']:.1f} s on the CPU)", flush=True)
+    return dict(launches=runs["pipelined"]["launches"],
+                steps=runs["pipelined"]["steps"])
+
+
+NATIVE = ROOT / "native"
+NATIVE_TARGETS = ("interpose.so", "libstablestore.so", "toyserver")
+
+
+# The shim hooks read(); a C compiler that fortifies by default turns
+# the toy app's reads into __read_chk, which the shim does not see (the
+# app would then serve every request unreplicated), so the app is built
+# unfortified.
+APP_CC = "cc -U_FORTIFY_SOURCE"
+
+
+def build_native() -> None:
+    """Build the shim, the store and the toy app from ``native/`` (always
+    rebuilt: a copied tree may carry binaries of another machine). Without
+    ``make`` the Makefile's compile lines run directly."""
+    tools = {t: shutil.which(t) for t in ("make", "g++", "cc")}
+    print("native build tools: " + ", ".join(
+        f"{t} {p or 'missing'}" for t, p in tools.items()), flush=True)
+    if tools["make"]:
+        cmds = [["make", "-B", "-C", str(NATIVE), f"CC={APP_CC}",
+                 *NATIVE_TARGETS]]
+    else:
+        cxx = ["g++", "-O2", "-Wall", "-Wextra", "-fPIC", "-std=c++17",
+               "-shared"]
+        cmds = [cxx + ["-o", "interpose.so", "interpose.cpp", "-ldl",
+                       "-lpthread"],
+                cxx + ["-o", "libstablestore.so", "stablestore.cpp"],
+                APP_CC.split() + ["-O2", "-Wall", "-pthread", "-o",
+                                  "toyserver", "toyserver.c"]]
+    for cmd in cmds:
+        r = subprocess.run(cmd, cwd=NATIVE, capture_output=True, text=True)
+        check(r.returncode == 0, f"{' '.join(cmd)} failed:\n{r.stderr}")
+
+
+class AppClient:
+    """A line-protocol TCP client of the toy app."""
+
+    def __init__(self, port: int):
+        self.s = socket.create_connection(("127.0.0.1", port), timeout=30)
+        self.f = self.s.makefile("rb")
+
+    def cmd(self, line: str) -> bytes:
+        self.s.sendall(line.encode() + b"\n")
+        return self.f.readline().strip()
+
+    def close(self) -> None:
+        for h in (self.f, self.s):
+            h.close()
+
+
+def app_get(port: int, key: str, want: bytes, timeout: float = 30.0):
+    """GET ``key`` from the app on ``port`` until it answers ``want``."""
+    deadline = time.time() + timeout
+    got = None
+    while time.time() < deadline:
+        try:
+            c = AppClient(port)
+            got = c.cmd(f"GET {key}")
+            c.close()
+            if got == want:
+                return got
+        except OSError:
+            pass
+        time.sleep(0.05)
+    return got
+
+
+def free_ports(n: int) -> list:
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+APP_CLIENTS = 4
+APP_SETS = 2000
+
+
+def front_state(d, apps, wd: str) -> str:
+    """What the driver and the apps hold, for a failed check of (6b)."""
+    c = d.cluster
+    last = c.last or {}
+    lines = [f"leader {d.leader()} loop_error {d.loop_error!r} "
+             f"stepped_down {sorted(d.stepped_down)} need_recovery "
+             f"{sorted(c.need_recovery)} steps {c.step_index}"]
+    for k in ("role", "term", "commit", "end", "head"):
+        lines.append(f"{k} {list(map(int, last.get(k, [])))}")
+    for rt in d.runtimes:
+        try:
+            store = len(rt.store)
+        except ValueError:                   # closed by stop()
+            store = "closed"
+        alive = (apps[rt.idx].poll() is None if rt.idx < len(apps)
+                 else "not started")
+        lines.append(
+            f"replica {rt.idx}: applied {int(c.applied[rt.idx])} replayed "
+            f"{len(c.replayed[rt.idx])} cursor {rt.replay_cursor} store "
+            f"{store} app_dirty {rt.app_dirty} replay conns "
+            f"{len(rt.replay.conns)} spec {rt.proxy.spec_mode} inflight "
+            f"{len(rt.inflight)} app alive {alive}")
+    snap = d.obs.metrics.snapshot()["counters"]
+    lines.append("counters: " + ", ".join(
+        f"{k}={v}" for k, v in snap.items() if "proxy" in k or "refused" in k
+        or "failed" in k or "election" in k))
+    for r in range(len(apps)):
+        err = Path(wd, f"app{r}.err")
+        if err.exists():
+            lines.append(f"app {r} stderr: {err.read_text()[-400:]!r}")
+    return "\n".join(lines)
+
+
+def phase_front_apps(dev, card: str) -> dict:
+    """(6b): interposed toy apps served by the driver on the card."""
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
+    build_native()
+    geom, _ = GEOMETRIES["a"]
+    wd = tempfile.mkdtemp(prefix="rp-front-")
+    ports = free_ports(R)
+    d = ClusterDriver(LogConfig(**geom), R, workdir=wd, app_ports=ports,
+                      fanout="gather", device=dev,
+                      timeout_cfg=TimeoutConfig(elec_timeout_low=1.0,
+                                                elec_timeout_high=2.0))
+    apps = []
+    try:
+        d.prewarm()
+        for r, port in enumerate(ports):
+            env = dict(os.environ, LD_PRELOAD=str(NATIVE / "interpose.so"),
+                       RP_PROXY_SOCK=os.path.join(wd, f"proxy{r}.sock"))
+            with open(os.path.join(wd, f"app{r}.err"), "w") as err:
+                apps.append(subprocess.Popen(
+                    [str(NATIVE / "toyserver"), str(port)], env=env,
+                    stderr=err))
+        time.sleep(0.3)                      # let the apps bind
+        commit_window.launches = 0
+        steps0 = d.cluster.step_index
+        d.run(period=0.002)
+        deadline = time.time() + 60
+        while d.leader() < 0 and time.time() < deadline:
+            time.sleep(0.02)
+        lead = d.leader()
+        check(lead >= 0, "no leader was elected by the timers")
+        lat, errors = [], []
+
+        def client(k: int) -> None:
+            try:
+                c = AppClient(ports[lead])
+                for i in range(APP_SETS // APP_CLIENTS):
+                    t = time.perf_counter()
+                    got = c.cmd(f"SET k{k}-{i} v{k}-{i}")
+                    lat.append(time.perf_counter() - t)
+                    if got != b"+OK":
+                        errors.append((k, i, got))
+                c.close()
+            except OSError as exc:
+                errors.append((k, exc))
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(APP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        check(not errors and len(lat) == APP_SETS,
+              f"client SETs failed: {errors[:4]}")
+        followers = [r for r in range(R) if r != lead]
+        n_each = APP_SETS // APP_CLIENTS
+        # the committed stream reaches every replica's store and replay
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            lens = [len(rt.store) for rt in d.runtimes]
+            if min(lens) == max(lens) and min(lens) >= APP_SETS + APP_CLIENTS:
+                break
+            time.sleep(0.05)
+        for r in followers:
+            for k in range(APP_CLIENTS):
+                for i in (0, n_each // 2, n_each - 1):
+                    want = f"v{k}-{i}".encode()
+                    got = app_get(ports[r], f"k{k}-{i}", want)
+                    check(got == want, f"replica {r}'s app answered {got} "
+                                       f"for k{k}-{i}")
+        # every replica persisted the same CONNECT/SEND/CLOSE stream
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            lens = [len(rt.store) for rt in d.runtimes]
+            if min(lens) == max(lens) and min(lens) >= APP_SETS + 2 * APP_CLIENTS:
+                break
+            time.sleep(0.05)
+        dumps = [rt.store.dump() for rt in d.runtimes]
+        check(all(x == dumps[0] for x in dumps),
+              f"replica stores differ (records {lens})")
+        st = d.runtimes[lead].store
+        kinds = [st.read(i)[0] for i in range(len(st))]
+        counts = {k: kinds.count(k) for k in (2, 3, 4)}
+        check(counts[2] >= APP_CLIENTS and counts[3] >= APP_SETS
+              and counts[4] >= APP_CLIENTS,
+              f"store record kinds {counts} lack the client stream")
+        # failover: isolate the leader; the majority elects and serves
+        d.cluster.partition([[lead], followers])
+        deadline = time.time() + 60
+        while time.time() < deadline and d.leader() in (-1, lead):
+            time.sleep(0.02)
+        new = d.leader()
+        check(new in followers, "no failover after isolating the leader")
+        c = AppClient(ports[new])
+        check(c.cmd("GET k0-0") == b"v0-0", "the new leader lost a write")
+        check(c.cmd("SET after failover-ok") == b"+OK",
+              "the new leader did not serve a write")
+        c.close()
+        other = next(r for r in followers if r != new)
+        check(app_get(ports[other], "after", b"failover-ok")
+              == b"failover-ok", "the write did not reach the follower")
+        d.stop()
+        check(d.loop_error is None, f"the loop crashed: {d.loop_error!r}")
+        launches = commit_window.launches
+        steps = d.cluster.step_index - steps0
+        check(launches == steps > 0, f"{launches} commit_window launches in "
+                                     f"{steps} protocol steps")
+    except Exception:
+        print(front_state(d, apps, wd), flush=True)
+        raise
+    finally:
+        d.stop()
+        for a in apps:
+            a.kill()
+            a.wait()
+        shutil.rmtree(wd, ignore_errors=True)
+    lat = np.sort(np.array(lat))
+    print(f"front door (6b) on {card}: 3 toyserver apps under "
+          f"LD_PRELOAD=native/interpose.so, geometry (a) fanout=gather; "
+          f"leader {lead} elected by the timers; {APP_SETS} SETs from "
+          f"{APP_CLIENTS} clients in {wall:.2f} s = {APP_SETS / wall:.1f} "
+          f"requests/s, request latency p50 {lat[len(lat) // 2] * 1e3:.2f} "
+          f"ms p99 {lat[int(len(lat) * 0.99)] * 1e3:.2f} ms; read back from "
+          f"replicas {followers}; {len(dumps[0])} store bytes equal on 3/3 "
+          f"replicas (record kinds {counts}); failover to replica {new} "
+          f"served a write that reached replica {other}; {launches} "
+          f"commit_window launches in {steps} protocol steps", flush=True)
+    return dict(launches=launches, steps=steps)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -672,6 +1178,8 @@ def main() -> int:
                  for g in GEOMETRIES]
     times = phase_kernel_times(dev, smi)
     phase_times(dev, smi)
+    main_runs.append(phase_front_driver(dev, smi))
+    main_runs.append(phase_front_apps(dev, smi))
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

@@ -1,7 +1,8 @@
 """Static configuration of the PyTorch/CUDA consensus core.
 
-The port's own copy of the log geometry and the protocol constants the
-replicated write path needs (the JAX package's ``config.py`` is the
+The port's own copy of the log geometry, the protocol constants the
+replicated write path needs and the driver's timing block (the JAX
+package's ``config.py`` is the
 reference; ``tests/test_torch_hygiene.py`` pins every copied constant
 against it). The reference splits configuration across the libconfig
 ``nodes.local.cfg`` timing block, env vars and compile-time constants
@@ -71,6 +72,29 @@ class LogConfig:
     @property
     def slot_words(self) -> int:
         return self.slot_bytes // 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeoutConfig:
+    """Timing block — mirrors the ``dare_global_config`` section of
+    ``nodes.local.cfg`` (reference ``target/nodes.local.cfg:22-35``).
+
+    Values are seconds. The defaults mirror the reference's DEBUG profile
+    (hb 10 ms, election 100–300 ms); the production profile in the
+    reference is hb 1 ms, election 10–30 ms.
+    """
+
+    hb_period: float = 0.010
+    elec_timeout_low: float = 0.100
+    elec_timeout_high: float = 0.300
+    retransmit_period: float = 0.040
+    rc_info_period: float = 0.050      # membership/bootstrap gossip period
+    log_pruning_period: float = 0.050
+
+    @classmethod
+    def production(cls) -> "TimeoutConfig":
+        return cls(hb_period=0.001, elec_timeout_low=0.010,
+                   elec_timeout_high=0.030)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

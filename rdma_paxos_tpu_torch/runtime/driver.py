@@ -1,0 +1,1260 @@
+"""ClusterDriver — the host polling loop gluing every layer together.
+
+The port of the JAX package's ``runtime/driver.py``: the analog of the
+reference's per-replica libev loop (``polling()``,
+``dare_server.c:1004-1125``) plus the proxy callbacks, driving ALL
+replicas of an in-process cluster whose engine runs on the card:
+
+  interposed app ──UDS──▶ ProxyServer ──queue──▶ ClusterDriver.step()
+        ▲                                            │ SimCluster (replica
+        │ loopback TCP                               ▼  step on the card)
+  ReplayEngine ◀──committed entries──┬── StableStore.append (persist)
+                                     └── ack release (leader's blocked app)
+
+Per iteration: drain shim events into leader batches → run the replica
+step (one ``commit_window`` kernel launch per protocol step) → persist
+newly applied entries → replay remote-origin entries into local apps →
+release blocked app threads whose events committed → run election
+timers (heartbeat = the step itself). With ``pipeline >= 2`` the stable
+traffic path is double-buffered: a dispatch thread encodes and enqueues
+while a readback thread finishes tickets and runs the post-step rules.
+Both threads make the engine's card their current device and use its
+current stream; the only host sync of a step is ``finish``'s readback.
+
+Differences from the JAX driver, each failing loudly:
+
+* ``leases`` defaults to False: leader leases and the queued read path
+  (the JAX ``runtime/reads.py``) come with ROADMAP Queue 1, item 12.
+  ``leases=True`` raises ``NotImplementedError`` and :meth:`read`
+  raises the JAX driver's own "built with leases=False" error.
+* ``audit``, ``telemetry``, ``txn``, ``scan``, ``repair``,
+  ``governor``, ``streams``, ``link_model``, ``metrics_port``,
+  ``profile_on_page`` and non-default ``alert_rules`` raise
+  ``NotImplementedError`` when set (items 9-12), as do non-default
+  settings of those subsystems (``health_period``, ``alert_period``,
+  ``series_capacity``, the ``*_opts`` dicts); so do :meth:`health`,
+  :meth:`evaluate_alerts`, :meth:`serve_metrics` and
+  :meth:`start_profile` (item 12). Until then the wall-cadenced
+  observability pass (:meth:`_cadence_observe`: alerts, series,
+  health files) does nothing.
+* ``app_snapshot``, :meth:`recover_replica`, :meth:`reset_app`,
+  :meth:`checkpoint_app` and the automatic recovery of a force-pruned
+  replica raise ``NotImplementedError`` (item 8); a loop that reaches
+  the automatic recovery records ``loop_error`` and fails its waiters,
+  as any crash does.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import queue as _queue
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+from rdma_paxos_tpu_torch.consensus.log import EntryType
+from rdma_paxos_tpu_torch.consensus.membership import MembershipManager
+from rdma_paxos_tpu_torch.consensus.state import ConfigState, Role
+from rdma_paxos_tpu_torch.obs import Observability, trace as obs_trace
+from rdma_paxos_tpu_torch.obs.metrics import (
+    BATCH_BUCKETS, LATENCY_BUCKETS_S)
+from rdma_paxos_tpu_torch.obs.spans import StepPhaseProfiler, span_trace_id
+from rdma_paxos_tpu_torch.proxy.proxy import (
+    PendingEvent, ProxyServer, ReplayEngine, spec_send_refused_dirty)
+from rdma_paxos_tpu_torch.proxy.stablestore import HardState, StableStore
+from rdma_paxos_tpu_torch.runtime.hostpath import plan_segment
+from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+from rdma_paxos_tpu_torch.runtime.timers import ElectionTimer
+from rdma_paxos_tpu_torch.utils.debug import ReplicaLog, StepTimer
+from rdma_paxos_tpu_torch.utils.codec import fragment
+
+# the origin replica lives in the conn id's bits 24+ (ProxyServer)
+CONN_ORIGIN_SHIFT = 24
+
+RECOVERY_LATER = ("snapshot recovery, app reset and app checkpoints are "
+                  "not ported yet (ROADMAP Queue 1, item 8)")
+OBS_LATER = ("alerts, health, the metrics exporter and profiler "
+             "captures are not ported yet (ROADMAP Queue 1, item 12)")
+
+
+def conn_origin(conn_id):
+    """Origin replica/host encoded in a connection id (scalar
+    or elementwise on numpy columns) — the ONE place the
+    encoding lives."""
+    return conn_id >> CONN_ORIGIN_SHIFT
+
+
+class _ReplicaRuntime:
+    """Host-side per-replica resources."""
+
+    def __init__(self, idx: int, sock_path: Optional[str],
+                 app_port: Optional[int], store_path: Optional[str],
+                 on_event, timeout_cfg: TimeoutConfig, seed: int,
+                 log_path: Optional[str] = None, obs=None):
+        self.idx = idx
+        self.log = ReplicaLog(log_path, replica=idx, obs=obs)
+        self.proxy = (ProxyServer(sock_path, idx, on_event, obs=obs)
+                      if sock_path else None)
+        self.app_port = app_port
+        self.replay = (ReplayEngine("127.0.0.1", app_port)
+                       if app_port else None)
+        # a SPECULATIVE app (shim HELLO flag) consumed input that was
+        # failed at deposition — its state may have diverged from the
+        # committed stream. While dirty: committed entries still persist
+        # to the store (the store is the source of truth), but nothing
+        # is replayed into the app and new client sessions are severed.
+        self.app_dirty = False
+        self.last_sync = 0.0      # cadenced store fdatasync bookkeeping
+        self.store = StableStore(store_path) if store_path else None
+        # durable (term, voted_term, voted_for) — persisted every step the
+        # pair changes (election safety across crashes)
+        self.hard = HardState(store_path + ".hs") if store_path else None
+        # (event, last_fragment_seq) FIFO awaiting commit — every access
+        # must hold the driver lock (link threads append, poll thread pops)
+        self.inflight: collections.deque = collections.deque()
+        self.submit_seq = 0       # monotone per-fragment sequence; stamped
+                                  # into the entry's req_id so ack release
+                                  # is exact across leadership churn
+        self.replay_cursor = 0    # index into cluster.replayed[idx]
+        self.replicated_conns: set = set()   # conns whose events replicate
+        self.passthrough_conns: set = set()  # our own replay connections
+        self.timer = ElectionTimer(timeout_cfg, seed=seed)
+        # false-positive detection for the adaptive timeout (to_adjust_cb
+        # analog): if the SAME leader heartbeats again shortly after we
+        # fired, the timeout was premature -> widen it
+        self.fired_leader = -1
+        self.fired_countdown = 0
+
+
+class ClusterDriver:
+    def __init__(self, cfg: LogConfig, n_replicas: int, *,
+                 workdir: Optional[str] = None,
+                 app_ports: Optional[Sequence[Optional[int]]] = None,
+                 timeout_cfg: Optional[TimeoutConfig] = None,
+                 group_size: Optional[int] = None,
+                 mode: str = "sim", seed: int = 0,
+                 auto_evict: bool = False, fail_threshold: int = 100,
+                 sync_period: float = 0.05, step_down_steps: int = 50,
+                 app_snapshot=None, fanout: str = "gather",
+                 obs: Optional[Observability] = None,
+                 health_period: float = 0.5, link_model=None,
+                 fence: bool = False, audit: bool = False,
+                 alert_rules: Optional[Sequence[dict]] = None,
+                 alert_period: float = 0.25, pipeline: int = 2,
+                 telemetry: bool = False,
+                 profile_on_page: float = 0.0,
+                 repair: bool = False,
+                 repair_opts: Optional[Dict] = None,
+                 leases: bool = False,
+                 lease_opts: Optional[Dict] = None,
+                 series_capacity: int = 1280,
+                 metrics_port: Optional[int] = None,
+                 scan: bool = False,
+                 txn: bool = False,
+                 governor: bool = False,
+                 governor_opts: Optional[Dict] = None,
+                 idle_quiesce: bool = True,
+                 idle_backoff_max: float = 0.05,
+                 streams: bool = False,
+                 streams_opts: Optional[Dict] = None,
+                 device=None):
+        later = [name for name, on in (
+            ("audit", audit), ("telemetry", telemetry), ("txn", txn),
+            ("scan", scan), ("repair", repair), ("governor", governor),
+            ("streams", streams), ("link_model", link_model is not None),
+            ("metrics_port", metrics_port is not None),
+            ("profile_on_page", profile_on_page > 0),
+            ("alert_rules", alert_rules is not None),
+            ("leases", leases),
+            # settings of those subsystems: never a silent no-op either
+            ("health_period", health_period != 0.5),
+            ("alert_period", alert_period != 0.25),
+            ("series_capacity", series_capacity != 1280),
+            ("repair_opts", repair_opts is not None),
+            ("lease_opts", lease_opts is not None),
+            ("governor_opts", governor_opts is not None),
+            ("streams_opts", streams_opts is not None)) if on]
+        if later:
+            raise NotImplementedError(
+                f"ClusterDriver({', '.join(later)}=...) is not ported yet "
+                "(ROADMAP Queue 1, items 9-12)")
+        if app_snapshot is not None:
+            raise NotImplementedError("app_snapshot: " + RECOVERY_LATER)
+        self.cfg = cfg
+        self.sync_period = sync_period
+        self._workdir = workdir
+        # observability: one registry + trace ring + span recorder per
+        # driver (isolated by default — pass a shared facade to
+        # aggregate across drivers). All of it is host-side.
+        self.obs = obs if obs is not None else Observability()
+        self._timer_obs = StepTimer(metrics=self.obs.metrics)
+        # step-phase wall-time attribution. fence keeps its default
+        # (False) in production: fencing waits for the card right after
+        # dispatch so device time lands in its own device_sync
+        # histogram — a profiling mode that serializes the pipeline.
+        self._phase_prof = StepPhaseProfiler(metrics=self.obs.metrics,
+                                             fence=fence)
+        # lost-majority step-down (the reference leader SUICIDES after
+        # failing to reach a majority, dare_server.c:1213-1217): a
+        # leader whose leadership_verified stays 0 for this many
+        # consecutive steps stops SERVING — inflight commits are failed
+        # and replicated sessions severed/refused — so a minority-side
+        # leader's clients retry against the majority instead of
+        # hanging. Service resumes if the leader re-verifies.
+        self.step_down_steps = step_down_steps
+        self.unverified = np.zeros(n_replicas, np.int64)
+        self.stepped_down: set = set()
+        self.R = n_replicas
+        # fanout="psum" is the production full-connectivity
+        # configuration (O(W) fan-out); the default stays "gather" so
+        # partitions can be modeled
+        self.cluster = self._make_cluster(cfg, n_replicas, group_size,
+                                          mode, fanout, device)
+        self.cluster.obs = self.obs
+        self.cluster.profiler = self._phase_prof
+        # the card the engine's state lives on (with its index: a new
+        # thread's current device is 0, so each loop thread binds it)
+        self._state_device = self.cluster.state.term.device
+        # the repair controller (item 12) is never attached yet
+        self.repair = None
+        # idle quiescence: when there is no standing backlog, no
+        # blocked waiter, no election timer anywhere near due, and no
+        # config work, the poll loop SKIPS the device dispatch entirely
+        # and parks with an exponential backoff — any intake event
+        # wakes the loop instantly.
+        self._idle_quiesce = bool(idle_quiesce)
+        self._idle_backoff_max = float(idle_backoff_max)
+        self._idle_backoff = 0.001
+        self._idle_guard = (timeout_cfg.elec_timeout_low * 0.25
+                            if timeout_cfg is not None else 0.025)
+        # absolute (rebase-corrected) commit cursor per replica, for the
+        # committed_entries_total counters / commit_advance traces
+        self._prev_commit_abs = np.zeros(n_replicas, np.int64)
+        self.timeout_cfg = timeout_cfg or TimeoutConfig()
+        # failure detection / eviction (check_failure_count analog):
+        # consecutive steps each member failed to ack the leader's window
+        self.auto_evict = auto_evict
+        self.fail_threshold = fail_threshold
+        self.fail_count = np.zeros(n_replicas, np.int64)
+        self._mm = MembershipManager(self.cluster)
+        # last known membership view (device-state reads are unsafe —
+        # and pipeline-serializing — while dispatches are in flight;
+        # see _member_view_cached)
+        self._member_cur = dict(bitmask_new=(1 << n_replicas) - 1,
+                                epoch=0, cid_state=0)
+        # (phase, new_mask, epoch, steps_left) — steps_left bounds a change
+        # wedged by leader churn losing the CONFIG entry; on expiry the
+        # phase resets so eviction/request can be re-issued
+        self._config_phase: Optional[Tuple[str, int, int, int]] = None
+        self.config_changes_abandoned = 0
+        self._lock = threading.Lock()
+        # per-replica queues of (etype, conn_id, fragment_bytes, seq)
+        self._submitq: List[List[Tuple[int, int, bytes, int]]]
+        self._submitq = [[] for _ in range(n_replicas)]  # guarded-by: _lock
+        # advisory leader view: written under the lock on the readback
+        # thread; lock-free reads (poll/app threads) tolerate one step
+        # of staleness by design  # guarded-by: _lock [writes]
+        self._leader_view = -1
+        # stores consume the vectorized frame stream from the decode
+        self.cluster.collect_frames = workdir is not None
+        self.runtimes: List[_ReplicaRuntime] = []
+        for r in range(n_replicas):
+            sock = (os.path.join(workdir, f"proxy{r}.sock")
+                    if workdir else None)
+            store = (os.path.join(workdir, f"replica{r}.db")
+                     if workdir else None)
+            port = app_ports[r] if app_ports else None
+            logp = (os.path.join(workdir, f"replica{r}.log")
+                    if workdir else None)
+            self.runtimes.append(_ReplicaRuntime(
+                r, sock, port, store,
+                self._make_handler(r), self.timeout_cfg, seed + r,
+                log_path=logp, obs=self.obs))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.loop_error: Optional[BaseException] = None
+        # event-driven stepping: link threads set this when work arrives
+        # so an idle loop wakes instantly instead of polling
+        self._wake = threading.Event()
+        # pipelined dispatch: with pipeline >= 2 the run loop keeps up
+        # to ``pipeline`` device dispatches in flight — the dispatch
+        # thread encodes batch k+1 while batch k runs on the card, and
+        # a dedicated READBACK thread finishes tickets and runs all
+        # post-step host work. Elections, config changes and rebase
+        # drains always drain the pipeline first and run through the
+        # serial step(); the commit stream and ack stream are identical
+        # to the serial driver's (tests pin it). Mutable at runtime.
+        self.pipeline = max(int(pipeline), 0)
+        self._pl_cv = threading.Condition()
+        self._pl_pending = 0        # dispatched, not yet post-stepped
+        self._pl_queue: _queue.Queue = _queue.Queue()
+        self._rb_thread: Optional[threading.Thread] = None
+
+    def _make_cluster(self, cfg, n_replicas, group_size, mode, fanout,
+                      device):
+        """Engine factory: the port's SimCluster on ``device`` (the card
+        unless the caller names the CPU)."""
+        return SimCluster(cfg, n_replicas, group_size, mode=mode,
+                          fanout=fanout, device=device)
+
+    def _bind_device(self) -> None:
+        """Make the engine's card the calling thread's current device
+        (a new thread's current device is 0)."""
+        if self._state_device.type == "cuda":
+            torch.cuda.set_device(self._state_device)
+
+    # ------------------------------------------------------------------
+    # shim event intake (called from proxy link threads)
+    # ------------------------------------------------------------------
+
+    def _make_handler(self, r: int):
+        def on_event(etype: int, conn_id: int, payload: bytes):
+            """Returns None (pass through), an int status (<0 severs the
+            connection), or a PendingEvent (block until committed)."""
+            with self._lock:
+                rt = self.runtimes[r]
+
+                def refuse_send():
+                    """Refuse with -1, quarantining a speculative app
+                    whose delivered bytes this refusal strands (shared
+                    policy: proxy.spec_send_refused_dirty)."""
+                    if spec_send_refused_dirty(
+                            etype, conn_id, rt.replicated_conns,
+                            rt.proxy, rt.app_dirty):
+                        rt.app_dirty = True
+                        rt.log.info_wtime(
+                            "APP DIRTY: speculated SEND refused at "
+                            "intake (conn %d)" % conn_id)
+                    self.obs.metrics.inc("events_refused_total",
+                                         replica=r)
+                    return -1
+
+                if self.loop_error is not None or self._stop.is_set():
+                    # no poll loop will ever release a commit wait: fail
+                    # fast so the app severs and the client retries
+                    return refuse_send()
+                if etype == int(EntryType.CONNECT):
+                    # our own replay connections (recognized by peer port)
+                    # stay local; so do client connections on non-leaders
+                    # (stale local reads — the reference's followers serve
+                    # the same way, proxy.c:230-239 is_leader gate)
+                    port = (int.from_bytes(payload[4:6], "big")
+                            if len(payload) >= 6 else 0)
+                    if (rt.replay is not None
+                            and port in rt.replay.local_ports):
+                        rt.passthrough_conns.add(conn_id)
+                        return None
+                    if rt.app_dirty:
+                        # a dirty (mis-speculated) app must not serve
+                        # clients — not even stale local reads
+                        return -1
+                    if not self._accepts_clients(r):
+                        return None
+                    if r in self.stepped_down:
+                        # a stepped-down (majority-less) leader accepts
+                        # no new sessions at all — the reference's
+                        # suicided leader serves nothing
+                        return -1
+                    rt.replicated_conns.add(conn_id)
+                    payload = b""
+                elif conn_id in rt.passthrough_conns:
+                    if etype == int(EntryType.CLOSE):
+                        rt.passthrough_conns.discard(conn_id)
+                    return None
+                elif conn_id not in rt.replicated_conns:
+                    return None          # never-replicated local session
+                elif r in self.stepped_down:
+                    # lost-majority step-down: refuse replicated service
+                    # (a commit wait could never complete)
+                    status = refuse_send()
+                    rt.replicated_conns.discard(conn_id)
+                    return status
+                elif rt.app_dirty:
+                    # a surviving replicated session on a replica whose
+                    # app diverged must be severed even if this replica
+                    # regained leadership
+                    rt.replicated_conns.discard(conn_id)
+                    return -1
+                elif not self._accepts_clients(r):
+                    # a REPLICATED session must never silently downgrade
+                    # to unreplicated service after deposition: sever it
+                    # so the client reconnects to the current leader
+                    if etype == int(EntryType.CLOSE):
+                        rt.replicated_conns.discard(conn_id)
+                        return None
+                    return refuse_send()
+                if etype == int(EntryType.CLOSE):
+                    rt.replicated_conns.discard(conn_id)
+                return self._enqueue_locked(r, rt, etype, conn_id,
+                                            payload)
+        return on_event
+
+    def _accepts_clients(self, r: int) -> bool:
+        """Client-session admission: the single-group driver serves
+        replicated sessions on the leader only (non-leaders give stale
+        local reads, the reference's follower semantics)."""
+        return self._leader_view == r
+
+    # holds-lock: _lock
+    def _enqueue_locked(self, r: int, rt: _ReplicaRuntime, etype: int,
+                        conn_id: int, payload: bytes):
+        """Admit one gate-passed replicated event: fragment, stamp
+        sequence numbers, queue for the next dispatch, and park the
+        blocked app thread's PendingEvent (caller holds ``_lock``)."""
+        frags = (fragment(payload, self.cfg.slot_bytes)
+                 if etype == int(EntryType.SEND) else [payload])
+        ev = PendingEvent(EntryType(etype), conn_id, payload)
+        for f in frags:
+            rt.submit_seq += 1
+            self._submitq[r].append((etype, conn_id, f,
+                                     rt.submit_seq))
+        rt.inflight.append((ev, rt.submit_seq))
+        self.obs.metrics.inc("proxy_events_total", replica=r)
+        self.obs.trace.record(obs_trace.PROXY_ENQUEUE,
+                              replica=r, etype=etype,
+                              conn=conn_id, frags=len(frags),
+                              submit_seq=rt.submit_seq)
+        # causal span birth: keyed (conn, final fragment seq) —
+        # the exact pair the ack-release path matches on
+        self.obs.spans.begin(conn_id, rt.submit_seq, r)
+        self._wake.set()
+        return ev
+
+    # ------------------------------------------------------------------
+    # the polling loop
+    # ------------------------------------------------------------------
+
+    def _pump_submitq(self) -> None:
+        """Move intake rows into the engine's pending queues — ONE
+        locked extend per replica. Holds the engine's host lock too:
+        the pipelined readback thread requeues ring-full shortfalls
+        into the same lists concurrently."""
+        with self._lock, self.cluster._host_lock:
+            for r in range(self.R):
+                q = self._submitq[r]
+                if q:
+                    self.cluster.submit_many(
+                        r, [(etype, conn, seq, frag)
+                            for etype, conn, frag, seq in q])
+                    q.clear()
+
+    def step(self) -> Dict:
+        """One host-loop iteration (public for deterministic tests).
+        Serial: dispatch + readback fused — the pipelined run loop
+        splits the same work into begin_* on the dispatch thread and
+        ``_post_step`` on the readback thread."""
+        self._pump_submitq()
+
+        # a flagged (force-pruned) leader never heals on its own: it
+        # acks windows and heartbeats normally, so nothing deposes it.
+        # Actively depose it: fire an election timeout on a healthy
+        # member each step until leadership moves.
+        depose = -1
+        lead = self._leader_view
+        if lead >= 0 and lead in self.cluster.need_recovery:
+            mask = self._mm.current(lead)["bitmask_new"]
+            healthy = [r for r in range(self.R)
+                       if (mask >> r) & 1 and r != lead
+                       and r not in self.cluster.need_recovery]
+            if healthy:
+                depose = min(healthy)
+
+        # pending work + known leader: drain through a multi-step burst
+        # (one dispatch fuses up to K_TIERS[-1] protocol steps; no
+        # election timeouts can fire inside — each burst step carries the
+        # heartbeat). The single-step path serves elections, deposes,
+        # and idle heartbeats.
+        if (depose < 0
+                and self._leader_view >= 0 and self.cluster.last is not None
+                and self._backlog()):
+            self._timer_obs.start("device_step")
+            res = self.cluster.step_burst()
+            self._timer_obs.stop("device_step")
+        else:
+            timeouts = []
+            last = self.cluster.last
+            for r, rt in enumerate(self.runtimes):
+                if last is not None and last["role"][r] == int(Role.LEADER):
+                    continue
+                if rt.timer.expired() or r == depose:
+                    timeouts.append(r)
+                    rt.timer.beat()
+                    self.obs.metrics.inc("election_timeouts_total",
+                                         replica=r)
+                    self.obs.trace.record(
+                        obs_trace.ELECTION_START, replica=r,
+                        depose=(r == depose),
+                        term=(int(last["term"][r])
+                              if last is not None else 0))
+                    if r != depose:
+                        # a deliberate deposition is not a mistimed
+                        # timeout: it must not feed the adaptive
+                        # false-positive widening
+                        rt.fired_leader = (int(last["leader_id"][r])
+                                           if last is not None else -1)
+                        rt.fired_countdown = 50
+            self._timer_obs.start("device_step")
+            res = self.cluster.step(timeouts=timeouts)
+            self._timer_obs.stop("device_step")
+        return self._post_step(res)
+
+    def _backlog(self) -> int:
+        """Entries awaiting dispatch in the engine's pending queues."""
+        return max(len(q) for q in self.cluster.pending)
+
+    def _update_leader_view(self, res) -> None:
+        with self._lock:
+            # multiple self-claimed leaders can coexist transiently (an
+            # isolated deposed leader cannot hear the higher term); the
+            # real one is the highest-term claimant — terms are unique per
+            # leader by quorum election
+            claims = [(int(res["term"][r]), r) for r in range(self.R)
+                      if res["role"][r] == int(Role.LEADER)]
+            self._leader_view = max(claims)[1] if claims else -1
+
+    def _post_step(self, res) -> Dict:
+        """Every post-readback host rule for one step's outputs: leader
+        view, durable election state, timer beats, store/replay/ack
+        release, detectors and observability export. Serial ``step()``
+        runs it inline; the pipelined loop runs it on the READBACK
+        thread."""
+        self._update_leader_view(res)
+
+        for r, rt in enumerate(self.runtimes):
+            if rt.hard is not None:
+                rt.hard.save(int(res["term"][r]),
+                             int(res["voted_term"][r]),
+                             int(res["voted_for"][r]))
+            if res["became_leader"][r]:
+                rt.log.leader_elected(int(res["term"][r]))
+            if res["hb_seen"][r] or res["role"][r] == int(Role.LEADER):
+                rt.timer.beat()
+            if rt.fired_countdown > 0:
+                rt.fired_countdown -= 1
+                if (res["hb_seen"][r] and rt.fired_leader >= 0
+                        and int(res["leader_id"][r]) == rt.fired_leader):
+                    # the leader we timed out on is alive: premature
+                    # timeout -> widen adaptively (to_adjust_cb analog)
+                    rt.timer.false_positive()
+                    rt.fired_countdown = 0
+            self._apply_new_entries(r, rt)
+            if res["role"][r] != int(Role.LEADER):
+                with self._lock:
+                    # lost leadership with blocked app threads: fail them
+                    # so clients reconnect to the new leader. Fragments
+                    # already replicated may still commit later;
+                    # seq-stamped acks make those late applies no-ops.
+                    self._fail_inflight_locked(rt, "deposition")
+
+        self._step_down_detector(res)
+        self._failure_detector(res)
+        self._drive_config_change()
+        # a replica force-pruned past its apply cursor (wedged app now
+        # unwedged, or long stall) stopped replaying; the JAX driver
+        # heals it here with a donor snapshot — not ported yet
+        if (self.cluster.need_recovery
+                and self._leader_view >= 0
+                and not self.cluster._tickets
+                and self._leader_view not in self.cluster.need_recovery
+                and self.cluster.need_recovery - {self._leader_view}):
+            raise NotImplementedError(
+                "automatic recovery of force-pruned replica(s) %s: %s"
+                % (sorted(self.cluster.need_recovery), RECOVERY_LATER))
+        self._observe_step(res)
+        return res
+
+    # ------------------------------------------------------------------
+    # observability (host-side only — see rdma_paxos_tpu_torch.obs)
+    # ------------------------------------------------------------------
+
+    def _observe_step(self, res) -> None:
+        """Export the step's protocol-level signals: per-replica
+        role/term/index gauges, rebase headroom against the i32
+        ceiling, commit-advance counters + trace, batch-size histogram."""
+        m = self.obs.metrics
+        rebased = self.cluster.rebased_total
+        for r in range(self.R):
+            m.set("replica_role", int(res["role"][r]), replica=r)
+            m.set("replica_term", int(res["term"][r]), replica=r)
+            m.set("commit_index", int(res["commit"][r]), replica=r)
+            m.set("apply_index", int(res["apply"][r]), replica=r)
+            m.set("end_index", int(res["end"][r]), replica=r)
+            m.set("rebase_headroom",
+                  self.cfg.rebase_threshold - int(res["end"][r]),
+                  replica=r)
+            m.set("inflight_waiters", len(self.runtimes[r].inflight),
+                  replica=r)
+            acc = int(res["accepted"][r])
+            if acc > 0:
+                m.inc("accepted_entries_total", acc, replica=r)
+                m.observe("step_batch_entries", acc,
+                          buckets=BATCH_BUCKETS, replica=r)
+                self.obs.trace.record(obs_trace.STEP_BATCH, replica=r,
+                                      entries=acc)
+            commit_abs = int(res["commit"][r]) + rebased
+            delta = commit_abs - int(self._prev_commit_abs[r])
+            if delta > 0:
+                self._prev_commit_abs[r] = commit_abs
+                m.inc("committed_entries_total", delta, replica=r)
+                self.obs.trace.record(obs_trace.COMMIT_ADVANCE,
+                                      replica=r, commit=commit_abs,
+                                      delta=delta)
+        # cluster-level leader view (the leaderless alert's input)
+        m.set("cluster_leader", self._leader_view)
+        self._cadence_observe()
+
+    def _cadence_observe(self) -> None:
+        """The wall-cadenced observability work, shared by the per-step
+        observe pass and the idle-quiescence branch. The JAX driver
+        evaluates alerts, samples its series, expires profiler captures
+        and writes health files here; those come with ROADMAP Queue 1,
+        item 12, and until then this hook does nothing."""
+
+    def evaluate_alerts(self) -> Dict:
+        raise NotImplementedError("evaluate_alerts: " + OBS_LATER)
+
+    def health(self) -> Dict:
+        raise NotImplementedError("health: " + OBS_LATER)
+
+    def serve_metrics(self, port: int = 0):
+        raise NotImplementedError("serve_metrics: " + OBS_LATER)
+
+    def start_profile(self, seconds: float = 5.0,
+                      log_dir: Optional[str] = None):
+        raise NotImplementedError("start_profile: " + OBS_LATER)
+
+    # ------------------------------------------------------------------
+    # failure detection + eviction (push-detection analog: WC failures
+    # -> fail_count >= threshold -> CONFIG removal, dare_server.c:1189)
+    # ------------------------------------------------------------------
+
+    # holds-lock: _lock
+    def _fail_inflight_locked(self, rt: _ReplicaRuntime,
+                              site: str) -> None:
+        """Fail every blocked commit waiter (caller holds the lock). A
+        SPECULATIVE app already executed the inputs being failed, so its
+        state may have diverged from the committed stream — quarantine
+        it (app_dirty)."""
+        if (rt.inflight and rt.proxy is not None
+                and rt.proxy.spec_mode and not rt.app_dirty):
+            rt.app_dirty = True
+            rt.log.info_wtime(
+                "APP DIRTY: %d speculated events failed at %s"
+                % (len(rt.inflight), site))
+        n = len(rt.inflight)
+        while rt.inflight:
+            ev, _ = rt.inflight.popleft()
+            ev.release(-1)
+        if n:
+            self.obs.metrics.inc("inflight_failed_total", n,
+                                 replica=rt.idx)
+            self.obs.trace.record(obs_trace.INFLIGHT_FAILED,
+                                  replica=rt.idx, count=n, site=site)
+            # close the failed waiters' spans with a terminal failover
+            # status — nothing will ever ack them
+            self.obs.spans.fail_open(rt.idx)
+
+    def _step_down_detector(self, res) -> None:
+        """Lost-majority step-down (dare_server.c:1213-1217 analog): a
+        leader that cannot verify its authority against a majority for
+        ``step_down_steps`` consecutive steps stops serving — blocked
+        commit waiters fail (clients retry elsewhere) and replicated
+        sessions are refused until it re-verifies or is deposed."""
+        for r in range(self.R):
+            is_lead = res["role"][r] == int(Role.LEADER)
+            if is_lead and not res["leadership_verified"][r]:
+                self.unverified[r] += 1
+            else:
+                self.unverified[r] = 0
+                if r in self.stepped_down:
+                    self.stepped_down.discard(r)
+                    self.runtimes[r].log.info_wtime(
+                        "REJOINED: leadership re-verified or deposed")
+            if (is_lead and r not in self.stepped_down
+                    and self.unverified[r] >= self.step_down_steps):
+                self.stepped_down.add(r)
+                rt = self.runtimes[r]
+                self.obs.metrics.inc("step_downs_total", replica=r)
+                self.obs.trace.record(obs_trace.STEP_DOWN, replica=r,
+                                      term=int(res["term"][r]),
+                                      unverified=int(self.unverified[r]))
+                rt.log.info_wtime(
+                    "[T%d] LOST MAJORITY: stepping down after %d "
+                    "unverified steps" % (int(res["term"][r]),
+                                          int(self.unverified[r])))
+                # replicated_conns is deliberately NOT cleared: removing
+                # a session from the set would downgrade its next event
+                # to unreplicated pass-through (acked lost write); the
+                # stepped_down branch in on_event severs each surviving
+                # session on its next event instead.
+                with self._lock:
+                    self._fail_inflight_locked(rt, "step-down")
+
+    def _member_view_cached(self, lead: int) -> dict:
+        """The current config view (bitmask/epoch/cid_state), refreshed
+        from device state only while NOTHING is in flight (a device
+        read under in-flight dispatches would serialize the pipeline).
+        Config changes drain the pipeline (see _pipeline_ready), so the
+        cache is stale at most for the duration of one drained
+        transition."""
+        with self.cluster._host_lock:
+            if not self.cluster._tickets:
+                self._member_cur = self._mm.current(lead)
+        return self._member_cur
+
+    def _failure_detector(self, res) -> None:
+        lead = self._leader_view
+        if lead < 0:
+            self.fail_count[:] = 0
+            return
+        cur = self._member_view_cached(lead)
+        mask = cur["bitmask_new"]
+        acked = res["peer_acked"][lead]
+        for r in range(self.R):
+            if not (mask >> r) & 1 or r == lead:
+                self.fail_count[r] = 0
+                continue
+            self.fail_count[r] = 0 if acked[r] else self.fail_count[r] + 1
+        if not self.auto_evict or self._config_phase is not None:
+            return
+        dead = [r for r in range(self.R)
+                if (mask >> r) & 1 and self.fail_count[r]
+                >= self.fail_threshold]
+        if dead:
+            new_mask = mask
+            for r in dead:
+                new_mask &= ~(1 << r)
+            # only evict a strict MINORITY: the survivors must form a
+            # majority of the current group, else a transient partition
+            # of live nodes would permanently shrink fault tolerance
+            survivors = bin(new_mask).count("1")
+            if survivors > bin(mask).count("1") // 2:
+                self._mm.submit_transit(lead, mask, new_mask,
+                                        cur["epoch"] + 1)
+                self._config_phase = ("transit", new_mask,
+                                      cur["epoch"] + 1, 500)
+                self.obs.metrics.inc("evictions_total", len(dead))
+                self.obs.trace.record(obs_trace.MEMBERSHIP_CHANGE,
+                                      phase="evict_transit", dead=dead,
+                                      new_mask=new_mask,
+                                      epoch=cur["epoch"] + 1)
+
+    def _drive_config_change(self) -> None:
+        """Advance a two-phase (joint-consensus) config change one poll
+        iteration at a time — the non-blocking version of
+        MembershipManager.change for use inside the polling loop."""
+        if self._config_phase is None:
+            return
+        # under pipelining this runs on the readback thread: a device
+        # read of the config would race (and serialize) in-flight
+        # dispatches, and a concurrent batch take would race
+        # submit_stable. The engine host lock brackets every dispatch,
+        # so holding it with tickets empty proves none is in flight —
+        # and _pipeline_ready sees the phase and drains, so a deferred
+        # iteration drives the change serially (TTL untouched).
+        with self.cluster._host_lock:
+            if self.cluster._tickets:
+                return
+            phase, new_mask, epoch, ttl = self._config_phase
+            if ttl <= 0:
+                # CONFIG entry lost (e.g. leader deposed before it
+                # replicated): abandon so the failure detector /
+                # operator can resubmit
+                self._config_phase = None
+                self.config_changes_abandoned += 1
+                self.obs.metrics.inc("config_changes_abandoned_total")
+                self.obs.trace.record(obs_trace.MEMBERSHIP_CHANGE,
+                                      phase="abandoned",
+                                      new_mask=new_mask, epoch=epoch)
+                return
+            self._config_phase = (phase, new_mask, epoch, ttl - 1)
+            lead = self._leader_view
+            if lead < 0:
+                return
+            cur = self._mm.current(lead)
+            last = self.cluster.last
+            committed = (last is not None and
+                         int(last["commit"][lead])
+                         >= int(last["end"][lead]))
+            if phase == "transit":
+                if (cur["epoch"] >= epoch
+                        and cur["cid_state"] == int(ConfigState.TRANSIT)
+                        and committed):
+                    self._mm.submit_stable(lead, new_mask, epoch + 1)
+                    self._config_phase = ("stable", new_mask,
+                                          epoch + 1, ttl)
+                    self.obs.trace.record(obs_trace.MEMBERSHIP_CHANGE,
+                                          phase="stable_submitted",
+                                          new_mask=new_mask,
+                                          epoch=epoch + 1)
+            elif phase == "stable":
+                if (cur["epoch"] >= epoch
+                        and cur["cid_state"] == int(ConfigState.STABLE)):
+                    self._config_phase = None
+                    self.obs.metrics.inc("config_changes_total")
+                    self.obs.trace.record(obs_trace.MEMBERSHIP_CHANGE,
+                                          phase="complete",
+                                          new_mask=new_mask, epoch=epoch)
+
+    def request_membership(self, new_mask: int) -> None:
+        """Operator API: start a two-phase change to ``new_mask`` (join /
+        upsize / downsize); the polling loop drives it to completion."""
+        lead = self._leader_view
+        if lead < 0:
+            raise RuntimeError("no leader")
+        cur = self._mm.current(lead)
+        self._mm.submit_transit(lead, cur["bitmask_new"], new_mask,
+                                cur["epoch"] + 1)
+        self._config_phase = ("transit", new_mask, cur["epoch"] + 1, 500)
+        self.obs.trace.record(obs_trace.MEMBERSHIP_CHANGE,
+                              phase="transit_requested",
+                              new_mask=new_mask, epoch=cur["epoch"] + 1)
+
+    def recover_replica(self, r: int, donor: Optional[int] = None,
+                        timeout: float = 60.0) -> None:
+        raise NotImplementedError("recover_replica: " + RECOVERY_LATER)
+
+    def reset_app(self, r: int, timeout: float = 60.0) -> None:
+        raise NotImplementedError("reset_app: " + RECOVERY_LATER)
+
+    def checkpoint_app(self, r: int, timeout: float = 60.0) -> None:
+        raise NotImplementedError("checkpoint_app: " + RECOVERY_LATER)
+
+    def _do_recover(self, r: int, donor: Optional[int],
+                    app_fresh: bool = True, ledger=None,
+                    min_verified: int = 1) -> None:
+        raise NotImplementedError("_do_recover: " + RECOVERY_LATER)
+
+    def _apply_new_entries(self, r: int, rt: _ReplicaRuntime) -> None:
+        stream = self.cluster.replayed[r]
+        n = len(stream)
+        if rt.replay_cursor >= n:
+            return
+        self._phase_prof.start("apply_replay_ack")
+        # the engine's decode left the new entries as COLUMNAR batches
+        # (hostpath.ReplayBatch): the replay/ack sweep below touches
+        # Python O(1) per window, not O(1) per entry
+        segs = stream.segments_from(rt.replay_cursor)
+        rt.replay_cursor = n
+        if rt.store is not None:
+            # frames were assembled vectorized during the window decode
+            # (SimCluster.collect_frames); one syscall appends the batch
+            blobs = self.cluster.frames[r]
+            if blobs:
+                self.cluster.frames[r] = []
+                for b in blobs:
+                    rt.store.append_framed(b)
+        # a dirty app's state diverged: keep persisting (the store stays
+        # the complete committed stream) but feed the app nothing
+        replaying = rt.replay is not None and not rt.app_dirty
+        own_max = -1
+        n_replayed = 0
+
+        def own_of(conns, _gens):
+            return conn_origin(conns) == r
+
+        for seg in segs:
+            seg_max, ops, n_rem = plan_segment(seg, own_of,
+                                               want_ops=replaying)
+            own_max = max(own_max, seg_max)
+            n_replayed += n_rem
+            if replaying:
+                # remote SEND runs arrive coalesced per connection
+                # (one loopback write per run — byte-stream identical
+                # for the app); CONNECT/CLOSE apply individually
+                for etype, conn, payload in ops:
+                    rt.replay.apply(etype, conn, payload)
+        if replaying:
+            rt.replay.drain_responses()
+        if rt.store is not None:
+            # the WRITE precedes the ack (store_record runs inside the
+            # reference's apply, db-interface.c:65-96), but fdatasync
+            # runs on a cadence, not on the ack path: the reference's
+            # durability contract is a quorum's memory plus an
+            # OS-buffered store write
+            now = time.monotonic()
+            if now - rt.last_sync > self.sync_period:
+                rt.store.sync()
+                rt.last_sync = now
+        if replaying and n_replayed:
+            self.obs.metrics.inc("replayed_entries_total",
+                                 n_replayed, replica=r)
+        if own_max >= 0:
+            # ack release by sequence: every own-origin entry carries
+            # the fragment seq in req_id (monotone in commit order), so
+            # commits are matched exactly even across leadership churn
+            self._phase_prof.start("ack_release")
+            releases = []
+            with self._lock:
+                while rt.inflight and rt.inflight[0][1] <= own_max:
+                    ev, seq = rt.inflight.popleft()
+                    releases.append((ev, seq))
+            # spans first so the latency observe below can attach the
+            # SAMPLED releases' span ids as histogram exemplars
+            sampled = {}
+            if releases:
+                self.obs.trace.record(obs_trace.PROXY_ACK_RELEASE,
+                                      replica=r, count=len(releases),
+                                      submit_seq=own_max)
+                sampled = {req: conn for conn, req
+                           in self.obs.spans.ack_release(r, own_max)}
+            now = time.perf_counter()
+            for ev, seq in releases:
+                ev.release(0)
+                # intake→release is the client-visible commit latency
+                # (the spin at proxy.c:160, measured instead of spun)
+                self.obs.metrics.observe(
+                    "commit_latency_seconds", now - ev.t0,
+                    buckets=LATENCY_BUCKETS_S,
+                    exemplar=(span_trace_id(sampled[seq], seq)
+                              if seq in sampled else None),
+                    replica=r)
+            self._phase_prof.stop("ack_release")
+        self._phase_prof.stop("apply_replay_ack")
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    def _handle_loop_crash(self, exc: BaseException) -> None:
+        """A raised step must never silently kill the poll thread with
+        app threads parked on commit waits: record it, fail every
+        blocked event so the apps sever/retry, and stop the loop."""
+        import traceback
+        self.loop_error = exc
+        traceback.print_exc()
+        self.obs.metrics.inc("loop_errors_total")
+        with self._lock:
+            for rt in self.runtimes:
+                self._fail_inflight_locked(rt, "poll-loop crash")
+        if self._workdir is not None:
+            # post-mortem: persist the protocol trace ring next to the
+            # replica logs
+            try:
+                self.obs.trace.dump_on_failure(
+                    os.path.join(self._workdir, "trace_dump.json"),
+                    reason=f"poll-loop crash: {exc!r}")
+            except OSError:
+                pass
+
+    def _busy(self) -> bool:
+        with self._lock:
+            return bool(any(self._submitq)
+                        or any(len(q) for q in self.cluster.pending)
+                        or self._waiter_count())
+
+    # holds-lock: _lock
+    def _waiter_count(self) -> int:
+        """Blocked commit waiters across replicas (caller holds
+        ``_lock``)."""
+        return sum(len(rt.inflight) for rt in self.runtimes)
+
+    def _pipeline_ready(self) -> bool:
+        """True iff the next iteration may DISPATCH WITHOUT FINISHING —
+        the stable-leader traffic path where pipelining is a pure
+        latency/throughput transform. Everything else (elections,
+        config changes, recovery flags, rebase drains, idle heartbeats)
+        drains the pipeline and runs the serial ``step()``."""
+        c = self.cluster
+        if c.last is None or self._leader_view < 0:
+            return False
+        if c.need_recovery or self.stepped_down:
+            return False
+        # a membership change in flight polls device-side config state
+        # every step — drive it through drained serial steps
+        if self._config_phase is not None:
+            return False
+        # stop dispatching once the i32-rollover threshold is crossed:
+        # the rebase is deferred until the pipeline drains, and the
+        # headroom margin covers only boundedly many in-flight bursts
+        if int(c.last["end"].max()) >= self.cfg.rebase_threshold:
+            return False
+        # pipelining pays off only while APPEND BATCHES flow (encode
+        # k+1 while k runs); with just blocked waiters and an empty
+        # queue the serial loop acks a commit one dispatch sooner
+        with self._lock:
+            if not (any(self._submitq) or self._backlog()):
+                return False
+        # any expired follower election timer needs the serial path
+        # (bursts and pipelined steps never fire timeouts)
+        last = c.last
+        for r, rt in enumerate(self.runtimes):
+            if (not self._role_is_leader(last, r)
+                    and rt.timer.expired()):
+                return False
+        return True
+
+    def _role_is_leader(self, res, r: int) -> bool:
+        return bool(res["role"][r] == int(Role.LEADER))
+
+    # ------------------------------------------------------------------
+    # idle quiescence
+    # ------------------------------------------------------------------
+
+    def _repair_idle(self) -> bool:
+        """True iff the repair pipeline has nothing in flight; no repair
+        controller is attached in this port yet (item 12)."""
+        return self.repair is None
+
+    def _idle_margin(self) -> float:
+        """Seconds until the earliest follower election timer would
+        fire. The idle loop must dispatch a heartbeat step well before
+        that — each step carries the heartbeat, so stepping IS the
+        beat."""
+        last = self.cluster.last
+        m = float("inf")
+        for r, rt in enumerate(self.runtimes):
+            if self._role_is_leader(last, r):
+                continue
+            m = min(m, rt.timer.remaining())
+        return m
+
+    def _can_idle_skip(self) -> bool:
+        """True iff this iteration may skip the device dispatch
+        entirely: a led, healthy, traffic-free cluster with no config
+        work due and every follower election timer comfortably far from
+        firing. Conservative by construction — any doubt dispatches the
+        step."""
+        if not self._idle_quiesce:
+            return False
+        c = self.cluster
+        if c.last is None or self._leader_view < 0:
+            return False
+        if self._config_phase is not None:
+            return False
+        if c.need_recovery or self.stepped_down:
+            return False
+        if not self._repair_idle():
+            return False
+        if self._busy():
+            return False
+        return self._idle_margin() > self._idle_guard
+
+    def _idle_park(self) -> None:
+        """One idle-quiescence beat: count the avoided dispatch, keep
+        the cadenced observability fresh, and park with exponential
+        backoff — bounded well inside the follower-timer margin, and
+        broken instantly by any intake event (``_wake``)."""
+        self.obs.metrics.inc("idle_dispatches_avoided_total")
+        if self._idle_backoff <= 0.001:
+            # once per quiescence episode, not per beat
+            self.obs.trace.record(obs_trace.IDLE_QUIESCE)
+        self._cadence_observe()
+        wait = min(self._idle_backoff, self._idle_margin() / 2)
+        self._idle_backoff = min(self._idle_backoff * 2,
+                                 self._idle_backoff_max)
+        self._wake.wait(timeout=max(wait, 0.0005))
+        self._wake.clear()
+
+    def _drain_pipeline(self) -> bool:
+        """Block until the readback thread retired every in-flight
+        ticket (device outputs read AND post-step host rules run).
+        True when drained; False when the loop died."""
+        with self._pl_cv:
+            while self._pl_pending:
+                if self.loop_error is not None:
+                    return False
+                if (self._rb_thread is not None
+                        and not self._rb_thread.is_alive()):
+                    return False
+                self._pl_cv.wait(timeout=0.05)
+        return self.loop_error is None
+
+    def _readback_loop(self) -> None:
+        """Consumer half of the pipelined driver: finish tickets in
+        dispatch (FIFO) order and run every post-step host rule —
+        including observability export — OFF the dispatch path."""
+        self._bind_device()
+        while True:
+            ticket = self._pl_queue.get()
+            if ticket is None:
+                return
+            try:
+                res = self.cluster.finish(ticket)
+                self._post_step(res)
+            except Exception as exc:  # noqa: BLE001
+                self._handle_loop_crash(exc)
+                with self._pl_cv:
+                    self._pl_pending = 0
+                    self._pl_cv.notify_all()
+                return
+            with self._pl_cv:
+                self._pl_pending -= 1
+                self._pl_cv.notify_all()
+
+    def _dispatch_loop(self, period: float) -> None:
+        while not self._stop.is_set():
+            if self.loop_error is not None:
+                return
+            if not (self.pipeline >= 2 and self._pipeline_ready()):
+                # serial iteration (elections / config / recovery /
+                # rebase / idle heartbeat): drain first — the engine's
+                # FIFO finish contract forbids a fused step() while
+                # tickets are in flight
+                if not self._drain_pipeline():
+                    return
+                if self._stop.is_set():
+                    return
+                # the idle-skip check and the step share one crash
+                # handler: a raised skip-path bug must fail blocked
+                # waiters loudly, never park the loop dead silently
+                try:
+                    if self._can_idle_skip():
+                        self._idle_park()
+                        continue
+                    self._idle_backoff = 0.001  # re-arm the backoff
+                    self.step()
+                except Exception as exc:  # noqa: BLE001
+                    self._handle_loop_crash(exc)
+                    return
+                if not self._busy() and period:
+                    self._wake.wait(timeout=period)
+                self._wake.clear()
+                continue
+            # ---- pipelined fast path: encode + dispatch only ----
+            with self._pl_cv:
+                if self._pl_pending >= self.pipeline:
+                    self._pl_cv.wait(timeout=0.05)
+                    continue
+            self._pump_submitq()
+            try:
+                self._timer_obs.start("device_step")
+                if self._backlog():
+                    ticket = self.cluster.begin_burst()
+                else:
+                    # waiters with empty queues: quorum/commit trails
+                    # the last append by a step — advance it (no batch
+                    # take: pipelined appends ride capacity-clamped
+                    # bursts only, so shortfall requeues cannot reorder
+                    # against in-flight dispatches)
+                    ticket = self.cluster.begin_step(take_batch=False)
+                self._timer_obs.stop("device_step")
+            except Exception as exc:  # noqa: BLE001
+                self._handle_loop_crash(exc)
+                return
+            with self._pl_cv:
+                self._pl_pending += 1
+            self._pl_queue.put(ticket)
+
+    def run(self, period: float = 0.0) -> None:
+        """Run the polling loop in background threads. While client work
+        is pending or blocked app threads await commit, the loop
+        free-runs (the reference's busy commit loop). When idle it
+        PARKS for up to ``period`` seconds and wakes INSTANTLY when a
+        link thread hands it an event.
+
+        With ``pipeline >= 2`` (the default) the stable-leader traffic
+        path runs DOUBLE-BUFFERED: the dispatch thread encodes and
+        enqueues batch k+1 while batch k is still on the card, and the
+        readback thread waits for outputs and runs the post-step host
+        rules. ``pipeline=0`` (or 1) keeps the fully serial loop."""
+        self._pl_pending = 0
+        self._rb_thread = threading.Thread(target=self._readback_loop,
+                                           daemon=True)
+        self._rb_thread.start()
+
+        def loop():
+            self._bind_device()
+            try:
+                self._dispatch_loop(period)
+            finally:
+                self._pl_queue.put(None)     # retire the readback side
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+
+    def prewarm(self) -> None:
+        """Build and load the CUDA kernels, allocate every staging tier
+        and run each step variant once, so the first served step never
+        pays for ``nvcc``. A failure here is a loop crash: it is
+        recorded in ``loop_error``, every waiter fails, and it raises."""
+        try:
+            self.cluster.prewarm()
+        except Exception as exc:
+            self._handle_loop_crash(exc)
+            raise
+
+    def stop(self, join_timeout: float = 5.0) -> None:
+        # idempotent: tests may stop explicitly and again from fixture
+        # teardown — the second call must not touch closed native handles
+        if getattr(self, "_stopped", False):
+            return
+        self._stop.set()
+        self._wake.set()
+        with self._pl_cv:
+            self._pl_cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=join_timeout)
+            if self._thread.is_alive():
+                # a wedged poll thread (e.g. blocked inside a device
+                # step) may still be touching the native handles:
+                # closing them under it would be a use-after-free.
+                # Leak them loudly instead; a later stop() retries.
+                # But FIRST fail every blocked commit waiter: with
+                # _stop set no step will ever release them.
+                with self._lock:
+                    n = sum(len(rt.inflight) for rt in self.runtimes)
+                    for rt in self.runtimes:
+                        self._fail_inflight_locked(
+                            rt, "stop (wedged poll thread)")
+                self.obs.trace.record(obs_trace.STOP_FORCED,
+                                      released=n)
+                if self._workdir is not None:
+                    try:
+                        self.obs.trace.dump_on_failure(
+                            os.path.join(self._workdir,
+                                         "trace_dump.json"),
+                            reason="stop: wedged poll thread")
+                    except OSError:
+                        pass
+                self.runtimes[0].log.info_wtime(
+                    "STOP: poll thread did not exit within %gs; "
+                    "released %d inflight waiters with -1; leaving "
+                    "native handles open" % (join_timeout, n))
+                return
+        if self._rb_thread is not None:
+            self._pl_queue.put(None)
+            self._rb_thread.join(timeout=join_timeout)
+        # release commit waiters that were already inflight at stop —
+        # nothing will ever step again, so they must fail, not hang
+        with self._lock:
+            for rt in self.runtimes:
+                self._fail_inflight_locked(rt, "stop")
+        try:
+            for rt in self.runtimes:
+                # one replica's close failure must not leak the rest
+                for res in (rt.proxy, rt.replay, rt.store, rt.log):
+                    if res is None:
+                        continue
+                    try:
+                        res.close()
+                    except OSError:
+                        pass
+        finally:
+            # latch only after the cleanup actually ran
+            self._stopped = True
+
+    def leader(self) -> int:
+        with self._lock:
+            return self._leader_view
+
+    def read(self, fn=None, *, replica: Optional[int] = None,
+             group: int = 0, timeout: float = 30.0):
+        """The queued linearizable read of the JAX driver; it needs the
+        lease read path, which this port does not attach yet."""
+        raise RuntimeError(
+            "driver was built with leases=False — no read path")
+
+    def can_serve_read(self, r: int) -> bool:
+        """Read-index check: True iff replica ``r`` verified its
+        leadership against a majority on the latest step, so a read of
+        state at its commit index is linearizable (the reference verifies
+        before answering pending reads — ep_dp_reply_read_req,
+        dare_ep_db.c:132-161)."""
+        last = self.cluster.last
+        return (last is not None
+                and bool(last["leadership_verified"][r]))

@@ -1,12 +1,17 @@
-"""Vectorized host data plane: window encode and decode in numpy.
+"""Vectorized host data plane: window encode and decode, replay and ack
+planning, in numpy.
 
 The engine packs a whole window of client payloads into its staging
 buffers in one pass and decodes each fetched committed window into one
 columnar :class:`ReplayBatch` (one compacted payload blob + a cumsum
 offset table), appended to a :class:`LazyReplayStream` that shows the
-legacy ``(etype, conn, req, payload)`` tuple view on demand. Byte for
-byte the JAX package's ``runtime/hostpath.py`` vectorized path; the log
-constants are this package's own copy. numpy only.
+legacy ``(etype, conn, req, payload)`` tuple view on demand. The driver
+plans each replica's apply from those batches (:func:`plan_segment`):
+the own-entry ack frontier and the remote replay ops, with consecutive
+same-connection SENDs coalesced. Byte for byte the JAX package's
+``runtime/hostpath.py``; the log constants are this package's own copy.
+Only the vectorized paths are kept: the JAX package's scalar replay
+plan is the reference the tests hold this one against. numpy only.
 """
 
 from __future__ import annotations
@@ -17,7 +22,6 @@ import numpy as np
 
 from rdma_paxos_tpu_torch.consensus.log import (
     EntryType, M_CONN, M_GEN, M_GIDX, M_LEN, M_REQID, M_TERM, M_TYPE)
-
 
 def ragged_arange(lens: np.ndarray) -> np.ndarray:
     """``concatenate([arange(l) for l in lens])`` without the loop."""
@@ -100,14 +104,15 @@ class ReplayBatch:
 
     def frames(self) -> bytes:
         """Store-ready framed blob ``([u32 len][u8 etype][u32 conn]
-        [payload])*`` of a batch as decoded (a :meth:`slice` shares the
-        whole blob and is framed by no caller)."""
+        [payload])*`` built over the offset table."""
         return frames_from_cols(self.types, self.conns, self.lens,
-                                self.blob)
+                                self.blob, self.offs)
 
 
-def frames_from_cols(types, conns, lens, blob: bytes) -> bytes:
-    """Frame entries whose payloads lie back to back in ``blob``."""
+def frames_from_cols(types, conns, lens, blob: bytes, offs) -> bytes:
+    """See :meth:`ReplayBatch.frames`. A blob longer than ``lens.sum()``
+    (a :meth:`ReplayBatch.slice`, whose offset table stays absolute) is
+    gathered through ``offs``."""
     n = len(types)
     if not n:
         return b""
@@ -120,9 +125,13 @@ def frames_from_cols(types, conns, lens, blob: bytes) -> bytes:
     out[starts + 4] = np.asarray(types).astype(np.uint8)
     out[starts[:, None] + 5 + np.arange(4)] = (
         np.asarray(conns).astype("<i4").view(np.uint8).reshape(n, 4))
-    if int(lens.sum()):
-        out[np.repeat(starts + 9, lens) + ragged_arange(lens)] = \
-            np.frombuffer(blob, np.uint8)
+    total = int(lens.sum())
+    if total:
+        src = np.frombuffer(blob, np.uint8)
+        if len(src) != total:                   # non-compacted offsets
+            o = np.asarray(offs, np.int64)
+            src = src[np.repeat(o[:n], lens) + ragged_arange(lens)]
+        out[np.repeat(starts + 9, lens) + ragged_arange(lens)] = src
     return out.tobytes()
 
 
@@ -214,3 +223,84 @@ class LazyReplayStream:
             off = 0
         return segs
 
+
+# ---------------------------------------------------------------------------
+# replay/ack planning (the driver's per-connection release)
+# ---------------------------------------------------------------------------
+
+def replay_plan(seg, own_mask: np.ndarray, want_ops: bool = True
+                ) -> Tuple[int, List[Tuple[int, int, bytes]]]:
+    """One window's apply plan: ``(own_max, ops)`` where ``own_max``
+    is the highest req of this replica's OWN entries (-1 when none —
+    the ack-release frontier) and ``ops`` is the remote replay
+    sequence with consecutive same-connection SENDs coalesced into one
+    ``(SEND, conn, joined_payload)`` op — byte-stream identical to the
+    per-entry loop (own entries never break a run; any non-SEND does).
+    ``seg`` is a :class:`ReplayBatch`. ``want_ops=False`` (a dirty or
+    absent app: nothing will be replayed) returns only the ack
+    frontier."""
+    if not want_ops:
+        own_idx = np.flatnonzero(own_mask)
+        return (int(seg.reqs[own_idx[-1]]) if own_idx.size else -1,
+                [])
+    return _plan_vec(seg, own_mask)
+
+
+def _plan_vec(seg, own_mask):
+    own_idx = np.flatnonzero(own_mask)
+    own_max = int(seg.reqs[own_idx[-1]]) if own_idx.size else -1
+    rem = np.flatnonzero(~own_mask)
+    if not rem.size:
+        return own_max, []
+    t_r = seg.types[rem]
+    c_r = seg.conns[rem]
+    l_r = seg.lens[rem]
+    if rem.size == len(seg):
+        blob_r, off_r = seg.blob, seg.offs
+    else:
+        src = np.frombuffer(seg.blob, np.uint8)
+        pos = np.repeat(seg.offs[rem], l_r) + ragged_arange(l_r)
+        blob_r = src[pos].tobytes()
+        off_r = np.zeros(rem.size + 1, np.int64)
+        np.cumsum(l_r, out=off_r[1:])
+    is_send = t_r == int(EntryType.SEND)
+    brk = np.empty(rem.size, bool)
+    brk[0] = True
+    if rem.size > 1:
+        brk[1:] = (~is_send[1:] | ~is_send[:-1]
+                   | (c_r[1:] != c_r[:-1]))
+    starts = np.flatnonzero(brk)
+    ends = np.append(starts[1:], rem.size)
+    return own_max, [
+        (int(t_r[s]), int(c_r[s]),
+         blob_r[off_r[s]:off_r[e]])
+        for s, e in zip(starts, ends)]
+
+
+def plan_segment(seg, own_of, want_ops: bool = True
+                 ) -> Tuple[int, list, int]:
+    """Plan one stream segment (a ReplayBatch, or the plain tuple list
+    that :meth:`LazyReplayStream.segments_from` yields for the entries a
+    reader already materialized or a converted snapshot seeded): returns ``(own_max, ops,
+    n_remote)``. ``own_of(conns, gens)`` maps the columns to the
+    own-entry boolean mask; ``want_ops=False`` skips building the
+    replay ops (see :func:`replay_plan`)."""
+    if isinstance(seg, ReplayBatch):
+        own = own_of(seg.conns, seg.gens)
+        own_max, ops = replay_plan(seg, own, want_ops)
+        return own_max, ops, int(len(seg) - own.sum())
+    # plain tuples: wrap them into a batch so the one plan implementation serves both
+    n = len(seg)
+    if not n:
+        return -1, [], 0
+    types = np.fromiter((e[0] for e in seg), np.int32, n)
+    conns = np.fromiter((e[1] for e in seg), np.int32, n)
+    reqs = np.fromiter((e[2] for e in seg), np.int32, n)
+    lens = np.fromiter((len(e[3]) for e in seg), np.int64, n)
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    batch = ReplayBatch(types, conns, reqs, np.zeros(n, np.int32),
+                        lens, b"".join(e[3] for e in seg), offs)
+    own = own_of(batch.conns, batch.gens)
+    own_max, ops = replay_plan(batch, own, want_ops)
+    return own_max, ops, int(n - own.sum())

@@ -6,9 +6,14 @@ submission, partitions through per-replica ``peer_mask`` rows, the
 ticket contract ``begin_step``/``begin_burst`` -> ``finish`` (serial
 ``step()``/``step_burst()`` are exactly ``finish(begin_*())``), the
 staging pool, requeue of shortfalls, the committed-entry replay with
-its slot-recycling integrity check, and the coordinated i32 rebase.
-The JAX engine's attachments (observability, spans, link model, leases,
-reads, streams, governor, txn, audit, telemetry) come in later slices.
+its slot-recycling integrity check, the coordinated i32 rebase, and the
+surface the driver reads: ``max_inflight_dispatches``, the ``obs``
+facade (rebase counters and trace events, span stamps) and the
+``profiler`` phase hooks, and :meth:`SimCluster.prewarm`. The JAX
+engine's other attachments (``link_model``, ``leases``, ``reads``,
+``streams``, ``governor``, ``txn``, the ``auditor``/``flight`` pair of
+``audit=`` and ``telemetry=``) come in later slices: they read as None,
+and a dispatch with one attached raises.
 
 Every device result a finish needs is read back in ONE transfer, and a
 replay sweep fetches only as many rows as the furthest-behind replica
@@ -170,6 +175,7 @@ class SimCluster:
 
     def __init__(self, cfg: LogConfig, n_replicas: int,
                  group_size: Optional[int] = None, *,
+                 mode: str = "sim",
                  fanout: str = "gather", stable_fast_path: bool = True,
                  scan: bool = False, device=None,
                  audit: bool = False, telemetry: bool = False,
@@ -177,6 +183,12 @@ class SimCluster:
         if audit or telemetry or txn:
             raise NotImplementedError(
                 "audit=, telemetry= and txn= clusters are not ported")
+        if mode == "spmd":
+            raise NotImplementedError(
+                "mode='spmd' (one replica per device) is not ported yet "
+                "(ROADMAP Queue 1, item 13)")
+        if mode != "sim":
+            raise ValueError(f"unknown mode {mode!r}")
         if fanout not in ("gather", "psum"):
             raise ValueError(f"unknown fanout {fanout!r}")
         self.device = resolve_device(device)
@@ -208,6 +220,8 @@ class SimCluster:
         self._staging = StagingPool()
         self._host_lock = threading.RLock()
         self.inflight_dispatches = 0
+        # the witness that a pipelined driver really overlapped dispatches
+        self.max_inflight_dispatches = 0
         self.last: Optional[Dict[str, np.ndarray]] = None
         self.replayed: List[LazyReplayStream] = [
             LazyReplayStream() for _ in range(n_replicas)]
@@ -222,6 +236,22 @@ class SimCluster:
         self.rebase_stall_steps = 0
         self.rebase_stalled = 0
         self.step_index = 0
+        # host-side observability facade and step-phase profiler,
+        # attached by the driver (or tests); never read by the step
+        self.obs = None
+        self.profiler = None
+        # attachments of later slices (chaos link model, read path,
+        # streams, governor, transactions; audit ledger and flight
+        # recorder): None, as on the JAX engine without them; the
+        # driver refuses the flags that would attach them
+        self.link_model = None
+        self.leases = None
+        self.reads = None
+        self.streams = None
+        self.governor = None
+        self.txn = None
+        self.auditor = None
+        self.flight = None
 
     # ---------------- client-side API ----------------
 
@@ -269,7 +299,8 @@ class SimCluster:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, copy=True)
 
-    def _check_mask(self) -> None:
+    def _check_dispatch(self) -> None:
+        """Refuse a partition under the psum fan-out."""
         if self._fanout == "psum" and not self.peer_mask.all():
             raise ValueError(
                 "psum fan-out requires full connectivity; use "
@@ -298,9 +329,12 @@ class SimCluster:
                 out[r] += len(t.taken[r])
         return out
 
+    # holds-lock: _host_lock
     def _enqueue(self, ticket: StepTicket) -> StepTicket:
         self._tickets.append(ticket)
         self.inflight_dispatches += 1
+        self.max_inflight_dispatches = max(
+            self.max_inflight_dispatches, self.inflight_dispatches)
         return ticket
 
     def begin_step(self, timeouts: Sequence[int] = (),
@@ -308,8 +342,11 @@ class SimCluster:
         """Encode + dispatch one protocol step; returns the in-flight
         ticket (pass to :meth:`finish`, FIFO)."""
         timeouts = list(timeouts)
+        prof = self.profiler
+        if prof is not None:
+            prof.start("host_encode")
         cfg, R, B = self.cfg, self.R, self.cfg.batch_slots
-        self._check_mask()
+        self._check_dispatch()
         bufs = self._step_bufs()
         count = np.zeros((R,), np.int32)
         with self._host_lock:
@@ -336,10 +373,16 @@ class SimCluster:
             apply_done=self._dev(applied), queue_depth=self._dev(qdepth))
         # no timer fired => Phase B is a no-op: the stable step
         fn = self._steps[not (self._stable_fast_path and not timeouts)]
+        if prof is not None:
+            prof.stop("host_encode")
+            prof.start("device_dispatch")
         with self._host_lock:
             self.state, out = fn(self.state, inp)
-            return self._enqueue(
+            ticket = self._enqueue(
                 StepTicket("step", out, taken, timeouts, 1, bufs))
+        if prof is not None:
+            prof.stop("device_dispatch")
+        return ticket
 
     def _tiers(self, max_k: Optional[int]) -> Tuple[int, ...]:
         return cap_tiers(self.K_TIERS, max_k)
@@ -365,7 +408,10 @@ class SimCluster:
         cfg, R, B = self.cfg, self.R, self.cfg.batch_slots
         if self.last is None:
             raise RuntimeError("burst requires a stepped cluster")
-        self._check_mask()
+        prof = self.profiler
+        if prof is not None:
+            prof.start("host_encode")
+        self._check_dispatch()
         tiers = self._tiers(max_k)
         with self._host_lock:
             reserved = self.reserved_appends()
@@ -395,6 +441,9 @@ class SimCluster:
                 count[k, r] = max(0, min(n - k * B, B))
         scan = self.scan
         fn = self._scan_fn(K) if scan else self._burst
+        if prof is not None:
+            prof.stop("host_encode")
+            prof.start("device_dispatch")
         with self._host_lock:
             self.state, outs = fn(
                 self.state, self._dev(bufs["data"]),
@@ -403,9 +452,12 @@ class SimCluster:
                 self._dev(qdepth))
             if scan:
                 self.scan_dispatches += 1
-            return self._enqueue(StepTicket(
+            ticket = self._enqueue(StepTicket(
                 "scan" if scan else "burst", outs, taken, (), K, bufs,
                 applied0=applied if scan else None))
+        if prof is not None:
+            prof.stop("device_dispatch")
+        return ticket
 
     def _readback(self, ticket: StepTicket) -> Dict[str, np.ndarray]:
         """The finish's device results in ONE transfer."""
@@ -438,18 +490,29 @@ class SimCluster:
         if not (self._tickets and self._tickets[0] is ticket):
             raise RuntimeError(
                 "tickets must finish in dispatch (FIFO) order")
+        prof = self.profiler
+        out = ticket.out
+        if prof is not None:
+            prof.sync(out)              # fenced device_sync (opt-in)
+            prof.start("quorum_wait")
         res = self._readback(ticket)
+        if prof is not None:
+            prof.stop("quorum_wait")
         with self._host_lock:
             for r in range(self.R):
                 take = ticket.taken[r]
                 if take and res["role"][r] == int(Role.LEADER):
-                    requeue_shortfall(self.pending[r], take,
-                                      int(res["accepted"][r]))
-        out = ticket.out
+                    acc_r = int(res["accepted"][r])
+                    self._stamp_appends(r, take, acc_r, res)
+                    requeue_shortfall(self.pending[r], take, acc_r)
+        if prof is not None:
+            prof.start("apply")
         self._replay_committed(
             res, scan_rows=((out["replay_data"], out["replay_meta"],
                              ticket.applied0)
                             if ticket.kind == "scan" else None))
+        if prof is not None:
+            prof.stop("apply")
         # the rollover rewrites offsets host-side: never under
         # dispatches still in flight (deferred until the pipeline drains)
         with self._host_lock:
@@ -459,6 +522,7 @@ class SimCluster:
                 self._maybe_rebase(res)
             self.last = res
         self.step_index += ticket.K
+        self._observe_spans(res)
         B = self.cfg.batch_slots
         if ticket.kind == "step":
             dirty = [((r,), len(t)) for r, t in enumerate(ticket.taken)]
@@ -480,6 +544,41 @@ class SimCluster:
         require_drained(self._tickets, "step")
         return self.finish(self.begin_step(timeouts))
 
+    def prewarm(self, tiers: Optional[Sequence[int]] = None) -> None:
+        """Pay every first-use cost before serving: build and load the
+        CUDA kernels (on the card), allocate the staging sets of the
+        serial step and of every burst tier, and run each step variant
+        and burst tier once on a copy of the live state."""
+        from rdma_paxos_tpu_torch.consensus.state import clone_state
+        from rdma_paxos_tpu_torch.consensus.step import make_step_input
+        if self.device.type == "cuda":
+            from rdma_paxos_tpu_torch.ops import quorum
+            for name in ("commit_scan_launch", "commit_window_launch"):
+                quorum._kernel(name)
+        cfg, R, B = self.cfg, self.R, self.cfg.batch_slots
+        tiers = tuple(tiers if tiers is not None else self.K_TIERS)
+        held = [self._step_bufs()] + [self._burst_bufs(K) for K in tiers]
+        for bufs in held:
+            self._staging.release(bufs, ())
+        inp = make_step_input(cfg, R, device=self.device)
+        inp.peer_mask = self._dev(self.peer_mask)
+        for fn in self._steps.values():
+            fn(clone_state(self.state), inp)
+        z = inp.apply_done
+        for K in tiers:
+            fns = [self._burst] + ([self._scan_fn(K)] if self.scan else [])
+            for fn in fns:
+                fn(clone_state(self.state),
+                   torch.zeros((K, R, B, cfg.slot_words), dtype=torch.int32,
+                               device=self.device),
+                   torch.zeros((K, R, B, META_W), dtype=torch.int32,
+                               device=self.device),
+                   torch.zeros((K, R), dtype=torch.int32,
+                               device=self.device),
+                   inp.peer_mask, z, z)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def step_burst(self, max_k: Optional[int] = None
                    ) -> Dict[str, np.ndarray]:
         """Drain the pending queues through up to ``max(K_TIERS)`` fused
@@ -491,10 +590,24 @@ class SimCluster:
 
     # ---------------- rebase ----------------
 
-    def _rebase_stalled_step(self) -> None:
+    def _rebase_stalled_step(self, res) -> None:
+        """One post-threshold step passed with the rollover delta
+        pinned at 0 — count it, and surface the stall once it persists."""
         self.rebase_stall_steps += 1
-        if self.rebase_stall_steps >= self.REBASE_STALL_STEPS:
-            self.rebase_stalled += 1
+        if self.rebase_stall_steps < self.REBASE_STALL_STEPS:
+            return
+        self.rebase_stalled += 1
+        if self.obs is not None:
+            from rdma_paxos_tpu_torch.obs import trace as _trace
+            self.obs.metrics.inc("rebase_stalled")
+            if self.rebase_stall_steps == self.REBASE_STALL_STEPS:
+                heads = [int(res["head"][r]) for r in range(self.R)]
+                self.obs.trace.record(
+                    _trace.REBASE_STALLED,
+                    end_max=int(res["end"].max()),
+                    threshold=self.cfg.rebase_threshold,
+                    min_head=min(heads), heads=heads,
+                    steps=self.rebase_stall_steps)
 
     # holds-lock: _host_lock
     def _maybe_rebase(self, res) -> None:
@@ -508,7 +621,7 @@ class SimCluster:
                  if r not in self.need_recovery]
         delta = rebase_delta_of(heads, self.cfg.n_slots)
         if delta <= 0:
-            self._rebase_stalled_step()
+            self._rebase_stalled_step(res)
             return
         self.state = rebase_offsets(self.state, delta)
         self.applied -= delta
@@ -517,6 +630,43 @@ class SimCluster:
         self.rebases += 1
         self.rebased_total += delta
         self.rebase_stall_steps = 0
+        if self.obs is not None:
+            from rdma_paxos_tpu_torch.obs import trace as _trace
+            self.obs.metrics.inc("rebases_total")
+            self.obs.metrics.inc("rebased_entries_total", delta)
+            self.obs.trace.record(_trace.REBASE_APPLIED, delta=delta,
+                                  rebases=self.rebases)
+
+    # ---------------- span hooks ----------------
+
+    def _span_recorder(self):
+        from rdma_paxos_tpu_torch.obs.spans import active_recorder
+        return active_recorder(self.obs)
+
+    def _stamp_appends(self, r: int, take, acc: int, res) -> None:
+        """The accepted PREFIX of ``take`` landed at absolute indices
+        ``[end-acc, end)`` on leader ``r`` — stamp each sampled span
+        with its ``(term, index)`` correlation key."""
+        spans = self._span_recorder()
+        if spans is None or not spans.open_count or acc <= 0:
+            return
+        end_abs = int(res["end"][r]) + self.rebased_total
+        term = int(res["term"][r])
+        replicas = range(self.R)
+        for i, (_t, conn, req, _p) in enumerate(take[:acc]):
+            spans.stamp_append(conn, req, term, end_abs - acc + i, r,
+                               replicas=replicas)
+
+    def _observe_spans(self, res) -> None:
+        """Advance every replica's commit/apply span frontiers
+        (absolute, rebase-corrected)."""
+        spans = self._span_recorder()
+        if spans is None or not spans.open_count:
+            return
+        rebased = self.rebased_total
+        for r in range(self.R):
+            spans.commit_advance(r, int(res["commit"][r]) + rebased)
+            spans.apply_advance(r, int(self.applied[r]) + rebased)
 
     # ---------------- replay ----------------
 

@@ -64,3 +64,25 @@ def test_commit_window_kernel_equals_plain(G, R, W):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert commit_window.launches == before + 1
     torch.cuda.synchronize()
+
+
+def test_front_door_pipelined_driver_on_the_card():
+    """Phase (6a) of ``chip_smoke.py`` at a small size: a pre-queued
+    record through the pipelined driver on the card acks every event
+    once, commits the CPU serial run's stream, overlaps dispatches and
+    launches the commit-window kernel once per protocol step."""
+    _need_card()
+    from chip_smoke import drive_front_door, front_record
+    geom = dict(n_slots=1024, slot_bytes=128, window_slots=256,
+                batch_slots=256)
+    payloads = front_record(3000, 100)
+    gpu = drive_front_door(torch.device("cuda", 0), geom, "psum", payloads,
+                           4, 2)
+    cpu = drive_front_door(torch.device("cpu"), geom, "psum", payloads, 4, 0)
+    for run in (gpu, cpu):
+        assert run["statuses"] == [0] * len(payloads)
+        assert (run["fired"] == 1).all()
+    assert gpu["streams"] == cpu["streams"]
+    assert [p for (t, _c, _q, p) in gpu["streams"][0] if t == 3] == payloads
+    assert gpu["max_inflight"] >= 2
+    assert gpu["launches"] == gpu["steps"] > 0

@@ -9,17 +9,28 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import rdma_paxos_tpu.config as jconfig
 import rdma_paxos_tpu.consensus.log as jlog
+import rdma_paxos_tpu.obs.metrics as jmetrics
+import rdma_paxos_tpu.obs.spans as jspans
+import rdma_paxos_tpu.obs.trace as jtrace
+import rdma_paxos_tpu.proxy.proxy as jproxy
+import rdma_paxos_tpu.runtime.driver as jdriver
 import rdma_paxos_tpu.consensus.state as jstate
 import rdma_paxos_tpu.consensus.step as jstep
 import rdma_paxos_tpu.ops.quorum as jquorum
 import rdma_paxos_tpu.runtime.sim as jsim
 import rdma_paxos_tpu_torch.config as tconfig
 import rdma_paxos_tpu_torch.consensus.log as tlog
+import rdma_paxos_tpu_torch.obs.metrics as tmetrics
+import rdma_paxos_tpu_torch.obs.spans as tspans
+import rdma_paxos_tpu_torch.obs.trace as ttrace
+import rdma_paxos_tpu_torch.proxy.proxy as tproxy
+import rdma_paxos_tpu_torch.runtime.driver as tdriver
 import rdma_paxos_tpu_torch.consensus.state as tstate
 import rdma_paxos_tpu_torch.consensus.step as tstep
 import rdma_paxos_tpu_torch.ops.quorum as tquorum
@@ -50,7 +61,7 @@ def test_imports_with_jax_and_reference_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 30
 
 
 def _imports(path: Path):
@@ -110,6 +121,37 @@ def test_copied_constants_match_the_reference():
     assert tquorum.R_PAD == jquorum.R_PAD
     assert tsim.SimCluster.K_TIERS == jsim.SimCluster.K_TIERS
     assert tsim.SimCluster.RES_KEYS == jsim.SimCluster.RES_KEYS
+
+
+def _upper_constants(mod):
+    return {k: v for k, v in vars(mod).items()
+            if k.isupper() and isinstance(v, (int, float, str, tuple))}
+
+
+def test_front_door_constants_match_the_reference():
+    jf = [(f.name, f.default)
+          for f in dataclasses.fields(jconfig.TimeoutConfig)]
+    tf = [(f.name, f.default)
+          for f in dataclasses.fields(tconfig.TimeoutConfig)]
+    assert jf == tf
+    assert tconfig.TimeoutConfig.production() == tconfig.TimeoutConfig(
+        **dataclasses.asdict(jconfig.TimeoutConfig.production()))
+    # trace event names, metric buckets, span phases, the shim wire ops
+    assert _upper_constants(ttrace) == _upper_constants(jtrace)
+    assert _upper_constants(tmetrics) == _upper_constants(jmetrics)
+    jsp = _upper_constants(jspans)
+    tsp = _upper_constants(tspans)
+    assert tsp == {k: v for k, v in jsp.items() if k in tsp}
+    assert {k for k in jsp if k.startswith("PHASE_")} <= set(tsp)
+    assert tspans.StepPhaseProfiler.PHASES == jspans.StepPhaseProfiler.PHASES
+    for k in ("OP_HELLO", "OP_CONNECT", "OP_SEND", "OP_CLOSE"):
+        assert getattr(tproxy, k) == getattr(jproxy, k), k
+    # conn_origin's shift: the origin replica in bits 24+
+    conns = np.array([0, 5, (3 << 24) | 9, (127 << 24) | 0xFFFFFF],
+                     np.int32)
+    assert np.array_equal(tdriver.conn_origin(conns),
+                          jdriver.conn_origin(conns))
+    assert tdriver.conn_origin((7 << 24) | 1) == 7
 
 
 def test_entry_points_need_a_card_or_an_explicit_cpu():
