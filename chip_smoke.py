@@ -40,7 +40,24 @@ exits non-zero without its result line):
    stable store holding the CONNECT/SEND/CLOSE stream, and a failover
    that serves a write to the remaining follower; requests/s and
    request latency;
-7. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+7. recovery: (7a) at geometry (a), gather, a partitioned laggard left
+   more than a ring behind (stuck after heal: the gap reject) recovers
+   by ``take_snapshot``/``recover_vote``/``install_snapshot`` on the card
+   and catches up, then a fresh learner bootstraps from a snapshot, is
+   admitted and keeps its membership config across a second install; at
+   geometry (b) one install into a partitioned laggard and its catch-up;
+   replica state and replay streams bit-equal to the same script on the
+   CPU; (7b) three toy apps with stores and app checkpoint hooks:
+   ``checkpoint_app`` compacts a follower's store, ``recover_replica``
+   rebuilds a restarted app, ``reset_app`` rebuilds another from its
+   checkpoint plus suffix, and the driver recovers a follower force-
+   pruned past its wedged apply into its live app, exactly once (COUNT
+   and keys equal the leader's); install, catch-up, admin and recovery
+   times;
+8. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+
+Each phase prints ``phase N start`` before it runs and its wall time
+after, so a failure names its phase.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1143,43 +1160,502 @@ def phase_front_apps(dev, card: str) -> dict:
     return dict(launches=launches, steps=steps)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: recovery
+# ---------------------------------------------------------------------------
+
+def state_digest(c) -> dict:
+    """Per-field digests of a cluster's replica state (the 80 MiB ring
+    rows of geometry (b) included) and its replay streams."""
+    import hashlib
+    from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
+    out = {k: hashlib.sha256(v.tobytes()).hexdigest()
+           for k, v in replica_state_to_numpy(c.state).items()}
+    out["replayed"] = [hashlib.sha256(repr(list(s)).encode()).hexdigest()
+                       for s in c.replayed]
+    out["applied"] = c.applied.tolist()
+    return out
+
+
+def catch_up(c, r: int, lead: int, limit: int = 40) -> int:
+    """Step until replica ``r``'s end and commit equal the leader's;
+    returns the protocol steps it took."""
+    for k in range(1, limit + 1):
+        res = c.step()
+        if (int(res["end"][r]) == int(res["end"][lead])
+                and int(res["commit"][r]) == int(res["commit"][lead])):
+            return k
+    raise RuntimeError(f"check failed: replica {r} did not catch up in "
+                       f"{limit} steps (end {res['end'].tolist()}, commit "
+                       f"{res['commit'].tolist()})")
+
+
+def timed(dev, fn):
+    """``fn()`` and its wall ms, the card synchronized on both sides."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def drive_recovery(dev, geom: dict, fanout: str, n_entries: int,
+                   learner: bool) -> dict:
+    """(7a) on ``dev``: a partitioned laggard falls ``n_entries`` behind
+    (past the ring when ``n_entries > n_slots``: the gap reject leaves
+    it stuck after heal); a healthy donor's snapshot is installed into
+    it with its vote recovered from the peers, it catches up, and a
+    later SEND replays on it. With ``learner``, a fresh learner (R + 1
+    replicas, group of R) bootstraps from a snapshot of a scrolled ring,
+    is admitted by a membership change, and keeps that config across a
+    second install. Returns the state digests at each mark, the counts
+    and the times."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.consensus.membership import MembershipManager
+    from rdma_paxos_tpu_torch.consensus.snapshot import (
+        install_snapshot, recover_vote, take_snapshot)
+    from rdma_paxos_tpu_torch.runtime.hostpath import stream_copy
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    cfg = LogConfig(**geom)
+    payloads = front_record(n_entries, 64, seed=SEED + 7)
+    out = dict(marks=[], steps=0, catch_up=[], install_ms=[],
+               catch_up_ms=[])
+
+    def mark(c, tag):
+        out["marks"].append((tag, state_digest(c)))
+
+    def install(c, r, donor):
+        vt, vf = recover_vote(c.state, r)
+        snap = take_snapshot(c.state, donor, index=int(c.applied[donor]))
+        c.state = install_snapshot(c.state, r, snap, voted_term=vt,
+                                   voted_for=vf)
+        c.applied[r] = snap.index
+        # the host restored the donor's event history
+        c.replayed[r] = stream_copy(c.replayed[donor])
+        return snap
+
+    c = SimCluster(cfg, R, fanout=fanout, device=dev)
+    lag = R - 1
+    c.run_until_elected(0)
+    c.partition([list(range(R - 1)), [lag]])
+    c.submit_many(0, [(3, 1 + i % 64, 0, p)
+                      for i, p in enumerate(payloads)])
+    while c.pending[0]:
+        c.step_burst()
+    for _ in range(2):
+        c.step()
+    pruned = n_entries > cfg.n_slots
+    if pruned:
+        check(int(c.last["head"][0]) > int(c.last["end"][lag]),
+              "the leader's head did not pass the laggard's end")
+    c.heal()
+    for _ in range(4):
+        res = c.step()
+    check(int(res["end"][lag]) < int(res["end"][0]),
+          f"the laggard was not left behind (end {res['end'].tolist()})")
+    _, ms = timed(dev, lambda: install(c, lag, 1))
+    out["install_ms"].append(ms)
+    mark(c, "laggard install")
+    k, ms = timed(dev, lambda: catch_up(c, lag, 0))
+    out["catch_up"].append(k)
+    out["catch_up_ms"].append(ms)
+    c.submit(0, b"fresh-after-install")
+    c.step()
+    c.step()
+    check(c.replayed[lag][-1][3] == b"fresh-after-install",
+          "a SEND after the install did not replay on the laggard")
+    check(all(list(s) == list(c.replayed[0]) for s in c.replayed),
+          "replay streams differ after the laggard's catch-up")
+    mark(c, "laggard catch-up")
+    out["steps"] += c.step_index
+    out["pruned"] = pruned
+
+    if learner:
+        c = SimCluster(cfg, R + 1, R, fanout=fanout, device=dev)
+        mm = MembershipManager(c)
+        c.run_until_elected(0)
+        c.submit_many(0, [(3, 1 + i % 64, 0, p)
+                          for i, p in enumerate(payloads)])
+        while c.pending[0]:
+            c.step_burst()
+        c.step()
+        check(int(c.last["head"][0]) > 0, "the ring never scrolled")
+        _, ms = timed(dev, lambda: install(c, R, 0))
+        out["install_ms"].append(ms)
+        mark(c, "learner install")
+        k, ms = timed(dev, lambda: catch_up(c, R, 0))
+        out["catch_up"].append(k)
+        out["catch_up_ms"].append(ms)
+        full = (1 << (R + 1)) - 1
+        mm.change(0, full)                    # admit the learner
+        check(mm.current(R)["bitmask_new"] == full,
+              "the learner did not adopt the membership change")
+        install(c, R, 0)                      # a crash-restarted member
+        check(mm.current(R)["bitmask_new"] == full,
+              "the install lost the committed membership config")
+        mark(c, "member re-install")
+        catch_up(c, R, 0)
+        c.submit(0, b"seen-by-learner")
+        c.step()
+        c.step()
+        check(c.replayed[R][-1][3] == b"seen-by-learner",
+              "a SEND after the install did not replay on the learner")
+        mark(c, "learner catch-up")
+        out["steps"] += c.step_index
+    return out
+
+
+def phase_recovery_engine(dev, card: str) -> dict:
+    """(7a): snapshot recovery of the engine on the card, held bit-equal
+    against the same seeded script on the CPU."""
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    launches = steps = 0
+    for geo, n_entries, learner in (("a", 3 * 8192 + 1000, True),
+                                    ("b", 4 * 2048, False)):
+        geom, _ = GEOMETRIES[geo]
+        commit_window.launches = commit_scan.launches = 0
+        gpu = drive_recovery(dev, geom, "gather", n_entries, learner)
+        check(commit_window.launches == gpu["steps"] > 0
+              and commit_scan.launches == 0,
+              f"({geo}): commit_window launched {commit_window.launches} "
+              f"times and commit_scan {commit_scan.launches} times in "
+              f"{gpu['steps']} protocol steps")
+        launches += commit_window.launches
+        steps += gpu["steps"]
+        t = time.perf_counter()
+        cpu = drive_recovery(torch.device("cpu"), geom, "gather", n_entries,
+                             learner)
+        check(cpu["steps"] == gpu["steps"]
+              and cpu["catch_up"] == gpu["catch_up"],
+              f"({geo}): the CPU run took {cpu['steps']} steps "
+              f"(catch-up {cpu['catch_up']}), the card {gpu['steps']} "
+              f"({gpu['catch_up']})")
+        for (tag, g), (_, cp) in zip(gpu["marks"], cpu["marks"]):
+            bad = [k for k in g if g[k] != cp[k]]
+            check(not bad, f"({geo}) {tag}: the card's run differs from "
+                           f"the CPU's in {bad}")
+        print(f"recovery (7a) at geometry ({geo}) {geom} fanout=gather on "
+              f"{card}: laggard {n_entries} entries behind "
+              f"({'pruned past, gap reject checked' if gpu['pruned'] else 'within the ring'})"
+              f"; install (take_snapshot + recover_vote + install_snapshot) "
+              f"ms " + ", ".join(f"{x:.2f}" for x in gpu["install_ms"])
+              + "; catch-up protocol steps "
+              + ", ".join(map(str, gpu["catch_up"])) + " in ms "
+              + ", ".join(f"{x:.2f}" for x in gpu["catch_up_ms"])
+              + (" (laggard, learner)" if learner else " (laggard)")
+              + f"; {commit_window.launches} commit_window launches in "
+              f"{gpu['steps']} protocol steps, 0 commit_scan; replica state "
+              f"and replay streams bit-equal to the CPU run at "
+              f"{len(gpu['marks'])} marks ("
+              + ", ".join(t for t, _ in gpu["marks"])
+              + f"; {time.perf_counter() - t:.1f} s on the CPU)", flush=True)
+    return dict(launches=launches, steps=steps)
+
+
+def toy_dump(sock) -> bytes:
+    """App checkpoint of the toy app: its DUMPALL listing."""
+    sock.sendall(b"DUMPALL\n")
+    f = sock.makefile("rb")
+    out = []
+    while True:
+        ln = f.readline()
+        if not ln or ln == b".\n":
+            return b"".join(out)
+        out.append(ln)
+
+
+def toy_restore(sock, blob: bytes) -> None:
+    """Rebuild the toy app from a DUMPALL listing with SETs."""
+    f = sock.makefile("rb")
+    for ln in blob.splitlines():
+        if not ln.strip():
+            continue
+        sock.sendall(b"SET " + ln + b"\n")
+        check(f.readline().strip() == b"+OK", "a checkpoint SET failed")
+
+
+def toy_probe(sock) -> None:
+    """Processed-input barrier: ECHO a unique token and wait for its
+    reply, discarding replies to earlier replayed commands."""
+    import uuid
+    tok = uuid.uuid4().hex.encode()
+    sock.sendall(b"ECHO " + tok + b"\n")
+    buf = b""
+    want = b"=" + tok
+    while want not in buf:
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise OSError("app closed during barrier probe")
+        buf += chunk
+
+
+def pipelined_sets(port: int, items, chunk: int = 256) -> float:
+    """SET each ``(key, value)`` on one connection, a chunk of lines at a
+    time, then the chunk's replies; returns the wall seconds."""
+    c = AppClient(port)
+    t = time.perf_counter()
+    for i in range(0, len(items), chunk):
+        part = items[i:i + chunk]
+        c.s.sendall(b"".join(b"SET %s %s\n" % kv for kv in part))
+        for k, _v in part:
+            got = c.f.readline().strip()
+            check(got == b"+OK", f"SET {k!r} answered {got!r}")
+    wall = time.perf_counter() - t
+    c.close()
+    return wall
+
+
+def wait_for(cond, what: str, timeout: float = 60.0) -> float:
+    """Poll ``cond()`` until true; returns the seconds it took."""
+    t = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t < timeout, f"timed out: {what}")
+        time.sleep(0.02)
+    return time.perf_counter() - t
+
+
+def app_count(port: int) -> int:
+    c = AppClient(port)
+    try:
+        return int(c.cmd("COUNT"))
+    finally:
+        c.close()
+
+
+RECOVERY_SETS = 2000
+
+
+def phase_recovery_apps(dev, card: str) -> dict:
+    """(7b): checkpoint, recover_replica, reset_app and the automatic
+    recovery of a force-pruned follower, with three interposed toy apps
+    served by the driver on the card."""
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
+    geom, _ = GEOMETRIES["a"]
+    wd = tempfile.mkdtemp(prefix="rp-recovery-")
+    ports = free_ports(R)
+    # the drill intends no election after the first, which replica 0's
+    # expired timer forces: every recovery runs inside the loop, and the
+    # automatic one (a delta of ~17000 records into a live app) held the
+    # loop past a 2 s timeout on a loaded host, deposing the leader
+    d = ClusterDriver(LogConfig(**geom), R, workdir=wd, app_ports=ports,
+                      fanout="gather", device=dev,
+                      timeout_cfg=TimeoutConfig(elec_timeout_low=30.0,
+                                                elec_timeout_high=60.0),
+                      app_snapshot=(toy_dump, toy_restore, toy_probe))
+    apps = [None] * R
+
+    def spawn(r: int) -> None:
+        env = dict(os.environ, LD_PRELOAD=str(NATIVE / "interpose.so"),
+                   RP_PROXY_SOCK=os.path.join(wd, f"proxy{r}.sock"))
+        with open(os.path.join(wd, f"app{r}.err"), "a") as err:
+            apps[r] = subprocess.Popen([str(NATIVE / "toyserver"),
+                                        str(ports[r])], env=env, stderr=err)
+
+        def accepting() -> bool:
+            try:
+                socket.create_connection(("127.0.0.1", ports[r]),
+                                         timeout=1).close()
+                return True
+            except OSError:
+                return False
+        wait_for(accepting, f"app {r} to accept", 30)
+
+    def restart(r: int) -> None:
+        apps[r].kill()
+        apps[r].wait()
+        spawn(r)
+
+    def stores_settled() -> bool:
+        lens = [len(rt.store) for rt in d.runtimes]
+        return min(lens) == max(lens)
+
+    def same_keys(r: int, keys) -> None:
+        for k, v in keys:
+            got = app_get(ports[r], k.decode(), v)
+            check(got == v, f"replica {r}'s app answered {got} for {k!r}")
+
+    out = {}
+    try:
+        d.prewarm()
+        for r in range(R):
+            spawn(r)
+        commit_window.launches = 0
+        steps0 = d.cluster.step_index
+        d.runtimes[0].timer._deadline = 0.0
+        d.run(period=0.002)
+        wait_for(lambda: d.leader() >= 0, "a leader to be elected")
+        lead = d.leader()
+        f1, f2 = [r for r in range(R) if r != lead]
+
+        def same_leader(what: str) -> None:
+            check(d.leader() == lead, f"the leader moved from {lead} to "
+                                      f"{d.leader()} during {what}")
+        items = [(b"a%05d" % i, b"v%05d" % i) for i in range(RECOVERY_SETS)]
+        sample = items[::397] + items[-1:]
+        out["sets_s"] = pipelined_sets(ports[lead], items)
+        wait_for(stores_settled, "the stores to settle")
+        for r in (f1, f2):
+            same_keys(r, items[-1:])
+
+        same_leader("the first SETs")
+        # 2. checkpoint a follower: its store compacts behind the dump
+        _, out["ckpt_ms"] = timed(dev, lambda: d.checkpoint_app(f1))
+        st1 = d.runtimes[f1].store
+        check(st1.base > 0, "the checkpoint did not compact the store")
+        out["ckpt_bytes"] = len(d._read_ckpt(f1)[1])
+        out["ckpt_base"] = st1.base
+
+        # 3. a fresh app on f2, rebuilt by recover_replica
+        restart(f2)
+        _, out["recover_ms"] = timed(dev, lambda: d.recover_replica(f2))
+        check(app_count(ports[f2]) == app_count(ports[lead]),
+              "recover_replica: the rebuilt app's COUNT differs")
+        same_keys(f2, sample)
+        wait_for(stores_settled, "the stores to settle")
+        st2 = d.runtimes[f2].store
+        check(all(st2.read(i) == st1.read(i)
+                  for i in range(st1.base, len(st1))),
+              "f2's store differs from f1's past f1's checkpoint")
+        out["store_bytes"] = len(st2.dump())
+
+        # 4. a fresh app on f1, rebuilt from its checkpoint + suffix
+        restart(f1)
+        _, out["reset_ms"] = timed(dev, lambda: d.reset_app(f1))
+        check(not d.runtimes[f1].app_dirty, "reset_app left the app dirty")
+        check(app_count(ports[f1]) == app_count(ports[lead]),
+              "reset_app: the rebuilt app's COUNT differs")
+        same_keys(f1, sample)
+
+        # 5. f2's apply wedges; the leader writes past twice the ring
+        # (each SET line spans a 128-byte slot), forced pruning passes
+        # f2, and on unwedge the driver recovers it into its live app
+        d.cluster.wedge_apply(f2)
+        n_big = 2 * geom["n_slots"] + 512
+        big = [(b"b%06d" % i, b"%06d" % i + b"x" * 120)
+               for i in range(n_big)]
+        out["big_s"] = pipelined_sets(ports[lead], big)
+        out["big_sets"] = n_big
+        t_unwedge = time.perf_counter()
+        d.cluster.unwedge_apply(f2)
+        wait_for(lambda: f2 not in d.cluster.need_recovery
+                 and d.cluster.applied[f2] >= d.cluster.applied[lead] - 4,
+                 "the automatic recovery of the force-pruned follower")
+        out["auto_ms"] = (time.perf_counter() - t_unwedge) * 1e3
+        same_leader("the automatic recovery")
+        want = app_count(ports[lead])
+        wait_for(lambda: app_count(ports[f2]) == want,
+                 "the recovered app's COUNT to equal the leader's", 30)
+        out["auto_app_ms"] = (time.perf_counter() - t_unwedge) * 1e3
+        check(not d.runtimes[f2].app_dirty,
+              "the automatic recovery quarantined the app")
+        same_keys(f2, big[::4001] + big[-1:] + sample[:2])
+        same_leader("the drill")
+        d.stop()
+        check(d.loop_error is None, f"the loop crashed: {d.loop_error!r}")
+        out["launches"] = commit_window.launches
+        out["steps"] = d.cluster.step_index - steps0
+        check(out["launches"] == out["steps"] > 0,
+              f"{out['launches']} commit_window launches in "
+              f"{out['steps']} protocol steps")
+        out.update(lead=lead, f1=f1, f2=f2)
+    except Exception:
+        print(front_state(d, [a for a in apps if a is not None], wd),
+              flush=True)
+        raise
+    finally:
+        d.stop()
+        for a in apps:
+            if a is not None:
+                a.kill()
+                a.wait()
+        shutil.rmtree(wd, ignore_errors=True)
+    print(f"recovery (7b) on {card}: 3 toyserver apps, geometry (a) "
+          f"fanout=gather, leader {out['lead']}; {RECOVERY_SETS} pipelined "
+          f"SETs in {out['sets_s']:.2f} s = "
+          f"{RECOVERY_SETS / out['sets_s']:.0f} requests/s; "
+          f"checkpoint_app({out['f1']}) {out['ckpt_ms']:.1f} ms (blob "
+          f"{out['ckpt_bytes']} B, store compacted to record "
+          f"{out['ckpt_base']}); recover_replica({out['f2']}) into a fresh "
+          f"app {out['recover_ms']:.1f} ms (store {out['store_bytes']} B); "
+          f"reset_app({out['f1']}) from checkpoint + suffix "
+          f"{out['reset_ms']:.1f} ms; automatic recovery of force-pruned "
+          f"replica {out['f2']} after {out['big_sets']} pipelined SETs "
+          f"({out['big_s']:.2f} s = {out['big_sets'] / out['big_s']:.0f} "
+          f"requests/s): {out['auto_ms']:.1f} ms from unwedge to the "
+          f"driver's recovery done, {out['auto_app_ms']:.1f} ms to an equal "
+          f"COUNT; every rebuilt app's COUNT equals the leader's; "
+          f"{out['launches']} commit_window launches in {out['steps']} "
+          f"protocol steps", flush=True)
+    return dict(launches=out["launches"], steps=out["steps"])
+
+
+class Phase:
+    """Prints ``phase N start`` (flushed) on entry and the phase's wall
+    time on exit, so a failure names its phase."""
+
+    def __init__(self, n: int, name: str):
+        self.n, self.name = n, name
+
+    def __enter__(self):
+        print(f"phase {self.n} start: {self.name}", flush=True)
+        self.t = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        print(f"phase {self.n} {'failed' if exc[0] else 'done'} after "
+              f"{time.perf_counter() - self.t:.1f} s", flush=True)
+        return False
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    port = load_port()
-    dev = torch.device("cuda", 0)
+    with Phase(1, "the device"):
+        port = load_port()
+        dev = torch.device("cuda", 0)
+        name = torch.cuda.get_device_name(0)
+        count = torch.cuda.device_count()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(f"device: {name} x{count}; torch {torch.__version__} cuda "
+              f"{torch.version.cuda}", flush=True)
+        print(smi, flush=True)
 
-    name = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(f"device: {name} x{count}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}", flush=True)
-    print(smi, flush=True)
+    with Phase(2, "kernel build"):
+        from rdma_paxos_tpu_torch.ops import _build
+        t0 = time.perf_counter()
+        libs = _build.build()
+        report = " | ".join(
+            f"{n}: " + " ".join(ln.strip() for ln in
+                                p.with_suffix(".log").read_text().splitlines()
+                                if "Used" in ln or "spill" in ln)
+            for n, p in libs.items())
+        print(f"build: {len(libs)} kernel(s) in "
+              f"{time.perf_counter() - t0:.1f} s ({report})", flush=True)
 
-    from rdma_paxos_tpu_torch.ops import _build
-    t0 = time.perf_counter()
-    libs = _build.build()
-    report = " | ".join(
-        f"{n}: " + " ".join(ln.strip() for ln in
-                            p.with_suffix(".log").read_text().splitlines()
-                            if "Used" in ln or "spill" in ln)
-        for n, p in libs.items())
-    print(f"build: {len(libs)} kernel(s) in {time.perf_counter() - t0:.1f} s"
-          f" ({report})", flush=True)
-
-    checks = dict(commit_scan=phase_kernel_checks(dev),
-                  commit_window=phase_window_checks(dev))
-    main_runs = [phase_main_path(port, g, dev, kvs_ops=3000)
-                 for g in GEOMETRIES]
-    times = phase_kernel_times(dev, smi)
-    phase_times(dev, smi)
-    main_runs.append(phase_front_driver(dev, smi))
-    main_runs.append(phase_front_apps(dev, smi))
+    with Phase(3, "kernels against their plain versions"):
+        checks = dict(commit_scan=phase_kernel_checks(dev),
+                      commit_window=phase_window_checks(dev))
+    with Phase(4, "the main path at geometries (a) and (b)"):
+        main_runs = [phase_main_path(port, g, dev, kvs_ops=3000)
+                     for g in GEOMETRIES]
+    with Phase(5, "times"):
+        times = phase_kernel_times(dev, smi)
+        phase_times(dev, smi)
+    with Phase(6, "the front door (6a driver, 6b apps)"):
+        main_runs.append(phase_front_driver(dev, smi))
+        main_runs.append(phase_front_apps(dev, smi))
+    with Phase(7, "recovery (7a engine, 7b driver and apps)"):
+        main_runs.append(phase_recovery_engine(dev, smi))
+        main_runs.append(phase_recovery_apps(dev, smi))
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

@@ -10,6 +10,7 @@ bitmasks ``bitmask_*``/``ccfg_*`` (int64 in the port).
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 from typing import Dict
 
@@ -17,8 +18,9 @@ import numpy as np
 import torch
 
 from rdma_paxos_tpu_torch.consensus.log import Log
+from rdma_paxos_tpu_torch.consensus.snapshot import Snapshot
 from rdma_paxos_tpu_torch.consensus.state import (
-    STATE_FIELDS, U32_FIELDS, ReplicaState)
+    STATE_FIELDS, U32_FIELDS, U32_MASK, ReplicaState)
 from rdma_paxos_tpu_torch.models.kvs import KVState
 from rdma_paxos_tpu_torch.runtime.hostpath import LazyReplayStream
 
@@ -72,6 +74,36 @@ def kv_state_from_jax(np_tree, device) -> KVState:
 
 def kv_state_to_numpy(kv) -> Dict[str, np.ndarray]:
     return {k: to_numpy(_get(kv, k)).astype(np.int32) for k in KV_FIELDS}
+
+
+SNAPSHOT_FIELDS = tuple(f.name for f in dataclasses.fields(Snapshot))
+
+
+def snapshot_to_numpy(snap) -> dict:
+    """A recovery ``Snapshot`` of either package as plain fields:
+    Python ints (the member masks unsigned), the store blob as bytes and
+    the digest chain (if any) as a u32 array. ``Snapshot(**out)`` of
+    either package rebuilds it, so a snapshot taken by one engine
+    installs into the other."""
+    out = {}
+    for k in SNAPSHOT_FIELDS:
+        v = _get(snap, k)
+        if k == "store_blob":
+            out[k] = bytes(v)
+        elif k == "audit_digests":
+            out[k] = None if v is None else np.array(to_numpy(v),
+                                                     np.uint32)
+        else:
+            out[k] = int(v)
+    for k in ("bitmask_old", "bitmask_new"):
+        out[k] &= U32_MASK
+    return out
+
+
+def snapshot_from_jax(snap) -> Snapshot:
+    """The port's ``Snapshot`` from a JAX one (or any object or mapping
+    with its field names)."""
+    return Snapshot(**snapshot_to_numpy(snap))
 
 
 def sim_snapshot(cluster) -> dict:

@@ -293,6 +293,13 @@ class ReplayEngine:
     def __init__(self, app_host: str, app_port: int):
         self.addr = (app_host, app_port)
         self.conns: Dict[int, socket.socket] = {}
+        # replayed CLOSEs: half-closed sockets kept open until the app
+        # has read every replayed byte and closed its end. Closing at
+        # once would reset the connection whenever an app response is
+        # still unread here, and the reset discards the replayed input
+        # the app has not read yet (a store replay delivers a whole
+        # session's CONNECT, SENDs and CLOSE back to back).
+        self.closing: List[socket.socket] = []
         # local (ephemeral) ports of our replay sockets: the driver uses
         # these to recognize its own replayed connections arriving back
         # through the app's interposition shim
@@ -339,10 +346,10 @@ class ReplayEngine:
             s = self.conns.pop(conn_id, None)
             if s is not None:
                 try:
-                    self.local_ports.discard(s.getsockname()[1])
-                    s.close()
+                    s.shutdown(socket.SHUT_WR)
+                    self.closing.append(s)
                 except OSError:
-                    pass
+                    self._release(s)
 
     @contextlib.contextmanager
     def raw_conn(self):
@@ -385,6 +392,16 @@ class ReplayEngine:
                 probe_fn(s)
             finally:
                 s.settimeout(None)
+        # a half-closed replayed session cannot be probed: the app's
+        # own close of it proves it consumed every byte
+        deadline = time.monotonic() + timeout
+        self.drain_responses()
+        while self.closing:
+            if time.monotonic() >= deadline:
+                raise TimeoutError("the app did not finish %d replayed "
+                                   "sessions" % len(self.closing))
+            time.sleep(0.002)
+            self.drain_responses()
 
     # both address families: a dual-stack or v6-bound app's loopback
     # sockets appear in tcp6 (with v4-mapped peers), invisible to the
@@ -446,11 +463,14 @@ class ReplayEngine:
         app_port = self.addr[1]
         quiet = 0
         while True:
-            busy = False
+            # half-closed replayed sessions are consumed once the app
+            # closes its end (drain_responses releases them then)
+            self.drain_responses()
+            busy = bool(self.closing)
             sendq_verified = True
             ports = {}
             n_conns = 0
-            for s in list(self.conns.values()):
+            for s in ([] if busy else list(self.conns.values())):
                 n_conns += 1
                 try:
                     out = struct.unpack(
@@ -522,11 +542,22 @@ class ReplayEngine:
                 return False
             _time.sleep(0.002)
 
+    def _release(self, s: socket.socket) -> None:
+        try:
+            self.local_ports.discard(s.getsockname()[1])
+        except OSError:
+            pass
+        try:
+            s.close()
+        except OSError:
+            pass
+
     def drain_responses(self) -> None:
         """The local app writes responses to replayed connections; nobody
         reads them (the reference's follower likewise discards app output
         — only the leader's app talks to real clients). Drain so the app
-        never blocks on a full socket buffer."""
+        never blocks on a full socket buffer, and release each
+        half-closed connection once the app has closed its end."""
         for s in self.conns.values():
             s.setblocking(False)
             try:
@@ -536,11 +567,25 @@ class ReplayEngine:
                 pass
             finally:
                 s.setblocking(True)
+        still = []
+        for s in self.closing:
+            s.setblocking(False)
+            try:
+                while s.recv(65536):
+                    pass
+                self._release(s)              # EOF: the app closed
+            except BlockingIOError:
+                s.setblocking(True)
+                still.append(s)
+            except OSError:
+                self._release(s)
+        self.closing = still
 
     def close(self) -> None:
-        for s in self.conns.values():
+        for s in list(self.conns.values()) + self.closing:
             try:
                 s.close()
             except OSError:
                 pass
         self.conns.clear()
+        self.closing = []

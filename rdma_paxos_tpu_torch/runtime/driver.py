@@ -37,11 +37,13 @@ Differences from the JAX driver, each failing loudly:
   :meth:`start_profile` (item 12). Until then the wall-cadenced
   observability pass (:meth:`_cadence_observe`: alerts, series,
   health files) does nothing.
-* ``app_snapshot``, :meth:`recover_replica`, :meth:`reset_app`,
-  :meth:`checkpoint_app` and the automatic recovery of a force-pruned
-  replica raise ``NotImplementedError`` (item 8); a loop that reaches
-  the automatic recovery records ``loop_error`` and fails its waiters,
-  as any crash does.
+* Snapshot recovery (:meth:`recover_replica`, :meth:`reset_app`,
+  :meth:`checkpoint_app` with ``app_snapshot=``, and the automatic
+  recovery of a force-pruned replica) runs as in the JAX driver, without
+  the digest-verified install of the repair pipeline:
+  ``_do_recover(ledger=...)`` raises ``NotImplementedError`` (items 9
+  and 12). Each install runs under the engine's host lock with no
+  dispatch in flight.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ from __future__ import annotations
 import collections
 import os
 import queue as _queue
+import shutil
+import struct
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -59,16 +63,20 @@ import torch
 from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
 from rdma_paxos_tpu_torch.consensus.log import EntryType
 from rdma_paxos_tpu_torch.consensus.membership import MembershipManager
+from rdma_paxos_tpu_torch.consensus.snapshot import (
+    install_snapshot, recover_vote, take_snapshot)
 from rdma_paxos_tpu_torch.consensus.state import ConfigState, Role
 from rdma_paxos_tpu_torch.obs import Observability, trace as obs_trace
 from rdma_paxos_tpu_torch.obs.metrics import (
     BATCH_BUCKETS, LATENCY_BUCKETS_S)
 from rdma_paxos_tpu_torch.obs.spans import StepPhaseProfiler, span_trace_id
 from rdma_paxos_tpu_torch.proxy.proxy import (
-    PendingEvent, ProxyServer, ReplayEngine, spec_send_refused_dirty)
-from rdma_paxos_tpu_torch.proxy.stablestore import HardState, StableStore
+    PendingEvent, ProxyServer, ReplayEngine, replay_store_into,
+    spec_send_refused_dirty)
+from rdma_paxos_tpu_torch.proxy.stablestore import (
+    HardState, StableStore, atomic_write)
 from rdma_paxos_tpu_torch.runtime.hostpath import plan_segment
-from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+from rdma_paxos_tpu_torch.runtime.sim import SimCluster, require_drained
 from rdma_paxos_tpu_torch.runtime.timers import ElectionTimer
 from rdma_paxos_tpu_torch.utils.debug import ReplicaLog, StepTimer
 from rdma_paxos_tpu_torch.utils.codec import fragment
@@ -76,8 +84,6 @@ from rdma_paxos_tpu_torch.utils.codec import fragment
 # the origin replica lives in the conn id's bits 24+ (ProxyServer)
 CONN_ORIGIN_SHIFT = 24
 
-RECOVERY_LATER = ("snapshot recovery, app reset and app checkpoints are "
-                  "not ported yet (ROADMAP Queue 1, item 8)")
 OBS_LATER = ("alerts, health, the metrics exporter and profiler "
              "captures are not ported yet (ROADMAP Queue 1, item 12)")
 
@@ -183,8 +189,6 @@ class ClusterDriver:
             raise NotImplementedError(
                 f"ClusterDriver({', '.join(later)}=...) is not ported yet "
                 "(ROADMAP Queue 1, items 9-12)")
-        if app_snapshot is not None:
-            raise NotImplementedError("app_snapshot: " + RECOVERY_LATER)
         self.cfg = cfg
         self.sync_period = sync_period
         self._workdir = workdir
@@ -252,6 +256,22 @@ class ClusterDriver:
         # phase resets so eviction/request can be re-issued
         self._config_phase: Optional[Tuple[str, int, int, int]] = None
         self.config_changes_abandoned = 0
+        # app-state checkpoint hooks ``(dump_fn, restore_fn[, probe_fn])``:
+        # dump_fn(sock) -> bytes over a raw app connection, restore_fn(
+        # sock, blob) rebuilds the app from it, and probe_fn(sock) is a
+        # processed-input barrier (ReplayEngine.barrier); without it a
+        # checkpoint falls back to kernel-queue quiescence
+        self.app_snapshot = app_snapshot
+        # operator requests, executed inside the poll loop on a drained
+        # serial iteration (never racing the stepping thread over
+        # cluster state): (replica, donor, done_event, exception_box)
+        # for a recovery, (replica, done_event, box) for an app reset or
+        # a checkpoint; failures surface to the caller, never kill the
+        # loop
+        # guarded-by: _lock [writes]
+        self._recover_req = None
+        self._reset_req = None
+        self._ckpt_req: Optional[Tuple[int, threading.Event, list]] = None
         self._lock = threading.Lock()
         # per-replica queues of (etype, conn_id, fragment_bytes, seq)
         self._submitq: List[List[Tuple[int, int, bytes, int]]]
@@ -429,6 +449,27 @@ class ClusterDriver:
     # the polling loop
     # ------------------------------------------------------------------
 
+    def _drain_admin(self) -> None:
+        """Serve pending operator requests (recovery, app reset,
+        checkpoint) on the stepping thread, with the dispatch pipeline
+        drained. Each slot is popped under the lock its writers publish
+        under."""
+        for slot, run in (("_recover_req", self._do_recover),
+                          ("_reset_req", self._do_reset_app),
+                          ("_ckpt_req", self._do_checkpoint)):
+            with self._lock:
+                req = getattr(self, slot)
+                setattr(self, slot, None)
+            if req is None:
+                continue
+            *args, done, box = req
+            try:
+                run(*args)
+            except Exception as exc:  # noqa: BLE001 — reported to caller
+                box.append(exc)
+            finally:
+                done.set()
+
     def _pump_submitq(self) -> None:
         """Move intake rows into the engine's pending queues — ONE
         locked extend per replica. Holds the engine's host lock too:
@@ -448,6 +489,7 @@ class ClusterDriver:
         Serial: dispatch + readback fused — the pipelined run loop
         splits the same work into begin_* on the dispatch thread and
         ``_post_step`` on the readback thread."""
+        self._drain_admin()
         self._pump_submitq()
 
         # a flagged (force-pruned) leader never heals on its own: it
@@ -555,16 +597,36 @@ class ClusterDriver:
         self._failure_detector(res)
         self._drive_config_change()
         # a replica force-pruned past its apply cursor (wedged app now
-        # unwedged, or long stall) stopped replaying; the JAX driver
-        # heals it here with a donor snapshot — not ported yet
-        if (self.cluster.need_recovery
-                and self._leader_view >= 0
-                and not self.cluster._tickets
-                and self._leader_view not in self.cluster.need_recovery
-                and self.cluster.need_recovery - {self._leader_view}):
-            raise NotImplementedError(
-                "automatic recovery of force-pruned replica(s) %s: %s"
-                % (sorted(self.cluster.need_recovery), RECOVERY_LATER))
+        # unwedged, or long stall) stopped replaying; heal it with a
+        # donor snapshot, one per iteration. The donor is the leader,
+        # which must itself be healthy (a flagged leader's store is
+        # frozen: its snapshot would drop acked writes), and the leader
+        # is never the recoveree (it recovers once deposed). No repair
+        # controller owns a replica in this port yet (item 12).
+        lead = self._leader_view
+        if (self.cluster.need_recovery and lead >= 0
+                and lead not in self.cluster.need_recovery):
+            r = min(self.cluster.need_recovery)
+            # the host lock brackets every dispatch: holding it with no
+            # ticket in flight proves the install races none (the
+            # dispatch loop sees need_recovery and drains, so a deferred
+            # recovery runs on the next drained iteration)
+            with self.cluster._host_lock:
+                snap = (None if self.cluster._tickets
+                        else self._install_donor_snapshot(r, lead))
+            if snap is not None:
+                try:
+                    self._load_donor_history(r, lead, snap,
+                                             app_fresh=False)
+                except RuntimeError as exc:
+                    # unrecoverable in place (e.g. the donor compacted
+                    # past this app's applied prefix): quarantine the app
+                    # for an operator restart + reset_app rather than
+                    # killing the poll loop or retrying forever
+                    rt = self.runtimes[r]
+                    rt.app_dirty = True
+                    rt.log.info_wtime("AUTO-RECOVERY FAILED: %s" % exc)
+                self.cluster.need_recovery.discard(r)
         self._observe_step(res)
         return res
 
@@ -815,20 +877,224 @@ class ClusterDriver:
                               phase="transit_requested",
                               new_mask=new_mask, epoch=cur["epoch"] + 1)
 
+    def _admin_request(self, slot: str, args: tuple, what: str,
+                       timeout: float) -> None:
+        """Publish one operator request into ``slot`` and wait for the
+        poll loop to serve it (or serve it here when no loop runs);
+        the request's exception is re-raised to the caller."""
+        done = threading.Event()
+        box: list = []
+        with self._lock:
+            if getattr(self, slot) is not None:
+                raise RuntimeError(f"a {what} request is already pending")
+            setattr(self, slot, args + (done, box))
+        self._wake.set()
+        if self._thread is None or not self._thread.is_alive():
+            self.step()
+        elif not done.wait(timeout):
+            raise TimeoutError(f"{what} did not run (loop stalled?)")
+        if box:
+            raise box[0]
+
     def recover_replica(self, r: int, donor: Optional[int] = None,
                         timeout: float = 60.0) -> None:
-        raise NotImplementedError("recover_replica: " + RECOVERY_LATER)
+        """Snapshot-recover replica ``r`` from ``donor`` (default: current
+        leader): install the consensus determinant and transfer the event
+        history into r's stable store (reset first — never duplicated).
+        The app instance behind r must be fresh (restarted): its state is
+        rebuilt by replaying the store. Executes inside the poll loop."""
+        self._admin_request("_recover_req", (r, donor), "recovery",
+                            timeout)
 
     def reset_app(self, r: int, timeout: float = 60.0) -> None:
-        raise NotImplementedError("reset_app: " + RECOVERY_LATER)
+        """Exit mis-speculation quarantine: the operator has restarted
+        replica ``r``'s app FRESH; rebuild its state from r's own app
+        checkpoint plus committed store (complete — persistence continued
+        while dirty) and resume live replay. Executes inside the poll
+        loop."""
+        self._admin_request("_reset_req", (r,), "app reset", timeout)
 
     def checkpoint_app(self, r: int, timeout: float = 60.0) -> None:
-        raise NotImplementedError("checkpoint_app: " + RECOVERY_LATER)
+        """Capture replica ``r``'s app state (follower only — a
+        speculative leader's app runs AHEAD of commit) at its current
+        store index, persist it, and compact the store prefix it covers.
+        Executes inside the poll loop so the app/store pair is frozen at
+        a consistent point."""
+        self._admin_request("_ckpt_req", (r,), "checkpoint", timeout)
+
+    def _ckpt_path(self, r: int) -> Optional[str]:
+        if self._workdir is None:
+            return None
+        return os.path.join(self._workdir, f"replica{r}.ckpt")
+
+    def _read_ckpt(self, r: int):
+        """-> (index, blob) of replica ``r``'s app checkpoint, or None."""
+        path = self._ckpt_path(r)
+        if path is None or not os.path.exists(path):
+            return None
+        with open(path, "rb") as f:
+            raw = f.read()
+        if len(raw) < 8:
+            return None
+        return struct.unpack("<Q", raw[:8])[0], raw[8:]
+
+    def _do_checkpoint(self, r: int) -> None:
+        rt = self.runtimes[r]
+        if self.app_snapshot is None:
+            raise RuntimeError("no app_snapshot hook configured")
+        if rt.replay is None or rt.store is None:
+            raise RuntimeError("replica has no app/store")
+        if self._leader_view == r:
+            raise RuntimeError(
+                "checkpoint must come from a follower: a speculative "
+                "leader's app state runs ahead of commit")
+        if rt.app_dirty:
+            raise RuntimeError("cannot checkpoint a dirty app")
+        dump_fn = self.app_snapshot[0]
+        probe_fn = (self.app_snapshot[2]
+                    if len(self.app_snapshot) > 2 else None)
+        # store[base, n) was DELIVERED to the app's replay sockets, but
+        # delivery is not consumption: barrier first (a protocol probe
+        # per replay connection when the hook has one, else kernel queue
+        # quiescence), or compact(n) could drop records the checkpoint
+        # does not cover
+        n = len(rt.store)
+        if probe_fn is not None:
+            rt.replay.barrier(probe_fn)
+        elif not rt.replay.quiesce():
+            raise RuntimeError(
+                "app did not consume its replay stream (quiesce "
+                "timeout); checkpoint aborted to protect compaction")
+        with rt.replay.raw_conn() as s:
+            blob = dump_fn(s)
+        atomic_write(self._ckpt_path(r), struct.pack("<Q", n) + blob)
+        rt.store.compact(n)
+        self.obs.metrics.inc("checkpoints_total", replica=r)
+        self.obs.trace.record(obs_trace.CHECKPOINT_TAKEN, replica=r,
+                              record=n, blob_bytes=len(blob))
+        rt.log.info_wtime(
+            "CHECKPOINT: app state at record %d (%d bytes); store "
+            "compacted" % (n, len(blob)))
+
+    def _restore_ckpt(self, rt: _ReplicaRuntime, ckpt) -> None:
+        restore_fn = self.app_snapshot[1]
+        with rt.replay.raw_conn() as s:
+            restore_fn(s, ckpt[1])
+
+    def _do_reset_app(self, r: int) -> None:
+        rt = self.runtimes[r]
+        if rt.replay is not None:
+            rt.replay.close()
+            rt.replay = ReplayEngine("127.0.0.1", rt.app_port)
+        if rt.store is not None and rt.replay is not None:
+            if rt.store.base > 0:
+                # the compacted prefix is covered by this replica's own
+                # app checkpoint: restore it, then replay the suffix
+                ckpt = self._read_ckpt(r)
+                if (ckpt is None or ckpt[0] != rt.store.base
+                        or self.app_snapshot is None):
+                    raise RuntimeError(
+                        "store compacted to %d but no matching app "
+                        "checkpoint to rebuild from" % rt.store.base)
+                self._restore_ckpt(rt, ckpt)
+            replay_store_into(rt.store, rt.replay, start=0)
+        rt.app_dirty = False
+        rt.log.info_wtime("APP RESET: rebuilt from committed store")
 
     def _do_recover(self, r: int, donor: Optional[int],
                     app_fresh: bool = True, ledger=None,
                     min_verified: int = 1) -> None:
-        raise NotImplementedError("_do_recover: " + RECOVERY_LATER)
+        """``app_fresh=False`` (the auto-recovery path) replays only the
+        DELTA of the donor's history into r's still-running app — the
+        app already executed its own store's prefix; a full replay would
+        double-apply non-idempotent commands. ``ledger`` (the repair
+        pipeline's digest-verified transfer) is not ported yet."""
+        if ledger is not None:
+            raise NotImplementedError(
+                "_do_recover(ledger=...): the digest-verified install "
+                "needs the audit chain and the repair pipeline (ROADMAP "
+                "Queue 1, items 9 and 12)")
+        donor = self._leader_view if donor is None else donor
+        if donor < 0:
+            raise RuntimeError("no donor available")
+        with self.cluster._host_lock:
+            require_drained(self.cluster._tickets, "_do_recover")
+            snap = self._install_donor_snapshot(r, donor)
+        self._load_donor_history(r, donor, snap, app_fresh)
+
+    # holds-lock: cluster._host_lock, with no dispatch in flight
+    def _install_donor_snapshot(self, r: int, donor: int):
+        """The device half of a recovery: snapshot the donor, restore r's
+        vote, install. The determinant and vote reads are host syncs,
+        safe only with nothing in flight (the caller holds the engine's
+        host lock, which brackets every dispatch, with no ticket)."""
+        drt, rrt = self.runtimes[donor], self.runtimes[r]
+        blob = drt.store.dump() if drt.store else b""
+        # the blob matches the donor's HOST apply counter; the device
+        # apply can lag it by one step's echo — snapshot at the host's
+        snap = take_snapshot(self.cluster.state, donor, blob,
+                             index=int(self.cluster.applied[donor]),
+                             rebased_total=self.cluster.rebased_total)
+        # election durability: the newest vote among live peers' records
+        # (read BEFORE the install wipes r's rows) and r's HardState
+        # file; the current term is floored at all of them
+        vt, vf = recover_vote(self.cluster.state, r)
+        hs = rrt.hard.load() if rrt.hard is not None else None
+        cur_term = 0
+        if hs is not None:
+            cur_term = hs[0]
+            if hs[1] > vt:
+                vt, vf = hs[1], hs[2]
+        self.cluster.state = install_snapshot(
+            self.cluster.state, r, snap,
+            voted_term=vt, voted_for=vf, cur_term=cur_term)
+        self.cluster.applied[r] = snap.index
+        rrt.replay_cursor = len(self.cluster.replayed[r])
+        # undrained frames predate the snapshot load: appending them to
+        # the freshly loaded store would duplicate history
+        self.cluster.frames[r] = []
+        return snap
+
+    def _load_donor_history(self, r: int, donor: int, snap,
+                            app_fresh: bool) -> None:
+        """The host half of a recovery: load the donor's store into r's,
+        carry a compacted donor's app checkpoint over, and replay into
+        r's app — all of it for a fresh app, only the records beyond its
+        old store for a live one."""
+        rrt = self.runtimes[r]
+        if rrt.store is None or not snap.store_blob:
+            return
+        old_len = len(rrt.store)
+        rrt.store.reset()
+        rrt.store.load(snap.store_blob)
+        base = rrt.store.base
+        if base > 0:
+            # the donor's store was compacted behind its app checkpoint:
+            # carry the checkpoint over so r (and any later reset of r)
+            # can cover the missing prefix
+            if self.app_snapshot is None:
+                raise RuntimeError(
+                    "donor %d store is compacted (base %d) but no "
+                    "app_snapshot hook is configured to restore its "
+                    "checkpoint" % (donor, base))
+            ckpt = self._read_ckpt(donor)
+            if ckpt is None or ckpt[0] != base:
+                raise RuntimeError(
+                    "donor %d store compacted to %d but no matching app "
+                    "checkpoint" % (donor, base))
+            shutil.copyfile(self._ckpt_path(donor), self._ckpt_path(r))
+            if app_fresh:
+                self._restore_ckpt(rrt, ckpt)
+            elif old_len < base:
+                raise RuntimeError(
+                    "live app executed only %d records but the donor "
+                    "history now starts at %d — restart the app and use "
+                    "reset_app" % (old_len, base))
+        # fresh app: rebuild checkpoint + full retained history; live app
+        # (auto recovery): deliver only the records beyond the prefix it
+        # already executed — its own old store, a prefix of the donor's
+        replay_store_into(rrt.store, rrt.replay,
+                          start=0 if app_fresh else old_len)
 
     def _apply_new_entries(self, r: int, rt: _ReplicaRuntime) -> None:
         stream = self.cluster.replayed[r]
@@ -957,9 +1223,12 @@ class ClusterDriver:
     def _pipeline_ready(self) -> bool:
         """True iff the next iteration may DISPATCH WITHOUT FINISHING —
         the stable-leader traffic path where pipelining is a pure
-        latency/throughput transform. Everything else (elections,
-        config changes, recovery flags, rebase drains, idle heartbeats)
-        drains the pipeline and runs the serial ``step()``."""
+        latency/throughput transform. Everything else (elections, admin
+        requests, config changes, recovery flags, rebase drains, idle
+        heartbeats) drains the pipeline and runs the serial ``step()``."""
+        if (self._recover_req is not None or self._reset_req is not None
+                or self._ckpt_req is not None):
+            return False
         c = self.cluster
         if c.last is None or self._leader_view < 0:
             return False
@@ -1016,8 +1285,8 @@ class ClusterDriver:
 
     def _can_idle_skip(self) -> bool:
         """True iff this iteration may skip the device dispatch
-        entirely: a led, healthy, traffic-free cluster with no config
-        work due and every follower election timer comfortably far from
+        entirely: a led, healthy, traffic-free cluster with no admin or
+        config work due and every follower election timer comfortably far from
         firing. Conservative by construction — any doubt dispatches the
         step."""
         if not self._idle_quiesce:
@@ -1025,6 +1294,11 @@ class ClusterDriver:
         c = self.cluster
         if c.last is None or self._leader_view < 0:
             return False
+        with self._lock:
+            if (self._recover_req is not None
+                    or self._reset_req is not None
+                    or self._ckpt_req is not None):
+                return False
         if self._config_phase is not None:
             return False
         if c.need_recovery or self.stepped_down:

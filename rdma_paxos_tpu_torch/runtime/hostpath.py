@@ -180,6 +180,14 @@ class LazyReplayStream:
         self._tail.append(batch)
         self._tail_n += len(batch)
 
+    def append(self, entry) -> None:
+        self._materialize()
+        self._flat.append(entry)
+
+    def extend(self, entries) -> None:
+        self._materialize()
+        self._flat.extend(entries)
+
     def __len__(self) -> int:
         return len(self._flat) + self._tail_n
 
@@ -202,6 +210,9 @@ class LazyReplayStream:
             other = other._materialize()
         return self._materialize() == other
 
+    def __ne__(self, other):
+        return not self.__eq__(other)
+
     def __repr__(self):
         return f"LazyReplayStream(n={len(self)})"
 
@@ -222,6 +233,30 @@ class LazyReplayStream:
             segs.append(b.slice(off) if off else b)
             off = 0
         return segs
+
+
+def stream_copy(stream) -> LazyReplayStream:
+    """A donor's replay stream as a fresh lazy stream for a recipient:
+    the copy diverges from the donor's from here on and stays
+    batch-appendable. A lazy donor is copied structurally (batches are
+    immutable, so sharing them is safe, and a later donor
+    ``_materialize`` cannot reach into the copy)."""
+    if isinstance(stream, LazyReplayStream):
+        out = LazyReplayStream(stream._flat)
+        out._tail = list(stream._tail)
+        out._tail_n = stream._tail_n
+        return out
+    return LazyReplayStream(list(stream))
+
+
+def extend_stream(stream, batch: ReplayBatch) -> None:
+    """Append a decoded batch to a replay stream: batched onto a
+    :class:`LazyReplayStream`, tuple-extended onto the plain list a
+    recovery path may have left in the slot."""
+    if isinstance(stream, LazyReplayStream):
+        stream.append_batch(batch)
+    else:
+        stream.extend(batch.tuples())
 
 
 # ---------------------------------------------------------------------------

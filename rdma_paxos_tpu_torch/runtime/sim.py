@@ -98,7 +98,7 @@ def decode_window(wm: np.ndarray, wd: np.ndarray, n: int,
     batch = hostpath.decode_batch(wm, wd, n, rebase)
     if batch is None:
         return
-    replayed.append_batch(batch)
+    hostpath.extend_stream(replayed, batch)
     if collect_frames:
         frames.append(batch.frames())
 

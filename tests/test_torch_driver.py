@@ -10,7 +10,8 @@ against the JAX package's driver.
   serial and pipelined commits the JAX driver's stream and releases its
   acks, and the pipelined run overlaps dispatches;
 * the crash contract, the failure detector's eviction, the lost-majority
-  step-down, and the surfaces that wait for later slices."""
+  step-down, the automatic snapshot recovery of a force-pruned replica,
+  and the surfaces that wait for later slices."""
 
 import time
 
@@ -21,6 +22,7 @@ import torch
 from rdma_paxos_tpu.config import LogConfig as JCfg, TimeoutConfig as JTO
 from rdma_paxos_tpu.runtime.driver import ClusterDriver as JDriver
 from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+from rdma_paxos_tpu_torch.consensus import snapshot as tsnap
 from rdma_paxos_tpu_torch.consensus.state import ConfigState
 from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
 from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
@@ -292,9 +294,9 @@ def test_minority_leader_steps_down_and_refuses_sessions():
 
 
 def test_forced_recovery_is_a_loop_crash():
-    """A force-pruned replica needs the snapshot recovery of a later
-    slice: the loop that reaches it records the error and fails its
-    waiters, as any crash does."""
+    """The automatic recovery of a force-pruned replica runs inside the
+    loop: an install that fails there is a loop crash that records the
+    error and fails the parked waiters, as any crash does."""
     d = ClusterDriver(LogConfig(**GEO), 3, timeout_cfg=TimeoutConfig(
         **TIMERS), pipeline=2, device="cpu")
     d.cluster.run_until_elected(0)
@@ -304,13 +306,54 @@ def test_forced_recovery_is_a_loop_crash():
     d.step()
     d.cluster.partition([[0], [1, 2]])      # the waiter cannot commit
     ev = h(SEND, 41, b"x")
+
+    def boom(r, donor):
+        raise RuntimeError("injected install failure")
+    d._install_donor_snapshot = boom
     d.cluster.need_recovery.add(2)
     d.run()
     assert ev.done.wait(10) and ev.status == -1
-    assert isinstance(d.loop_error, NotImplementedError)
-    assert "item 8" in str(d.loop_error)
+    assert isinstance(d.loop_error, RuntimeError)
+    assert "injected install failure" in str(d.loop_error)
     assert h(SEND, 41, b"y") == -1           # a dead loop refuses intake
     d.stop()
+
+
+def test_auto_recovery_matches_the_jax_driver(tmp_path):
+    """tests/test_force_pruning.py's driver case, step-locked: a wedged
+    follower is force-pruned past its apply cursor, flagged on unwedge,
+    and healed by the driver with the leader's snapshot and store —
+    step outputs, replay streams, stores and hard state equal to the
+    JAX driver's after every step, and device state after the heal."""
+    from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
+    jd, td = make_pair(tmp_path, pipeline=0)
+    s = Lockstep(jd, td, stores=True)
+    try:
+        s.both(lambda d: d.cluster.run_until_elected(0))
+        s.step()
+        s.both(lambda d: d.cluster.wedge_apply(2))
+        for i in range(300):
+            s.both(lambda d: d.cluster.submit(0, b"a%04d" % i))
+        for _ in range(250):
+            s.step()
+            if not td.cluster.pending[0]:
+                break
+        assert not td.cluster.pending[0] and not jd.cluster.pending[0]
+        s.both(lambda d: d.cluster.unwedge_apply(2))
+        s.step()                   # flags 2, and heals it in _post_step
+        assert not td.cluster.need_recovery
+        assert td.cluster.applied[2] == td.cluster.applied[0]
+        assert not td.runtimes[2].app_dirty
+        js = replica_state_to_numpy(jd.cluster.state)
+        ts = replica_state_to_numpy(td.cluster.state)
+        for k in js:
+            np.testing.assert_array_equal(js[k], ts[k], err_msg=k)
+        s.both(lambda d: d.cluster.submit(0, b"post-recovery"))
+        s.step(3)
+        assert td.cluster.replayed[2][-1][3] == b"post-recovery"
+    finally:
+        jd.stop()
+        td.stop()
 
 
 @pytest.mark.parametrize("kw", [
@@ -318,7 +361,7 @@ def test_forced_recovery_is_a_loop_crash():
     dict(scan=True), dict(repair=True), dict(governor=True),
     dict(streams=True), dict(link_model=object()), dict(metrics_port=0),
     dict(profile_on_page=1.0), dict(alert_rules=[]), dict(leases=True),
-    dict(app_snapshot=(None, None)), dict(mode="spmd"),
+    dict(repair_opts={}), dict(mode="spmd"),
     dict(health_period=1.0), dict(lease_opts={})])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -326,13 +369,21 @@ def test_later_slices_raise(kw):
 
 
 @pytest.mark.parametrize("call", [
-    lambda d: d.recover_replica(1), lambda d: d.reset_app(1),
-    lambda d: d.checkpoint_app(1), lambda d: d._do_recover(1, 0),
+    lambda d: d._do_recover(1, 0, ledger=object()),
+    lambda d: tsnap.take_snapshot(d.cluster.state, 0, digests=True),
+    lambda d: tsnap.install_snapshot(
+        d.cluster.state, 1, tsnap.take_snapshot(d.cluster.state, 0),
+        ledger=object()),
+    lambda d: tsnap.install_snapshot(
+        d.cluster.state, 1, tsnap.take_snapshot(d.cluster.state, 0),
+        group=0),
     lambda d: d.health(), lambda d: d.evaluate_alerts(),
     lambda d: d.serve_metrics(0), lambda d: d.start_profile()])
 def test_later_methods_raise(call):
+    """What waits for later slices raises and names its ROADMAP item
+    (9: audit chain, 11: groups, 12: repair and host observability)."""
     d = ClusterDriver(LogConfig(**GEO), 3, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=r"item"):
         call(d)
     with pytest.raises(RuntimeError, match="leases=False"):
         d.read(lambda: None)

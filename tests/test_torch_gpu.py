@@ -86,3 +86,22 @@ def test_front_door_pipelined_driver_on_the_card():
     assert [p for (t, _c, _q, p) in gpu["streams"][0] if t == 3] == payloads
     assert gpu["max_inflight"] >= 2
     assert gpu["launches"] == gpu["steps"] > 0
+
+
+def test_snapshot_recovery_on_the_card():
+    """Phase (7a) of ``chip_smoke.py`` at a small size: a laggard pruned
+    past the ring and a fresh learner recover by snapshot install on the
+    card, with replica state and replay streams bit-equal to the CPU run
+    at every mark and one commit-window launch per protocol step."""
+    _need_card()
+    from chip_smoke import drive_recovery
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    geom = dict(n_slots=1024, slot_bytes=128, window_slots=256,
+                batch_slots=256)
+    w0, s0 = commit_window.launches, commit_scan.launches
+    gpu = drive_recovery(torch.device("cuda", 0), geom, "gather", 3000, True)
+    assert commit_window.launches - w0 == gpu["steps"] > 0
+    assert commit_scan.launches == s0
+    cpu = drive_recovery(torch.device("cpu"), geom, "gather", 3000, True)
+    assert gpu["pruned"] and gpu["catch_up"] == cpu["catch_up"]
+    assert gpu["marks"] == cpu["marks"]

@@ -106,3 +106,31 @@ def test_stream_segments_match_jax():
         ts2.append_batch(thp.ReplayBatch(*cols).slice(30))
         js2.append_batch(jhp.ReplayBatch(*cols).slice(30))
         assert view(ts2, start) == view(js2, start)
+
+
+@pytest.mark.parametrize("materialize", [False, True])
+def test_stream_copy_and_extend_match_jax(materialize):
+    """The recovery helpers: a structural copy diverges from its donor,
+    a decoded batch extends a lazy stream or a plain list in the slot,
+    and ``append``/``extend``/``!=`` see the tuple view."""
+    cols = columns(10, 30)
+    streams = []
+    for hp in (jhp, thp):
+        donor = hp.LazyReplayStream()
+        donor.append_batch(hp.ReplayBatch(*cols))
+        if materialize:
+            assert donor[0]                 # a reader's materialize
+        donor.append_batch(hp.ReplayBatch(*cols).slice(20))
+        copy = hp.stream_copy(donor)
+        plain = hp.stream_copy(list(donor))
+        hp.extend_stream(copy, hp.ReplayBatch(*cols).slice(5))
+        lst = list(donor)
+        hp.extend_stream(lst, hp.ReplayBatch(*cols).slice(25))
+        donor.append((3, 1, 0, b"own"))
+        plain.extend([(3, 2, 0, b"a"), (3, 2, 1, b"b")])
+        assert isinstance(copy, hp.LazyReplayStream)
+        assert isinstance(plain, hp.LazyReplayStream)
+        assert len(copy) == 65 and len(donor) == 41 and len(lst) == 45
+        assert copy != donor and not (copy != list(copy))
+        streams.append([list(copy), list(donor), lst, list(plain)])
+    assert streams[0] == streams[1]

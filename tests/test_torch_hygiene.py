@@ -15,6 +15,8 @@ import torch
 
 import rdma_paxos_tpu.config as jconfig
 import rdma_paxos_tpu.consensus.log as jlog
+import rdma_paxos_tpu.consensus.snapshot as jsnapshot
+import rdma_paxos_tpu.runtime.hostpath as jhostpath
 import rdma_paxos_tpu.obs.metrics as jmetrics
 import rdma_paxos_tpu.obs.spans as jspans
 import rdma_paxos_tpu.obs.trace as jtrace
@@ -26,6 +28,9 @@ import rdma_paxos_tpu.ops.quorum as jquorum
 import rdma_paxos_tpu.runtime.sim as jsim
 import rdma_paxos_tpu_torch.config as tconfig
 import rdma_paxos_tpu_torch.consensus.log as tlog
+import rdma_paxos_tpu_torch.consensus.snapshot as tsnapshot
+import rdma_paxos_tpu_torch.convert as tconvert
+import rdma_paxos_tpu_torch.runtime.hostpath as thostpath
 import rdma_paxos_tpu_torch.obs.metrics as tmetrics
 import rdma_paxos_tpu_torch.obs.spans as tspans
 import rdma_paxos_tpu_torch.obs.trace as ttrace
@@ -78,9 +83,12 @@ def _imports(path: Path):
     str(p.relative_to(ROOT)) for p in
     list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]))
 def test_source_names_no_jax(path):
+    """Neither JAX, the JAX package, nor a test module (which may import
+    either): the card's machine has no JAX."""
     for line, mod in _imports(ROOT / path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "rdma_paxos_tpu"), (
+        assert top not in ("jax", "jaxlib", "rdma_paxos_tpu", "tests") \
+            and not top.startswith(("test_", "conftest")), (
             f"{path}:{line} imports {mod}")
 
 
@@ -168,3 +176,33 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
     assert tconfig.resolve_device("cpu") == torch.device("cpu")
     assert tsim.SimCluster(cfg, 3, device="cpu").state.term.device.type \
         == "cpu"
+
+
+def test_recovery_surface_matches_the_reference():
+    """The recovery slice's copies: the Snapshot record, the error
+    classes, the snapshot and stream functions and the driver's recovery
+    entry points, with the reference's parameters."""
+    import inspect
+    jf = [(f.name, f.default) for f in dataclasses.fields(jsnapshot.Snapshot)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(tsnapshot.Snapshot)]
+    assert jf == tf
+    assert tconvert.SNAPSHOT_FIELDS == tuple(n for n, _ in jf)
+    assert issubclass(tsnapshot.SnapshotEpochError,
+                      tsnapshot.SnapshotVerifyError)
+    assert issubclass(tsnapshot.SnapshotVerifyError, RuntimeError)
+
+    def params(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+    for name in ("take_snapshot", "install_snapshot", "recover_vote",
+                 "rebase_offsets", "export_row", "genesis_row"):
+        assert params(getattr(tsnapshot, name)) == params(
+            getattr(jsnapshot, name)), name
+    for name in ("stream_copy", "extend_stream"):
+        assert params(getattr(thostpath, name)) == params(
+            getattr(jhostpath, name)), name
+    for name in ("recover_replica", "reset_app", "checkpoint_app",
+                 "_do_recover", "_do_checkpoint", "_do_reset_app",
+                 "_drain_admin", "_read_ckpt", "_ckpt_path"):
+        assert params(getattr(tdriver.ClusterDriver, name)) == params(
+            getattr(jdriver.ClusterDriver, name)), name

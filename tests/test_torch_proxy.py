@@ -7,6 +7,7 @@ the loopback replay engine work end to end on their own."""
 import socket
 import struct
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -211,7 +212,10 @@ def test_replay_engine_writes_the_committed_stream(tmp_path):
     eng = ReplayEngine("127.0.0.1", port)
     replay_store_into(store, eng)
     peer, addr = lsn.accept()
-    assert addr[1] not in eng.local_ports          # closed by the CLOSE
+    # the CLOSE half-closes: the replay port stays ours until the app
+    # has read every replayed byte and closed its end
+    assert addr[1] in eng.local_ports and len(eng.closing) == 1
+    peer.sendall(b"+OK\n+OK\n")               # responses left unread
     got = b""
     while True:
         chunk = peer.recv(64)
@@ -219,7 +223,11 @@ def test_replay_engine_writes_the_committed_stream(tmp_path):
             break
         got += chunk
     assert got == b"SET a 1\nSET b 2\n"
-    for s in (peer, lsn):
-        s.close()
+    peer.close()
+    deadline = time.time() + 10
+    while eng.closing and time.time() < deadline:
+        eng.drain_responses()
+    assert not eng.closing and addr[1] not in eng.local_ports
+    lsn.close()
     eng.close()
     store.close()
