@@ -54,7 +54,26 @@ exits non-zero without its result line):
    pruned past its wedged apply into its live app, exactly once (COUNT
    and keys equal the leader's); install, catch-up, admin and recovery
    times;
-8. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+8. the audit digest chain and device telemetry, at geometry (a): (8a)
+   phase 4's seeded SEND stream on an ``audit=True, telemetry=True``
+   cluster, its ledger dump and summary, flight ring and device counters
+   equal to the same run on the CPU, zero findings and every committed
+   index digested by every replica; CUDA kernels and wall ms per
+   ``step()`` with neither variant (equal to phase 5's count), audit
+   only, telemetry only and both; (8b) one payload word of replica 2's
+   slot at its last applied index corrupted on the card: the ledger names
+   that index and replica within 3 steps, replica 2's digest-carrying
+   snapshot is refused by ``install_snapshot(ledger=)`` with the state
+   untouched, replica 0's installs into replica 2, and ``redigest``
+   backfills replica 0's committed range with no new finding, all equal
+   to the CPU run; (8c) the (6a) record through a pipelined
+   ``ClusterDriver(audit=True, telemetry=True)`` with a workdir: every
+   event acked once with status 0 in submit order, a clean ledger,
+   ``device_committed_entries_total`` equal to the committed count, the
+   audit artifact written under the workdir and reported clean by
+   ``python -m rdma_paxos_tpu_torch.obs.audit``; acked events/s with
+   both variants on and both off, two alternating pairs;
+9. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
 after, so a failure names its phase.
@@ -332,29 +351,14 @@ def kvs_model(stream):
     return table, last
 
 
-def drive(port, geo: str, dev, kvs_ops: int) -> dict:
-    """The seeded main-path run on ``dev``; returns what the caller
-    compares across devices."""
-    from rdma_paxos_tpu_torch.config import LogConfig
-    from rdma_paxos_tpu_torch.models.kvs import CMD_W, OP_INCR, decode_val
-    from rdma_paxos_tpu_torch.models.replicated_kvs import (
-        TXN_CMD_W, ReplicatedKVS)
-    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
-    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
-    geom, fanout = GEOMETRIES[geo]
-    cfg = LogConfig(**geom)
-    B = cfg.batch_slots
-    rng = np.random.default_rng(SEED)
-    c = SimCluster(cfg, R, fanout=fanout, device=dev)
-    kv = ReplicatedKVS(c, cap=65536)
-    launches0, steps0 = (commit_window.launches,
-                         commit_scan.launches), c.step_index
-    t0 = time.perf_counter()
-
-    lead = c.run_until_elected(0)
-    # SEND stream: two full batches through step(), eight through bursts
-    # (lengths of a KVS command or a txn record are skipped: the KVS
-    # fold would read such SEND payloads as commands)
+def send_stream(c, lead: int, rng) -> list:
+    """The seeded SEND stream of the main path: two full batches through
+    ``step()``, eight through bursts (lengths of a KVS command or a txn
+    record are skipped: the KVS fold would read such SEND payloads as
+    commands). Returns the payloads."""
+    from rdma_paxos_tpu_torch.models.kvs import CMD_W
+    from rdma_paxos_tpu_torch.models.replicated_kvs import TXN_CMD_W
+    B = c.cfg.batch_slots
     lens = rng.integers(1, 129, 10 * B)
     lens += np.isin(lens, (CMD_W * 4, TXN_CMD_W * 4))
     sends = [bytes(rng.integers(0, 256, int(n), dtype=np.uint8))
@@ -367,6 +371,28 @@ def drive(port, geo: str, dev, kvs_ops: int) -> dict:
                          for i, p in enumerate(sends[2 * B:])])
     while c.pending[lead]:
         c.step_burst()
+    return sends
+
+
+def drive(port, geo: str, dev, kvs_ops: int) -> dict:
+    """The seeded main-path run on ``dev``; returns what the caller
+    compares across devices."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.models.kvs import OP_INCR, decode_val
+    from rdma_paxos_tpu_torch.models.replicated_kvs import ReplicatedKVS
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, fanout = GEOMETRIES[geo]
+    cfg = LogConfig(**geom)
+    rng = np.random.default_rng(SEED)
+    c = SimCluster(cfg, R, fanout=fanout, device=dev)
+    kv = ReplicatedKVS(c, cap=65536)
+    launches0, steps0 = (commit_window.launches,
+                         commit_scan.launches), c.step_index
+    t0 = time.perf_counter()
+
+    lead = c.run_until_elected(0)
+    sends = send_stream(c, lead, rng)
 
     # ClientSession workload: one outstanding request per session
     n_sess = 256
@@ -510,14 +536,25 @@ def device_profile(fn):
     return wall_ms, out
 
 
+def launch_profile(fn):
+    """:func:`device_profile` of ``fn`` with its totals: wall ms, the
+    per-name profile, device busy ms, CUDA kernels and copies/memsets."""
+    wall_ms, sprof = device_profile(fn)
+    busy_ms = sum(us for _, us in sprof.values()) / 1e3
+    n_kern = sum(n for k, (n, _) in sprof.items()
+                 if not k.startswith(("Memcpy", "Memset")))
+    n_copy = sum(n for _, (n, _) in sprof.items()) - n_kern
+    return wall_ms, sprof, busy_ms, n_kern, n_copy
+
+
 # the host-side stages of one engine step, for the host profile
 HOST_STAGES = ("step", "submit_many", "begin_step", "pack_rows", "_dev",
                "replica_step", "commit_window", "finish", "_readback",
                "_replay_committed", "decode_window")
 
 
-def host_profile(fn) -> dict:
-    """Inclusive wall ms of each :data:`HOST_STAGES` function over
+def host_profile(fn, stages=HOST_STAGES) -> dict:
+    """Inclusive wall ms of each of the ``stages`` functions over
     ``fn()`` under cProfile."""
     import cProfile
     import pstats
@@ -526,7 +563,7 @@ def host_profile(fn) -> dict:
     fn()
     torch.cuda.synchronize()
     pr.disable()
-    out = dict.fromkeys(HOST_STAGES, 0.0)
+    out = dict.fromkeys(stages, 0.0)
     for (_file, _line, name), row in pstats.Stats(pr).stats.items():
         if name in out and "rdma_paxos_tpu_torch" in _file:
             out[name] += row[3] * 1e3
@@ -611,9 +648,11 @@ def phase_kernel_times(dev, card: str) -> dict:
     return dict(commit_scan=scan, commit_window=window[R])
 
 
-def phase_times(dev, card: str) -> None:
+def phase_times(dev, card: str):
     """End to end at geometry (a): full batches through the stable step
-    and through bursts, then the device and host profiles of ``step()``."""
+    and through bursts, then the device and host profiles of ``step()``.
+    Returns the CUDA kernels per ``step()`` and the profile they were
+    counted in."""
     from rdma_paxos_tpu_torch.config import LogConfig
     from rdma_paxos_tpu_torch.runtime.sim import SimCluster
     geom, fanout = GEOMETRIES["a"]
@@ -649,11 +688,7 @@ def phase_times(dev, card: str) -> None:
         for _ in range(10):
             feed(B)
             c.step()
-    wall_ms, sprof = device_profile(ten_steps)
-    busy_ms = sum(us for _, us in sprof.values()) / 1e3
-    n_kern = sum(n for k, (n, _) in sprof.items()
-                 if not k.startswith(("Memcpy", "Memset")))
-    n_copy = sum(n for _, (n, _) in sprof.items()) - n_kern
+    wall_ms, sprof, busy_ms, n_kern, n_copy = launch_profile(ten_steps)
     print(f"launches per step() at geometry (a) on {card} (torch.profiler, "
           f"10 steps): {n_kern / 10:.1f} CUDA kernels, {n_copy / 10:.1f} "
           f"copies and memsets", flush=True)
@@ -673,6 +708,7 @@ def phase_times(dev, card: str) -> None:
           f"inclusive ms per step; inflates Python-heavy code): "
           + ", ".join(f"{k} {v / 10:.2f}" for k, v in host.items()),
           flush=True)
+    return n_kern / 10, sprof
 
 
 # ---------------------------------------------------------------------------
@@ -714,8 +750,8 @@ def post_stages(pr) -> dict:
 
 
 def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
-                     n_conns: int, pipeline: int, profile: str = ""
-                     ) -> dict:
+                     n_conns: int, pipeline: int, profile: str = "",
+                     workdir=None, **variants) -> dict:
     """The pre-queued record through the leader's shim handler of a
     ``ClusterDriver`` on ``dev`` (the JAX idiom of
     ``tests/test_pipeline.py``): elect replica 0, queue a CONNECT per
@@ -725,13 +761,17 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
     loop under ``torch.profiler``; ``profile="host"`` steps the serial
     loop on the calling thread under cProfile instead of running the
     loop threads (from Python 3.12 on, cProfile sees every thread, and
-    its per-function times mix when two run Python at once)."""
+    its per-function times mix when two run Python at once).
+    ``workdir`` and ``variants`` (``audit=``, ``telemetry=``) go to the
+    driver; an audited run also reports its ledger and writes its audit
+    artifact, a run with telemetry its device counters."""
     from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
     from rdma_paxos_tpu_torch.ops.quorum import commit_window
     from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
     from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
     d = ClusterDriver(LogConfig(**geom), R, fanout=fanout, pipeline=pipeline,
-                      timeout_cfg=TimeoutConfig(**TIMERS_OFF), device=dev)
+                      timeout_cfg=TimeoutConfig(**TIMERS_OFF), device=dev,
+                      workdir=workdir, **variants)
     out = {}
     try:
         d.prewarm()
@@ -812,6 +852,16 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
             max_inflight=d.cluster.max_inflight_dispatches,
             post_step_ms=post_s[0] * 1e3, phases=d._phase_prof.sums(),
             streams=[list(s) for s in d.cluster.replayed])
+        c = d.cluster
+        out["commit_abs"] = (c.last["commit"].astype(np.int64)
+                             + c.rebased_total).tolist()
+        if c.auditor is not None:
+            out["audit"] = c.auditor.summary()
+            out["artifact"] = d._dump_audit_artifact("chip smoke (8c)")
+        if c.device_counters is not None:
+            out["device_committed"] = [d.obs.metrics.get(
+                "device_committed_entries_total", replica=r)
+                for r in range(R)]
         if pr is not None:
             out["host_ms"] = post_stages(pr)
         if prof is not None:
@@ -1593,6 +1643,347 @@ def phase_recovery_apps(dev, card: str) -> dict:
     return dict(launches=out["launches"], steps=out["steps"])
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the audit digest chain and device telemetry
+# ---------------------------------------------------------------------------
+
+def no_anchor(doc: dict) -> dict:
+    """A dump without its process clock anchor (which differs by run)."""
+    return {k: v for k, v in doc.items() if k != "anchor"}
+
+
+def drive_audited(dev) -> dict:
+    """(8a) on ``dev``: the main path's seeded SEND stream at geometry
+    (a) on an ``audit=True, telemetry=True`` cluster; returns its ledger
+    and flight dumps (without the anchor), ledger summary, device
+    counters, absolute commits and protocol steps."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, fanout = GEOMETRIES["a"]
+    c = SimCluster(LogConfig(**geom), R, fanout=fanout, audit=True,
+                   telemetry=True, device=dev)
+    lead = c.run_until_elected(0)
+    t0 = time.perf_counter()
+    send_stream(c, lead, np.random.default_rng(SEED))
+    for _ in range(3):                        # followers catch up
+        c.step()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(
+        steps=c.step_index, wall=time.perf_counter() - t0,
+        dump=no_anchor(c.auditor.dump()), summary=c.auditor.summary(),
+        flight=no_anchor(c.flight.dump()),
+        counters=c.device_counters.copy(), history=c.auditor.history,
+        commit=c.last["commit"].astype(np.int64) + c.rebased_total)
+
+
+# the host stages of an audited step with telemetry, for its profile
+VARIANT_STAGES = ("step", "begin_step", "replica_step", "digest_fold",
+                  "finish", "_readback", "_ingest_audit", "record_window",
+                  "_record_flight", "reduce_steps", "ingest")
+
+VARIANTS = (("neither", {}), ("audit", dict(audit=True)),
+            ("telemetry", dict(telemetry=True)),
+            ("both", dict(audit=True, telemetry=True)))
+
+
+def variant_costs(dev) -> dict:
+    """CUDA kernels, device busy ms and wall ms per ``step()`` at
+    geometry (a) for each of :data:`VARIANTS`: phase 5's recipe (full
+    batches through the stable step, ten steps under ``torch.profiler``,
+    the larger count of two such windows),
+    then 20 timed steps per setting in two rounds of alternating order,
+    and a host profile of ten steps with both variants on."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, fanout = GEOMETRIES["a"]
+    cfg = LogConfig(**geom)
+    B = cfg.batch_slots
+    payload = b"x" * 16
+    runs, rows = {}, {}
+    for name, kw in VARIANTS:
+        c = SimCluster(cfg, R, fanout=fanout, device=dev, **kw)
+        lead = c.run_until_elected(0)
+
+        def ten_steps(c=c, lead=lead):
+            for _ in range(10):
+                c.submit_many(lead, [(3, 1, 0, payload)] * B)
+                c.step()
+        c.submit_many(lead, [(3, 1, 0, payload)] * (4 * B))
+        for _ in range(4):
+            c.step()
+        # two windows: the profiler's count has come one kernel short in
+        # a window, never over (PERF.md §6)
+        wins = [launch_profile(ten_steps) for _ in range(2)]
+        _, sprof, busy_ms, n_kern, _ = max(wins, key=lambda w: w[3])
+        runs[name] = ten_steps
+        rows[name] = dict(kernels=n_kern / 10, busy_ms=busy_ms / 10, ms=[],
+                          windows=[w[3] / 10 for w in wins], prof=sprof)
+    names = [n for n, _ in VARIANTS]
+    for order in (names, names[::-1]):
+        for name in order:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runs[name]()
+            runs[name]()
+            torch.cuda.synchronize()
+            rows[name]["ms"].append((time.perf_counter() - t) * 1e3 / 20)
+    rows["both"]["host"] = host_profile(runs["both"], VARIANT_STAGES)
+    return rows
+
+
+def drive_corruption(dev) -> dict:
+    """(8b) on ``dev``: corrupt one payload word of replica 2's slot at
+    its last applied index; the ledger must name that index and replica
+    within 3 steps; replica 2's digest-carrying snapshot is refused by
+    the verified install with the state untouched; replica 0's installs
+    into replica 2, which catches up; ``redigest`` backfills replica 0's
+    committed range with no new finding."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.consensus.snapshot import (
+        SnapshotVerifyError, install_snapshot, recover_vote, take_snapshot)
+    from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
+    from rdma_paxos_tpu_torch.runtime.hostpath import stream_copy
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, fanout = GEOMETRIES["a"]
+    cfg = LogConfig(**geom)
+    c = SimCluster(cfg, R, fanout=fanout, audit=True, device=dev)
+    lead = c.run_until_elected(0)
+    payloads = front_record(2 * cfg.batch_slots, FRONT_BYTES, seed=SEED + 8)
+    c.submit_many(lead, [(3, 1 + i % 8, 0, p)
+                         for i, p in enumerate(payloads)])
+    while c.pending[lead]:
+        c.step()
+    for _ in range(2):
+        c.step()
+    out = {}
+    target = int(c.applied[2]) - 1
+    c.state.log.buf[2, target & (cfg.n_slots - 1), 0] += 1
+    for k in range(1, 4):
+        c.step()
+        first = c.auditor.first_divergence()
+        if first is not None:
+            out["found_in"] = k
+            break
+    check(first is not None, "the corruption was not found in 3 steps")
+    check(first["index"] == target + c.rebased_total
+          and first["got_replicas"] == [2],
+          f"the ledger named index {first['index']} of replicas "
+          f"{first['got_replicas']}, not {target} of [2]")
+    n_find = len(c.auditor.findings)
+    kw = dict(digests=True, rebased_total=c.rebased_total)
+    bad = take_snapshot(c.state, 2, index=int(c.applied[2]), **kw)
+    before = replica_state_to_numpy(c.state)
+    t = time.perf_counter()
+    try:
+        install_snapshot(c.state, 1, bad, ledger=c.auditor)
+        refused = None
+    except SnapshotVerifyError as e:
+        refused = str(e)
+    out["refuse_ms"] = (time.perf_counter() - t) * 1e3
+    check(refused is not None and "contradicts" in refused,
+          f"the corrupted donor was not refused ({refused})")
+    after = replica_state_to_numpy(c.state)
+    check(all(np.array_equal(before[k], after[k]) for k in before),
+          "the refused install touched the state")
+    good = take_snapshot(c.state, 0, index=int(c.applied[0]), **kw)
+    vt, vf = recover_vote(c.state, 2)
+
+    def install():
+        c.state = install_snapshot(c.state, 2, good, voted_term=vt,
+                                   voted_for=vf, ledger=c.auditor)
+        c.applied[2] = good.index
+        c.replayed[2] = stream_copy(c.replayed[0])
+    _, out["install_ms"] = timed(dev, install)
+    out["catch_up"] = catch_up(c, 2, lead)
+    lo, hi = int(c.last["head"][0]), int(c.last["commit"][0])
+    b0 = c.auditor.summary()["backfilled"]
+    n, out["redigest_ms"] = timed(dev, lambda: c.redigest(0, lo, hi))
+    check(n == hi - lo > 0 and len(c.auditor.findings) == n_find
+          and c.auditor.summary()["backfilled"] == b0 + n,
+          f"redigest of [{lo}, {hi}) recorded {n}, findings "
+          f"{n_find} -> {len(c.auditor.findings)}")
+    out.update(
+        steps=c.step_index, first=first, redigested=n, target=target,
+        chains=[(s.audit_start, s.audit_digests.tolist())
+                for s in (bad, good)],
+        dump=no_anchor(c.auditor.dump()), state=state_digest(c))
+    return out
+
+
+def kernel_names_differ(a: dict, b: dict) -> dict:
+    """``{name: (count in a, count in b)}`` of the CUDA kernels two
+    profiles count differently."""
+    names = {k for k in list(a) + list(b)
+             if not k.startswith(("Memcpy", "Memset"))}
+    return {k[:70]: (a.get(k, (0, 0))[0], b.get(k, (0, 0))[0])
+            for k in sorted(names)
+            if a.get(k, (0, 0))[0] != b.get(k, (0, 0))[0]}
+
+
+def phase_audit(dev, card: str, kernels_per_step: float,
+                ref_prof: dict) -> list:
+    """Phase 8 on the card, each part against the same run on the CPU
+    where it has one; returns the protocol steps and commit_window
+    launches of its driven paths."""
+    from rdma_paxos_tpu_torch.ops import quorum
+    from rdma_paxos_tpu_torch.obs import device as obs_device
+    runs = []
+    geom, fanout = GEOMETRIES["a"]
+
+    # (8a) the engine
+    quorum.commit_window.launches = quorum.commit_scan.launches = 0
+    gpu = drive_audited(dev)
+    launches = quorum.commit_window.launches
+    check(launches == gpu["steps"] > 0 and quorum.commit_scan.launches == 0,
+          f"(8a): {launches} commit_window launches in {gpu['steps']} "
+          f"protocol steps")
+    runs.append(dict(launches=launches, steps=gpu["steps"]))
+    t = time.perf_counter()
+    cpu = drive_audited(torch.device("cpu"))
+    for k in ("steps", "dump", "summary", "flight"):
+        check(gpu[k] == cpu[k], f"(8a): the card's {k} differs from the CPU")
+    check(np.array_equal(gpu["counters"], cpu["counters"]),
+          "(8a): the card's device counters differ from the CPU's")
+    s = gpu["summary"]
+    check(s["findings"] == 0, f"(8a): {s['findings']} findings")
+    # every replica digested every committed index once as new, and the
+    # ledger retains the top of the chain
+    check(s["indices_checked"] == int(gpu["commit"].sum()),
+          f"(8a): {s['indices_checked']} indices checked for commits "
+          f"{gpu['commit'].tolist()}")
+    top = int(gpu["commit"].min())
+    kept = {int(i) for i in gpu["dump"]["groups"][0]["indices"]}
+    check(set(range(max(0, top - gpu["history"]), top)) <= kept,
+          "(8a): a committed index below the frontier is not tracked")
+    col = obs_device.INDEX["committed_entries"]
+    check(np.array_equal(gpu["counters"][:, col], gpu["commit"]),
+          "(8a): the committed_entries counters are not the commits")
+    print(f"audit and telemetry (8a) at geometry (a) {geom} fanout={fanout} "
+          f"on {card}: {gpu['steps']} protocol steps ({launches} "
+          f"commit_window launches) in {gpu['wall']:.2f} s; "
+          f"{s['indices_checked']} indices digested over {s['windows']} "
+          f"windows, 0 findings; ledger dump and summary, flight ring and "
+          f"device counters equal to the CPU run "
+          f"({time.perf_counter() - t:.1f} s on the CPU); counters per "
+          f"replica: " + "; ".join(
+              ", ".join(f"{n} {int(v)}" for n, v in zip(obs_device.NAMES,
+                                                        row))
+              for row in gpu["counters"][:1]), flush=True)
+    rows = variant_costs(dev)
+    off = rows["neither"]
+    diff = kernel_names_differ(ref_prof, off["prof"])
+    # within the profiler's resolution: one kernel in the ten steps
+    check(abs(off["kernels"] - kernels_per_step) <= 0.1 + 1e-9,
+          f"(8a): {off['kernels']} kernels per step() with the variants "
+          f"off, phase 5 counted {kernels_per_step}; differing kernel "
+          f"counts (phase 5, 8a): {diff}")
+    print(f"variants (8a): with the variants off {off['kernels']:.1f} CUDA "
+          f"kernels per step() (windows " + ", ".join(
+              f"{x:.1f}" for x in off["windows"]) + f"), phase 5 "
+          f"{kernels_per_step:.1f}" + (f"; kernel counts that differ "
+                                       f"(phase 5, 8a): {diff}" if diff
+                                       else ""), flush=True)
+    print(f"variants (8a) per step() at geometry (a) on {card} "
+          f"(torch.profiler, the larger of two 10-step windows; wall ms "
+          f"over 20 steps, two "
+          f"rounds in alternating order): " + "; ".join(
+              f"{n}: {r['kernels']:.1f} CUDA kernels, device busy "
+              f"{r['busy_ms']:.3f} ms, wall ms "
+              + ", ".join(f"{x:.2f}" for x in r["ms"])
+              for n, r in rows.items()), flush=True)
+    print(f"host profile (8a) of 10 step() with both variants at geometry "
+          f"(a) on {card} (cProfile, inclusive ms per step; inflates "
+          f"Python-heavy code): " + ", ".join(
+              f"{k} {v / 10:.2f}" for k, v in rows["both"]["host"].items()),
+          flush=True)
+
+    # (8b) corruption and the verified install
+    quorum.commit_window.launches = 0
+    gpu = drive_corruption(dev)
+    launches = quorum.commit_window.launches
+    check(launches == gpu["steps"] > 0,
+          f"(8b): {launches} commit_window launches in {gpu['steps']} "
+          f"protocol steps")
+    runs.append(dict(launches=launches, steps=gpu["steps"]))
+    t = time.perf_counter()
+    cpu = drive_corruption(torch.device("cpu"))
+    for k in ("steps", "found_in", "first", "catch_up", "redigested",
+              "chains", "dump", "state"):
+        check(gpu[k] == cpu[k], f"(8b): the card's {k} differs from the CPU")
+    print(f"audit (8b) at geometry (a) on {card}: a word of replica 2's "
+          f"slot at index {gpu['target']} corrupted on the card, named "
+          f"(index {gpu['first']['index']}, replicas "
+          f"{gpu['first']['got_replicas']}, mode {gpu['first']['mode']}) "
+          f"after {gpu['found_in']} step(s); replica 2's snapshot "
+          f"({len(gpu['chains'][0][1])}-digest chain) refused in "
+          f"{gpu['refuse_ms']:.2f} ms, state untouched; replica 0's "
+          f"installed in {gpu['install_ms']:.2f} ms, caught up in "
+          f"{gpu['catch_up']} step(s); redigest of {gpu['redigested']} "
+          f"entries in {gpu['redigest_ms']:.2f} ms, no new finding; equal "
+          f"to the CPU run ({time.perf_counter() - t:.1f} s on the CPU)",
+          flush=True)
+
+    # (8c) the driver
+    payloads = front_record(FRONT_EVENTS, FRONT_BYTES)
+    rates = {True: [], False: []}
+    launches = steps = 0
+    for on in (True, False, True, False):
+        wd = tempfile.mkdtemp(prefix="rp-audit-")
+        try:
+            r = drive_front_door(dev, geom, fanout, payloads, FRONT_CONNS, 2,
+                                 workdir=wd, audit=on, telemetry=on)
+            tag = f"(8c) variants {'on' if on else 'off'}"
+            check(r["statuses"] == [0] * FRONT_EVENTS
+                  and (r["fired"] == 1).all(),
+                  f"{tag}: not every event was acked once with status 0")
+            sends = [p for (t_, _c, _q, p) in r["streams"][0] if t_ == 3]
+            check(sends == payloads,
+                  f"{tag}: the committed SENDs are not the record in order")
+            check(r["launches"] == r["steps"] > 0,
+                  f"{tag}: {r['launches']} commit_window launches in "
+                  f"{r['steps']} protocol steps")
+            if on:
+                check(r["audit"]["findings"] == 0
+                      and r["audit"]["indices_checked"] > 0,
+                      f"{tag}: ledger {r['audit']}")
+                check(r["device_committed"] == r["commit_abs"],
+                      f"{tag}: device_committed_entries_total "
+                      f"{r['device_committed']} for commits "
+                      f"{r['commit_abs']}")
+                art = r["artifact"]
+                check(art is not None and Path(art).parent == Path(wd)
+                      and Path(art).exists(),
+                      f"{tag}: the audit artifact is {art}")
+                cli = subprocess.run(
+                    [sys.executable, "-m", "rdma_paxos_tpu_torch.obs.audit",
+                     "report", art], cwd=ROOT, capture_output=True,
+                    text=True, timeout=120)
+                check(cli.returncode == 0,
+                      f"{tag}: the audit CLI exited {cli.returncode}: "
+                      f"{cli.stdout[-300:]} {cli.stderr[-300:]}")
+                report = cli.stdout.strip().splitlines()[-1]
+            rates[on].append(FRONT_EVENTS / r["wall"])
+            launches += r["launches"]
+            steps += r["steps"]
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+    runs.append(dict(launches=launches, steps=steps))
+
+    def spread(xs):
+        return (f"{', '.join(f'{x:.0f}' for x in xs)} (mean "
+                f"{np.mean(xs):.0f}, spread {(max(xs) - min(xs)) / np.mean(xs):.3f})")
+    print(f"audit and telemetry (8c) at geometry (a) on {card}: the (6a) "
+          f"record ({FRONT_EVENTS} SENDs of {FRONT_BYTES} B, pipeline=2, "
+          f"with a workdir) through ClusterDriver, runs in order on, off, "
+          f"on, off: acked events/s with audit and telemetry on "
+          f"{spread(rates[True])}; both off {spread(rates[False])}; every "
+          f"event acked once with status 0 in submit order, ledger clean, "
+          f"device_committed_entries_total equal to the commits, audit "
+          f"artifact under the workdir, CLI: {report}", flush=True)
+    return runs
+
+
 class Phase:
     """Prints ``phase N start`` (flushed) on entry and the phase's wall
     time on exit, so a failure names its phase."""
@@ -1649,13 +2040,16 @@ def main() -> int:
                      for g in GEOMETRIES]
     with Phase(5, "times"):
         times = phase_kernel_times(dev, smi)
-        phase_times(dev, smi)
+        kernels_per_step, step_prof = phase_times(dev, smi)
     with Phase(6, "the front door (6a driver, 6b apps)"):
         main_runs.append(phase_front_driver(dev, smi))
         main_runs.append(phase_front_apps(dev, smi))
     with Phase(7, "recovery (7a engine, 7b driver and apps)"):
         main_runs.append(phase_recovery_engine(dev, smi))
         main_runs.append(phase_recovery_apps(dev, smi))
+    with Phase(8, "audit and telemetry (8a engine, 8b corruption, "
+                  "8c driver)"):
+        main_runs += phase_audit(dev, smi, kernels_per_step, step_prof)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

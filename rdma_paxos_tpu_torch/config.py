@@ -30,6 +30,13 @@ REBASE_STALL_STEPS = 25
 
 MAX_SERVER_COUNT = 13   # reference src/include/dare/dare.h:26
 
+# Layout version of the audit digest fold (``consensus/step.py:
+# digest_fold``: which columns are folded, in what order, with what
+# mixer). Digests from different layouts are incomparable, not unequal:
+# the audit ledger stamps it into every window, dump and snapshot and
+# refuses cross-epoch comparison. Bump on any change to the fold.
+DIGEST_EPOCH = 1
+
 
 @dataclasses.dataclass(frozen=True)
 class LogConfig:

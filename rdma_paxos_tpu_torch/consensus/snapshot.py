@@ -16,12 +16,16 @@ takes over from there. The install is an in-place update of the batched
 state on its own device: the replica's ring row is wiped where it lies
 (80 MiB at the reference's log size), and the scalar fields are written
 by indexing; the only host reads are :func:`take_snapshot`'s determinant
-elements and :func:`recover_vote`'s vote records.
+elements (and, with ``digests=True``, the donor's committed rows) and
+:func:`recover_vote`'s vote records.
 
-Not ported yet: the audit digest chain (``verify_snapshot`` and
-``obs/audit.py``; ROADMAP Queue 1, item 9) and the group axis (item 11).
-``take_snapshot(digests=True)``, ``install_snapshot(ledger=...)`` and
-``group=`` raise ``NotImplementedError``.
+The audit chain binds a snapshot to the ledger: ``take_snapshot(
+digests=True)`` digests the donor's physically present committed prefix
+on the host with the step's fold (``consensus/step.py:digest_fold_np``),
+and ``install_snapshot(ledger=...)`` runs :func:`verify_snapshot` before
+it touches any state, refusing a donor that contradicts the ledger's
+majority digests. Not ported yet: the group axis (ROADMAP Queue 1, item
+12); ``group=`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,28 +36,29 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rdma_paxos_tpu_torch.config import DIGEST_EPOCH
 from rdma_paxos_tpu_torch.consensus.log import (
     EntryType, M_GIDX, M_TERM, M_TYPE, META_W)
 from rdma_paxos_tpu_torch.consensus.state import (
     STATE_FIELDS, U32_FIELDS, U32_MASK, ConfigState, ReplicaState, Role)
+from rdma_paxos_tpu_torch.consensus.step import digest_fold_np
 from rdma_paxos_tpu_torch.obs import trace as obs_trace
 from rdma_paxos_tpu_torch.obs.metrics import default_registry
 from rdma_paxos_tpu_torch.obs.trace import default_ring
 
-DIGESTS_LATER = ("the audit digest chain is not ported yet "
-                 "(ROADMAP Queue 1, item 9)")
 GROUPS_LATER = ("the group axis (sharded [G, R] state) is not ported yet "
-                "(ROADMAP Queue 1, item 11)")
+                "(ROADMAP Queue 1, item 12)")
 
 
 class SnapshotVerifyError(RuntimeError):
     """The snapshot's digest chain contradicts the audit ledger's
-    majority digests: the DONOR is corrupted (or unverifiable)."""
+    majority digests: the DONOR is corrupted (or unverifiable). Raised
+    by :func:`install_snapshot` before any state is touched."""
 
 
 class SnapshotEpochError(SnapshotVerifyError):
     """The snapshot's digests were computed under a different digest
-    LAYOUT: incomparable, not unequal."""
+    LAYOUT (``config.DIGEST_EPOCH``): incomparable, not unequal."""
 
 
 def _row_idx(group, r):
@@ -73,8 +78,13 @@ class Snapshot:
     CONFIG entry has ``gidx >= commit >= apply = index``, so the
     recovered replica re-absorbs it through window replication if it
     survives, and must not inherit it if it is truncated cluster-wide.
-    ``bitmask_*`` are unsigned (u32) values. The audit-chain fields
-    stay at their defaults until the digest chain is ported (item 9)."""
+    ``bitmask_*`` are unsigned (u32) values.
+
+    ``digest_epoch``/``audit_start``/``audit_digests`` are the audit
+    chain position (``take_snapshot(digests=True)``): one u32 digest per
+    physically present committed entry ``[audit_start, audit_start +
+    len)`` in ABSOLUTE indices, with the fold of the step's audit
+    windows; 0, -1 and None otherwise."""
 
     index: int            # last applied entry index + 1 (= donor apply)
     term: int             # term of entry index-1 (prev-check anchor)
@@ -100,18 +110,22 @@ def take_snapshot(state_b: ReplicaState, donor: int,
     apply counter when ``store_blob`` was produced by the host (the
     device-side ``apply`` can lag it by one step's echo). The
     determinant term is ONE element of the fused ring,
-    ``buf[donor, slot, slot_words + M_TERM]``: the ring never travels
-    to the host. ``rebased_total`` only places a digest chain, which
-    this port does not build yet."""
-    if digests:
-        raise NotImplementedError("take_snapshot(digests=True): "
-                                  + DIGESTS_LATER)
+    ``buf[donor, slot, slot_words + M_TERM]``: without ``digests`` the
+    ring never travels to the host.
+
+    ``digests=True`` folds the donor's audit chain position into the
+    snapshot: the rows of its physically present committed prefix
+    ``[head, index)`` come to the host in one transfer and are digested
+    there with the step's fold, stamped in ABSOLUTE indices
+    (``rebased_total`` added) with ``config.DIGEST_EPOCH``. Entries whose
+    stamped gidx disagrees with the expected index (a recycled slot)
+    truncate the chain from below."""
     idx = _row_idx(group, donor)
     log = state_b.log
     if index is None:
         index = int(state_b.apply[idx])
     index = int(index)
-    # one transfer for the committed-config checkpoint and the
+    # one transfer for the committed-config checkpoint, the head and the
     # determinant term (the anchor slot is read even when index is 0;
     # the term is then 0)
     slot = (max(index, 1) - 1) & (log.n_slots - 1)
@@ -119,12 +133,32 @@ def take_snapshot(state_b: ReplicaState, donor: int,
         log.buf[idx + (slot, log.slot_words + M_TERM)].long(),
         state_b.ccfg_epoch[idx].long(), state_b.ccfg_old[idx].long(),
         state_b.ccfg_new[idx].long(), state_b.ccfg_cid[idx].long(),
+        state_b.head[idx].long(),
     ]).tolist()
-    term, epoch, bm_old, bm_new, cid = vals
+    term, epoch, bm_old, bm_new, cid, head = vals
+    digest_epoch, a_start, a_dig = 0, -1, None
+    if digests:
+        lo = max(head, 0)
+        g = torch.arange(lo, max(index, lo), device=log.buf.device)
+        rows = log.buf[idx][g & (log.n_slots - 1)].cpu().numpy()
+        sw = log.slot_words
+        good = rows[:, sw + M_GIDX] == np.arange(lo, lo + len(rows))
+        # truncate from below past any recycled slot: the chain must be
+        # contiguous up to the determinant
+        first_good = (len(good) - int(np.argmin(good[::-1]))
+                      if good.size and not good.all() else 0)
+        rows = rows[first_good:]
+        lo += first_good
+        digest_epoch = DIGEST_EPOCH
+        a_start = lo + int(rebased_total)
+        a_dig = (digest_fold_np(rows) if len(rows)
+                 else np.zeros(0, np.uint32))
     snap = Snapshot(index=index, term=term if index > 0 else 0,
                     store_blob=store_blob, epoch=epoch,
                     bitmask_old=bm_old & U32_MASK,
-                    bitmask_new=bm_new & U32_MASK, cid_state=cid)
+                    bitmask_new=bm_new & U32_MASK, cid_state=cid,
+                    digest_epoch=digest_epoch, audit_start=a_start,
+                    audit_digests=a_dig)
     default_registry().inc("snapshots_taken_total")
     default_ring().record(obs_trace.SNAPSHOT_TAKEN, replica=donor,
                           index=snap.index, term=snap.term,
@@ -189,6 +223,56 @@ def recover_vote(state_b: ReplicaState, r: int, peers=None, *,
     return int(both[0, i]), int(both[1, i])
 
 
+def verify_snapshot(snap: Snapshot, ledger, *, group: int = 0,
+                    min_verified: int = 1) -> int:
+    """Check ``snap``'s digest chain against ``ledger``'s MAJORITY-held
+    digests (``obs/audit.py:AuditLedger``): every snapshot index the
+    ledger retains with a replica-majority mask must carry the identical
+    digest. Returns the number of verified indices; raises
+    :class:`SnapshotVerifyError` on any contradiction (the donor is
+    corrupted) or when fewer than ``min_verified`` indices could be
+    checked (an unverifiable donor is refused, not trusted), and
+    :class:`SnapshotEpochError` on a digest-layout mismatch. Indices the
+    ledger holds with only minority backing are skipped: a first report
+    may have come from the diverged minority itself."""
+    if snap.audit_digests is None or snap.audit_start < 0:
+        raise SnapshotVerifyError(
+            "snapshot carries no digest chain (take_snapshot("
+            "digests=True) required for a verified install)")
+    if snap.digest_epoch != ledger.digest_epoch:
+        raise SnapshotEpochError(
+            "snapshot digest epoch %d vs ledger epoch %d: layouts are "
+            "incomparable — finish the rolling digest upgrade first"
+            % (snap.digest_epoch, ledger.digest_epoch))
+    maj = ledger.majority
+    verified = 0
+    chain = np.asarray(snap.audit_digests)
+    # one bulk ledger read for the whole chain (per-index locking would
+    # contend with the readback thread for the whole walk)
+    entries = ledger.digest_range(group, snap.audit_start,
+                                  snap.audit_start + len(chain))
+    for i, (d, ent) in enumerate(zip(chain, entries)):
+        if ent is None:
+            continue
+        _t, dd, mask = ent
+        if bin(mask).count("1") < maj:
+            continue
+        if int(d) != dd:
+            raise SnapshotVerifyError(
+                "donor digest 0x%08x contradicts the ledger majority "
+                "0x%08x at absolute index %d (group %d): corrupted "
+                "donor rejected at install time"
+                % (int(d), dd, snap.audit_start + i, group))
+        verified += 1
+    if verified < int(min_verified):
+        raise SnapshotVerifyError(
+            "only %d of the snapshot's %d chain indices are "
+            "majority-covered by the ledger (need >= %d): donor is "
+            "unverifiable" % (verified, len(snap.audit_digests),
+                              min_verified))
+    return verified
+
+
 def install_snapshot(state_b: ReplicaState, r: int, snap: Snapshot, *,
                      voted_term: int = 0, voted_for: int = -1,
                      cur_term: int = 0, group: Optional[int] = None,
@@ -204,14 +288,17 @@ def install_snapshot(state_b: ReplicaState, r: int, snap: Snapshot, *,
     the current term is floored at the snapshot term and the recovered
     vote term, so a recovered replica never re-grants a vote it cast.
 
+    ``ledger`` (an ``AuditLedger``) makes the install DIGEST-VERIFIED:
+    :func:`verify_snapshot` runs first, and a contradicting (corrupted)
+    or unverifiable donor raises before any state is touched.
+
     A member mask with bit 31 installs as its u32 bit pattern (the JAX
     package's install raises ``OverflowError`` on such a mask)."""
-    if ledger is not None:
-        raise NotImplementedError(
-            "install_snapshot(ledger=...): the digest-verified install "
-            "needs the audit chain and the repair pipeline (ROADMAP "
-            "Queue 1, items 9 and 12)")
     idx = _row_idx(group, r)
+    if ledger is not None:
+        lg = group if ledger_group is None else ledger_group
+        verify_snapshot(snap, ledger, group=(lg or 0),
+                        min_verified=min_verified)
     eff_term = max(int(snap.term), int(cur_term), int(voted_term))
     out = _install(state_b, idx, int(snap.index), int(snap.term),
                    eff_term, int(voted_term), int(voted_for),

@@ -18,6 +18,14 @@ committed-config checkpoint. F and G's commit-crossing window search
 are one call, ``ops/quorum.py:commit_window`` (one CUDA kernel that
 reads the ring in place on the card).
 
+Two optional variants add outputs and change nothing else:
+``audit=True`` emits the digest chain of the committed window (one u32
+:func:`digest_fold` checksum per entry of ``[commit - W, commit)``, read
+by ``obs/audit.py``), and ``telemetry=True`` the ``[R, T_N]`` device
+counter vector (read by ``obs/device.py``). With both off the step
+launches exactly what it launched before they existed, and the optional
+``StepOutput`` fields are None.
+
 The state is updated in place (the JAX step donates it) and returned.
 The step never synchronises with the host: every decision is a tensor
 select, so it queues on the card without stalls. The CONFIG full-ring
@@ -29,8 +37,9 @@ without a host round trip.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from rdma_paxos_tpu_torch.consensus.log import (
@@ -44,6 +53,13 @@ from rdma_paxos_tpu_torch.ops.quorum import (
 
 I32 = torch.int32
 I32_MAX = (1 << 31) - 1
+
+# telemetry counter-vector columns (``telemetry=True`` steps emit one
+# u32 vector per replica per step; the host consumer is obs/device.py,
+# which mirrors this layout and is not imported here). Counters are
+# per-step counts the host accumulates; the last two are gauges.
+(T_ELECTIONS, T_VOTES_GRANTED, T_VOTES_DENIED, T_ACCEPTED,
+ T_COMMITTED, T_UNHEARD, T_QUORUM_W, T_HEADROOM, T_N) = range(9)
 
 # control-gather columns
 (C_TERM, C_ROLE, C_END, C_COMMIT, C_LTERM, C_APPLY, C_TMO,
@@ -86,9 +102,22 @@ class StepOutput:
     leadership_verified: torch.Tensor
     burst_hint: torch.Tensor
     rebase_delta: torch.Tensor
+    # audit=True only: the first digested index [R] i32, and per entry
+    # of the window [commit - W, commit) its digest (the u32 as its i32
+    # bit pattern) and term, [R, W] each
+    audit_start: Optional[torch.Tensor] = None
+    audit_digest: Optional[torch.Tensor] = None
+    audit_term: Optional[torch.Tensor] = None
+    # telemetry=True only: [R, T_N] counter vector (u32 as i32 bits)
+    telemetry: Optional[torch.Tensor] = None
 
 
-OUTPUT_FIELDS = tuple(f.name for f in dataclasses.fields(StepOutput))
+# the fields every step emits, and those only a variant's step emits
+# (None otherwise)
+OUTPUT_FIELDS = tuple(f.name for f in dataclasses.fields(StepOutput)
+                      if f.default is dataclasses.MISSING)
+VARIANT_FIELDS = tuple(f.name for f in dataclasses.fields(StepOutput)
+                       if f.default is None)
 
 
 def make_step_input(cfg, n_replicas: int, *, device) -> StepInput:
@@ -126,6 +155,108 @@ def _pick(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return t[r, torch.clamp(idx, min=0).long()]
 
 
+# the audit fold's constants (FNV-1a prime and offset basis, then a
+# murmur3-style finalizer); every one is below 2**32, and the multipliers
+# below 2**30, so a u32 times one of them fits in int64
+FNV_PRIME = 0x01000193
+FNV_BASIS = 0x811C9DC5
+FIN_MUL1 = 0x2C1B3C6D
+FIN_MUL2 = 0x297A2D39
+
+_FOLD_WEIGHTS: dict = {}
+
+
+def _fold_weights(n_cols: int, device) -> Tuple[torch.Tensor, torch.Tensor,
+                                                int]:
+    """The fold's per-column weights ``p**(n-1-k) mod 2**32`` split in
+    16-bit halves (``[n_cols]`` int64 each, 0 on the gidx column) and
+    the basis term ``basis * p**n mod 2**32``, ``n`` folded columns.
+    Cached per width and device, so a step copies nothing to the card."""
+    key = (n_cols, str(device))
+    w = _FOLD_WEIGHTS.get(key)
+    if w is None:
+        gidx_col = n_cols - META_W + M_GIDX
+        cols = [c for c in range(n_cols) if c != gidx_col]
+        n = len(cols)
+        pw = np.zeros(n_cols, np.int64)
+        for j, c in enumerate(cols):
+            pw[c] = pow(FNV_PRIME, n - 1 - j, 1 << 32)
+        lo = torch.from_numpy(pw & 0xFFFF).to(device)
+        hi = torch.from_numpy(pw >> 16).to(device)
+        w = (lo, hi, FNV_BASIS * pow(FNV_PRIME, n, 1 << 32) % (1 << 32))
+        _FOLD_WEIGHTS[key] = w
+    return w
+
+
+def digest_fold(rows: torch.Tensor) -> torch.Tensor:
+    """The audit digest of fused slot rows ``[..., slot_words + META_W]``
+    (i32 bit patterns): an FNV-1a mul-add over every column except
+    M_GIDX (the i32 rollover rewrites gidx in place; position binding
+    comes from the ledger's absolute index), then a murmur3-style
+    finalizer so a low-order flip diffuses. Returns the u32 digests in
+    int64, ``[...]``.
+
+    Bit-equal to the JAX ``digest_fold`` (and :func:`digest_fold_np`),
+    whose column loop is ``acc = acc * p + c`` mod 2**32. Unrolled, the
+    accumulator before the finalizer is ``basis * p**n + sum_k c_k *
+    p**(n-1-k)`` mod 2**32. With each power split as ``P = Ph * 2**16 +
+    Pl``, ``c * P mod 2**32 = c * Pl + ((c * Ph) mod 2**16) * 2**16``:
+    the ``c * Pl`` terms (< 2**48 each) and the shifted high halves
+    (< 2**32 each) sum exactly in int64, so the whole row folds in a
+    handful of launches instead of three per column. The layout version
+    is ``config.DIGEST_EPOCH``; bump it whenever this fold changes."""
+    lo_w, hi_w, base = _fold_weights(rows.shape[-1], rows.device)
+    u = rows.to(torch.int64) & U32_MASK
+    acc = ((u * lo_w).sum(-1) + (((u * hi_w) & 0xFFFF) << 16).sum(-1)
+           + base) & U32_MASK
+    acc = acc ^ (acc >> 15)
+    acc = (acc * FIN_MUL1) & U32_MASK
+    acc = acc ^ (acc >> 12)
+    acc = (acc * FIN_MUL2) & U32_MASK
+    return acc ^ (acc >> 15)
+
+
+def digest_fold_np(rows: np.ndarray) -> np.ndarray:
+    """The host form of :func:`digest_fold`: the reference's column
+    loop in numpy u32 arithmetic (``rows [N, slot_words + META_W]``, any
+    integer dtype, taken as u32 bit patterns) -> ``[N]`` u32. Used by
+    :func:`~rdma_paxos_tpu_torch.consensus.snapshot.take_snapshot` for
+    a snapshot's digest chain, and by the tests as an independent check
+    of the device form."""
+    rows = np.asarray(rows).astype(np.uint32)
+    u32 = np.uint32
+    acc = np.full((rows.shape[0],), FNV_BASIS, u32)
+    gidx_col = rows.shape[1] - META_W + M_GIDX
+    for c in range(rows.shape[1]):
+        if c != gidx_col:
+            acc = acc * u32(FNV_PRIME) + rows[:, c]
+    acc = acc ^ (acc >> u32(15))
+    acc = acc * u32(FIN_MUL1)
+    acc = acc ^ (acc >> u32(12))
+    acc = acc * u32(FIN_MUL2)
+    return acc ^ (acc >> u32(15))
+
+
+def build_redigest(cfg, *, window_slots: int):
+    """``fn(buf_row, start) -> (digests, terms, gidx)``: the audit fold
+    over ``[start, start + window_slots)`` of ONE replica's fused ring
+    row ``[n_slots, cols]`` — the backfill pass that returns a range to
+    audited coverage after a re-install. Exactly the ``audit=`` window
+    fold, so backfilled digests compare with live windows. All three
+    results are ``[window_slots]`` i32 (the digests as u32 bit
+    patterns); the caller checks the stamped gidx column against the
+    expected indices and clips to the committed range."""
+    W = int(window_slots)
+    sw = cfg.slot_words
+
+    def fn(buf_row: torch.Tensor, start: int):
+        g = int(start) + torch.arange(W, dtype=I32, device=buf_row.device)
+        rows = buf_row[slot_of(g, cfg.n_slots).long()]
+        return (digest_fold(rows).to(I32), rows[:, sw + M_TERM],
+                rows[:, sw + M_GIDX])
+    return fn
+
+
 def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
                  n_replicas: int, fanout: str = "gather",
                  elections: bool = True, audit: bool = False,
@@ -137,10 +268,13 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     receiver (split-brain safe under partitions); ``"psum"`` sums the
     leader windows over senders, sound only under full connectivity.
     ``elections=False`` is the stable step: Phase B removed, identical
-    results whenever no election timer fired."""
-    if audit or telemetry or txn:
+    results whenever no election timer fired. ``audit=`` and
+    ``telemetry=`` add their optional outputs (see the module
+    docstring); the ``txn=`` lane comes with ROADMAP Queue 1, item 13."""
+    if txn:
         raise NotImplementedError(
-            "the audit=, telemetry= and txn= step variants are not ported")
+            "the txn= step variant is not ported (ROADMAP Queue 1, "
+            "item 13)")
     if fanout not in ("gather", "psum"):
         raise ValueError(f"unknown fanout {fanout!r}")
     R, W = n_replicas, cfg.window_slots
@@ -430,6 +564,42 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     promote = (cfg_src2 >= 0) & (cfg_src2 < commit2) & (epoch2 > cc1_epoch)
 
     pa = peer_acked.to(I32)
+
+    # ---- audit: one digest per entry of [commit2 - W, commit2) ----
+    # Commit advances at most W per step, so consecutive windows tile
+    # the committed prefix, and each entry is re-digested while it stays
+    # in the window (the ledger re-checks a replica's own reports, which
+    # catches post-commit corruption). Entries below head are masked:
+    # their slots may be recycled. Gathered from the ring as this step
+    # leaves it, before the next step appends in place.
+    audit_start = audit_digest = audit_term = None
+    if audit:
+        a_g = (commit2 - W)[:, None] + torch.arange(W, dtype=I32, device=dev)
+        audit_start = torch.clamp(torch.maximum(commit2 - W, head2),
+                                  min=0).to(I32)
+        a_valid = a_g >= audit_start[:, None]
+        a_rows = gather_rows(log3.buf, a_g)                # [R, W, cols]
+        audit_digest = torch.where(a_valid, digest_fold(a_rows).to(I32), 0)
+        audit_term = torch.where(a_valid, a_rows[..., sw + M_TERM], 0)
+
+    # ---- telemetry: the [R, T_N] counter vector, from scalars the step
+    # already holds (no ring reads) ----
+    telemetry_vec = None
+    if telemetry:
+        if elections:
+            t_elec = i_cand.to(I32)
+            # granted: voted for ANOTHER replica's candidacy; denied:
+            # heard candidacies (own excluded) that did not get the vote
+            t_grant = (vote_cast & (my_vote != me)).to(I32)
+            n_cand = (is_cand & heard).to(I32).sum(1)
+            t_deny = torch.clamp(n_cand - t_elec - t_grant, min=0)
+        else:
+            t_elec = t_grant = t_deny = torch.zeros(R, dtype=I32, device=dev)
+        telemetry_vec = torch.stack([c.to(I32) for c in (
+            t_elec, t_grant, t_deny, end2 - end1, commit2 - state.commit,
+            R - heard.sum(1), pa.sum(1),
+            (cfg.n_slots - 1) - (end3 - head2))], 1)
+
     new_state = ReplicaState(
         log=log3, term=new_term2, role=role2, leader_id=leader_id2,
         voted_term=new_voted_term, voted_for=new_voted_for,
@@ -464,6 +634,8 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
         rebase_delta=torch.where(
             max_end >= cfg.rebase_threshold,
             torch.clamp(min_head & ~(cfg.n_slots - 1), min=0), 0).to(I32),
+        audit_start=audit_start, audit_digest=audit_digest,
+        audit_term=audit_term, telemetry=telemetry_vec,
     )
     return new_state, out
 
@@ -488,12 +660,18 @@ def scan_scalars(out: StepOutput, accepted_total: torch.Tensor
 
 def scan_readback(out: StepOutput, accepted_total: torch.Tensor, *,
                   audit: bool = False, telemetry: bool = False) -> dict:
-    """One scan step's readback dict: the scalar matrix + ``peer_acked``."""
-    if audit or telemetry:
-        raise NotImplementedError(
-            "the audit= and telemetry= scan readbacks are not ported")
-    return dict(scal=scan_scalars(out, accepted_total),
-                peer_acked=out.peer_acked)
+    """One scan step's readback dict: the scalar matrix + ``peer_acked``,
+    plus the step's audit windows (with its commit as ``audit_commit``)
+    and telemetry vector only when those variants are on."""
+    ys = dict(scal=scan_scalars(out, accepted_total),
+              peer_acked=out.peer_acked)
+    if audit:
+        ys.update(audit_start=out.audit_start,
+                  audit_digest=out.audit_digest,
+                  audit_term=out.audit_term, audit_commit=out.commit)
+    if telemetry:
+        ys["telemetry"] = out.telemetry
+    return ys
 
 
 def fetch_window(log, start: torch.Tensor, *, window_slots: int):

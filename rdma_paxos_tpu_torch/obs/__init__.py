@@ -11,11 +11,16 @@ driver reads, all host-side and stdlib-only:
   the step-phase profiler (the Chrome-trace export and its CLI are not
   copied yet);
 * :mod:`~rdma_paxos_tpu_torch.obs.clock` — the ``(monotonic, wall)``
-  anchor every dump is stamped with.
+  anchor every dump is stamped with;
+* :mod:`~rdma_paxos_tpu_torch.obs.audit` — the audit ledger, flight
+  recorder, artifacts and first-divergence CLI of the ``audit=`` step
+  variant;
+* :mod:`~rdma_paxos_tpu_torch.obs.device` — the counter half of the
+  device telemetry (the ``telemetry=`` step variant's host side).
 
-The facade's ``tracectx`` member and the ``alerts``, ``series``,
-``health``, ``export``, ``audit`` and ``device`` modules of the JAX
-package come with ROADMAP Queue 1, item 12.
+The facade's ``tracectx`` member, the ``alerts``, ``series``,
+``health`` and ``export`` modules and the profiler half of ``device``
+come with ROADMAP Queue 1, item 13.
 
 Nothing here runs inside the replica step.
 """

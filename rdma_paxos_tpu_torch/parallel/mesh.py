@@ -19,7 +19,8 @@ from rdma_paxos_tpu_torch.consensus.log import extract_window
 from rdma_paxos_tpu_torch.consensus.state import (
     ReplicaState, make_replica_state, map_state)
 from rdma_paxos_tpu_torch.consensus.step import (
-    OUTPUT_FIELDS, StepInput, StepOutput, replica_step, scan_readback)
+    OUTPUT_FIELDS, VARIANT_FIELDS, StepInput, StepOutput, replica_step,
+    scan_readback)
 
 
 def stack_states(cfg, n_replicas: int, group_size: int, *, device
@@ -31,8 +32,11 @@ def stack_states(cfg, n_replicas: int, group_size: int, *, device
 
 
 def _stack_outputs(outs) -> StepOutput:
+    """Stack K steps' outputs ``[K, ...]``; a variant's field that is
+    off (None) stays None."""
     return StepOutput(**{k: torch.stack([getattr(o, k) for o in outs])
-                         for k in OUTPUT_FIELDS})
+                         for k in OUTPUT_FIELDS + VARIANT_FIELDS
+                         if getattr(outs[0], k) is not None})
 
 
 def build_sim_step(cfg, n_replicas: int, *, fanout: str = "gather",
@@ -44,8 +48,8 @@ def build_sim_step(cfg, n_replicas: int, *, fanout: str = "gather",
         elections=elections, audit=audit, telemetry=telemetry, txn=txn)
 
 
-def _burst_steps(cfg, n_replicas, fanout, state, datas, metas, counts,
-                 peer_mask, applied, qdepth):
+def _burst_steps(cfg, n_replicas, fanout, audit, telemetry, state, datas,
+                 metas, counts, peer_mask, applied, qdepth):
     """The K stable steps of a burst: no timeouts fire, the host apply
     cursors ``applied`` stay frozen (the host cannot replay mid-burst),
     ``qdepth`` is the backlog remaining beyond the burst."""
@@ -57,7 +61,8 @@ def _burst_steps(cfg, n_replicas, fanout, state, datas, metas, counts,
                         queue_depth=qdepth)
         state, out = replica_step(state, inp, cfg=cfg,
                                   n_replicas=n_replicas, fanout=fanout,
-                                  elections=False)
+                                  elections=False, audit=audit,
+                                  telemetry=telemetry)
         yield state, out
 
 
@@ -66,16 +71,14 @@ def build_sim_burst(cfg, n_replicas: int, *, fanout: str = "gather",
     """K protocol steps in one call: ``burst(state, datas [K,R,B,sw],
     metas [K,R,B,MW], counts [K,R], peer_mask [R,R], applied [R],
     qdepth [R]) -> (state, outs)`` with every output field stacked
-    ``[K, ...]``."""
-    if audit or telemetry:
-        raise NotImplementedError(
-            "the audit= and telemetry= burst variants are not ported")
+    ``[K, ...]`` (the ``audit=``/``telemetry=`` fields of every step
+    too, when on)."""
 
     def burst(state, datas, metas, counts, peer_mask, applied, qdepth):
         outs = []
-        for state, out in _burst_steps(cfg, n_replicas, fanout, state,
-                                       datas, metas, counts, peer_mask,
-                                       applied, qdepth):
+        for state, out in _burst_steps(cfg, n_replicas, fanout, audit,
+                                       telemetry, state, datas, metas,
+                                       counts, peer_mask, applied, qdepth):
             outs.append(out)
         return state, _stack_outputs(outs)
     return burst
@@ -88,19 +91,18 @@ def build_sim_scan(cfg, n_replicas: int, *, replay_slots: int,
     readback — ``scal [K, R, len(SCAN_KEYS)]`` (``accepted``
     cumulative), ``peer_acked [K, R, R]`` and ``replay_slots`` rows per
     replica from the PRE-scan apply cursors of the post-scan log
-    (``replay_data``/``replay_meta``)."""
-    if audit or telemetry:
-        raise NotImplementedError(
-            "the audit= and telemetry= scan variants are not ported")
+    (``replay_data``/``replay_meta``), plus every step's audit windows
+    and telemetry vectors ``[K, ...]`` when those variants are on."""
 
     def scan(state, datas, metas, counts, peer_mask, applied, qdepth):
         acc = torch.zeros_like(applied)
         ys = []
-        for state, out in _burst_steps(cfg, n_replicas, fanout, state,
-                                       datas, metas, counts, peer_mask,
-                                       applied, qdepth):
+        for state, out in _burst_steps(cfg, n_replicas, fanout, audit,
+                                       telemetry, state, datas, metas,
+                                       counts, peer_mask, applied, qdepth):
             acc = acc + out.accepted
-            ys.append(scan_readback(out, acc))
+            ys.append(scan_readback(out, acc, audit=audit,
+                                    telemetry=telemetry))
         res = {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
         res["replay_data"], res["replay_meta"] = extract_window(
             state.log, applied, replay_slots)

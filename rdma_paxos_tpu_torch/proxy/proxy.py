@@ -298,8 +298,12 @@ class ReplayEngine:
         # once would reset the connection whenever an app response is
         # still unread here, and the reset discards the replayed input
         # the app has not read yet (a store replay delivers a whole
-        # session's CONNECT, SENDs and CLOSE back to back).
+        # session's CONNECT, SENDs and CLOSE back to back). The wait is
+        # bounded: past HALF_CLOSE_GRACE seconds a socket is released
+        # once the kernel queues show the app read every replayed byte
+        # (an app that ignores EOF never closes its end).
         self.closing: List[socket.socket] = []
+        self._closed_at: Dict[socket.socket, float] = {}
         # local (ephemeral) ports of our replay sockets: the driver uses
         # these to recognize its own replayed connections arriving back
         # through the app's interposition shim
@@ -348,6 +352,7 @@ class ReplayEngine:
                 try:
                     s.shutdown(socket.SHUT_WR)
                     self.closing.append(s)
+                    self._closed_at[s] = time.monotonic()
                 except OSError:
                     self._release(s)
 
@@ -393,7 +398,8 @@ class ReplayEngine:
             finally:
                 s.settimeout(None)
         # a half-closed replayed session cannot be probed: the app's
-        # own close of it proves it consumed every byte
+        # own close of it, or (past the grace) kernel queues that show
+        # every replayed byte read, proves it consumed them
         deadline = time.monotonic() + timeout
         self.drain_responses()
         while self.closing:
@@ -408,6 +414,63 @@ class ReplayEngine:
     # IPv4 table — scanning only /proc/net/tcp silently weakened the
     # barrier there (ADVICE.md #2)
     _PROC_TCP_PATHS = ("/proc/net/tcp", "/proc/net/tcp6")
+
+    # seconds a half-closed replayed session waits for the app's own
+    # close before the kernel-queue check may release it
+    HALF_CLOSE_GRACE = 0.25
+
+    @staticmethod
+    def _send_queue(s: socket.socket) -> Optional[int]:
+        """Our unsent bytes on ``s`` (TIOCOUTQ); None when unknowable."""
+        import fcntl
+        import termios
+        try:
+            return struct.unpack("i", fcntl.ioctl(
+                s.fileno(), termios.TIOCOUTQ, b"\x00" * 4))[0]
+        except OSError:
+            return None
+
+    def _peer_rx_queues(self, ports) -> Optional[Dict[int, int]]:
+        """The app-side receive queue of the peer of each of our replay
+        ``ports`` that has a row in /proc/net/tcp{,6} (local port == the
+        app's, remote == ours; rx_queue is hex field 4 after the colon,
+        the same layout in both tables); None when no table is
+        readable."""
+        app_port = self.addr[1]
+        readable = 0
+        rx: Dict[int, int] = {}
+        for proc in self._PROC_TCP_PATHS:
+            try:
+                with open(proc) as f:
+                    lines = f.readlines()[1:]
+            except OSError:
+                continue         # this table unreadable
+            readable += 1
+            for ln in lines:
+                try:
+                    parts = ln.split()
+                    lport = int(parts[1].split(":")[1], 16)
+                    rport = int(parts[2].split(":")[1], 16)
+                    if lport == app_port and rport in ports:
+                        rx[rport] = max(rx.get(rport, 0),
+                                        int(parts[4].split(":")[1], 16))
+                except (IndexError, ValueError):
+                    continue     # garbled row: not a verification
+        return rx if readable else None
+
+    def _consumed(self, socks) -> set:
+        """The half-closed ``socks`` whose replayed bytes the app has
+        read: our send queue and the app's receive queue both verified
+        empty (an unknowable queue is not empty)."""
+        ports = {}
+        for s in socks:
+            try:
+                if self._send_queue(s) == 0:
+                    ports[s.getsockname()[1]] = s
+            except OSError:
+                pass
+        rx = self._peer_rx_queues(ports) if ports else None
+        return {ports[p] for p, q in (rx or {}).items() if q == 0}
 
     def _quiesce_unknown(self, reason: str) -> None:
         """The kernel-queue barrier could not be VERIFIED (unreadable
@@ -455,16 +518,13 @@ class ReplayEngine:
         barrier is visible, and a returned False makes the caller
         abort the checkpoint instead of compacting records the
         checkpoint may not cover."""
-        import fcntl
-        import struct
-        import termios
         import time as _time
         deadline = _time.monotonic() + timeout
-        app_port = self.addr[1]
         quiet = 0
         while True:
             # half-closed replayed sessions are consumed once the app
-            # closes its end (drain_responses releases them then)
+            # closes its end or, past the grace, reads every byte
+            # (drain_responses releases them then)
             self.drain_responses()
             busy = bool(self.closing)
             sendq_verified = True
@@ -472,11 +532,8 @@ class ReplayEngine:
             n_conns = 0
             for s in ([] if busy else list(self.conns.values())):
                 n_conns += 1
-                try:
-                    out = struct.unpack(
-                        "i", fcntl.ioctl(s.fileno(), termios.TIOCOUTQ,
-                                         b"\x00" * 4))[0]
-                except OSError:
+                out = self._send_queue(s)
+                if out is None:
                     # unknown, NOT empty: fall through to the peer-rx
                     # check, which must then verify this socket
                     sendq_verified = False
@@ -489,48 +546,20 @@ class ReplayEngine:
                 except OSError:
                     pass
             if not busy and n_conns:
-                # peer (app-side) sockets: local == app port, remote ==
-                # one of our replay ports; rx_queue is hex field 4 after
-                # the colon — same field layout in tcp and tcp6 (the
-                # address is longer, the :port suffix parse is
-                # identical)
-                readable = 0
-                matched = set()
-                for proc in self._PROC_TCP_PATHS:
-                    try:
-                        with open(proc) as f:
-                            lines = f.readlines()[1:]
-                    except OSError:
-                        continue     # this table unreadable
-                    readable += 1
-                    for ln in lines:
-                        try:
-                            parts = ln.split()
-                            lport = int(parts[1].split(":")[1], 16)
-                            rport = int(parts[2].split(":")[1], 16)
-                            if lport == app_port and rport in ports:
-                                rxq = int(parts[4].split(":")[1], 16)
-                                matched.add(rport)
-                                if rxq:
-                                    busy = True
-                                    break
-                        except (IndexError, ValueError):
-                            continue  # garbled row: not a verification
-                    if busy:
-                        break
-                if readable == 0:
+                rx = self._peer_rx_queues(ports)
+                if rx is None:
                     self._quiesce_unknown(
                         "no readable /proc/net/tcp{,6}")
                     return False
+                busy = any(rx.values())
                 if (not busy and not sendq_verified
-                        and (len(matched) < n_conns
-                             or len(ports) < n_conns)):
+                        and (len(rx) < n_conns or len(ports) < n_conns)):
                     # the send queue was unverifiable AND at least one
                     # replay socket has no visible peer row: nothing
                     # proves its bytes were consumed
                     self._quiesce_unknown(
                         "TIOCOUTQ unsupported and peer rows missing "
-                        f"({len(matched)}/{n_conns} verified)")
+                        f"({len(rx)}/{n_conns} verified)")
                     return False
             if not busy:
                 quiet += 1
@@ -543,6 +572,7 @@ class ReplayEngine:
             _time.sleep(0.002)
 
     def _release(self, s: socket.socket) -> None:
+        self._closed_at.pop(s, None)
         try:
             self.local_ports.discard(s.getsockname()[1])
         except OSError:
@@ -557,7 +587,10 @@ class ReplayEngine:
         reads them (the reference's follower likewise discards app output
         — only the leader's app talks to real clients). Drain so the app
         never blocks on a full socket buffer, and release each
-        half-closed connection once the app has closed its end."""
+        half-closed connection once the app has closed its end, or once
+        it has been half-closed for ``HALF_CLOSE_GRACE`` seconds and the
+        kernel queues show the app read every replayed byte (our receive
+        side is drained first, so the close resets nothing unread)."""
         for s in self.conns.values():
             s.setblocking(False)
             try:
@@ -579,6 +612,14 @@ class ReplayEngine:
                 still.append(s)
             except OSError:
                 self._release(s)
+        now = time.monotonic()
+        due = [s for s in still
+               if now - self._closed_at.get(s, now) >= self.HALF_CLOSE_GRACE]
+        if due:
+            done = self._consumed(due)
+            for s in done:
+                self._release(s)
+            still = [s for s in still if s not in done]
         self.closing = still
 
     def close(self) -> None:
@@ -589,3 +630,4 @@ class ReplayEngine:
                 pass
         self.conns.clear()
         self.closing = []
+        self._closed_at.clear()

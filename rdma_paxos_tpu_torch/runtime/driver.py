@@ -24,26 +24,32 @@ current stream; the only host sync of a step is ``finish``'s readback.
 Differences from the JAX driver, each failing loudly:
 
 * ``leases`` defaults to False: leader leases and the queued read path
-  (the JAX ``runtime/reads.py``) come with ROADMAP Queue 1, item 12.
+  (the JAX ``runtime/reads.py``) come with ROADMAP Queue 1, item 13.
   ``leases=True`` raises ``NotImplementedError`` and :meth:`read`
   raises the JAX driver's own "built with leases=False" error.
-* ``audit``, ``telemetry``, ``txn``, ``scan``, ``repair``,
-  ``governor``, ``streams``, ``link_model``, ``metrics_port``,
-  ``profile_on_page`` and non-default ``alert_rules`` raise
-  ``NotImplementedError`` when set (items 9-12), as do non-default
-  settings of those subsystems (``health_period``, ``alert_period``,
-  ``series_capacity``, the ``*_opts`` dicts); so do :meth:`health`,
-  :meth:`evaluate_alerts`, :meth:`serve_metrics` and
-  :meth:`start_profile` (item 12). Until then the wall-cadenced
-  observability pass (:meth:`_cadence_observe`: alerts, series,
-  health files) does nothing.
+* ``txn``, ``scan``, ``repair``, ``governor``, ``streams``,
+  ``link_model``, ``metrics_port``, ``profile_on_page`` and non-default
+  ``alert_rules`` raise ``NotImplementedError`` when set (items 11-13),
+  as do non-default settings of those subsystems (``health_period``,
+  ``alert_period``, ``series_capacity``, the ``*_opts`` dicts); so do
+  :meth:`health`, :meth:`evaluate_alerts`, :meth:`serve_metrics` and
+  :meth:`start_profile` (item 13). Until then the wall-cadenced
+  observability pass (:meth:`_cadence_observe`: alerts, series, health
+  files, the alert-triggered audit dump) does nothing.
+* ``audit=True`` and ``telemetry=True`` run as in the JAX driver: the
+  engine's ledger and flight ring (dumped by
+  :meth:`_dump_audit_artifact` into ``audit_artifact``) and its
+  ``device_*`` counter series, ingested on the readback thread. The
+  repair pipeline that acts on a finding comes with item 13.
 * Snapshot recovery (:meth:`recover_replica`, :meth:`reset_app`,
   :meth:`checkpoint_app` with ``app_snapshot=``, and the automatic
-  recovery of a force-pruned replica) runs as in the JAX driver, without
-  the digest-verified install of the repair pipeline:
-  ``_do_recover(ledger=...)`` raises ``NotImplementedError`` (items 9
-  and 12). Each install runs under the engine's host lock with no
-  dispatch in flight.
+  recovery of a force-pruned replica) runs as in the JAX driver;
+  ``_do_recover(ledger=...)`` is the digest-verified install, with no
+  repair controller behind it. Each install runs under the engine's
+  host lock with no dispatch in flight. Unlike the JAX driver,
+  :meth:`recover_replica` and :meth:`reset_app` return only once the
+  fresh app has consumed its replayed history (the checkpoint's
+  barrier), not as soon as it is delivered.
 """
 
 from __future__ import annotations
@@ -85,7 +91,7 @@ from rdma_paxos_tpu_torch.utils.codec import fragment
 CONN_ORIGIN_SHIFT = 24
 
 OBS_LATER = ("alerts, health, the metrics exporter and profiler "
-             "captures are not ported yet (ROADMAP Queue 1, item 12)")
+             "captures are not ported yet (ROADMAP Queue 1, item 13)")
 
 
 def conn_origin(conn_id):
@@ -170,7 +176,7 @@ class ClusterDriver:
                  streams_opts: Optional[Dict] = None,
                  device=None):
         later = [name for name, on in (
-            ("audit", audit), ("telemetry", telemetry), ("txn", txn),
+            ("txn", txn),
             ("scan", scan), ("repair", repair), ("governor", governor),
             ("streams", streams), ("link_model", link_model is not None),
             ("metrics_port", metrics_port is not None),
@@ -188,7 +194,7 @@ class ClusterDriver:
         if later:
             raise NotImplementedError(
                 f"ClusterDriver({', '.join(later)}=...) is not ported yet "
-                "(ROADMAP Queue 1, items 9-12)")
+                "(ROADMAP Queue 1, items 11-13)")
         self.cfg = cfg
         self.sync_period = sync_period
         self._workdir = workdir
@@ -216,16 +222,22 @@ class ClusterDriver:
         self.R = n_replicas
         # fanout="psum" is the production full-connectivity
         # configuration (O(W) fan-out); the default stays "gather" so
-        # partitions can be modeled
+        # partitions can be modeled. audit=True runs the digest-chain
+        # step variants with the engine's ledger and flight ring;
+        # telemetry=True the device-counter variants, ingested on the
+        # readback thread into device_* series
         self.cluster = self._make_cluster(cfg, n_replicas, group_size,
-                                          mode, fanout, device)
+                                          mode, fanout, audit, telemetry,
+                                          device)
         self.cluster.obs = self.obs
         self.cluster.profiler = self._phase_prof
         # the card the engine's state lives on (with its index: a new
         # thread's current device is 0, so each loop thread binds it)
         self._state_device = self.cluster.state.term.device
-        # the repair controller (item 12) is never attached yet
+        # the repair controller (item 13) is never attached yet
         self.repair = None
+        # path of the last audit artifact written (_dump_audit_artifact)
+        self.audit_artifact: Optional[str] = None
         # idle quiescence: when there is no standing backlog, no
         # blocked waiter, no election timer anywhere near due, and no
         # config work, the poll loop SKIPS the device dispatch entirely
@@ -316,11 +328,12 @@ class ClusterDriver:
         self._rb_thread: Optional[threading.Thread] = None
 
     def _make_cluster(self, cfg, n_replicas, group_size, mode, fanout,
-                      device):
+                      audit, telemetry, device):
         """Engine factory: the port's SimCluster on ``device`` (the card
         unless the caller names the CPU)."""
         return SimCluster(cfg, n_replicas, group_size, mode=mode,
-                          fanout=fanout, device=device)
+                          fanout=fanout, audit=audit, telemetry=telemetry,
+                          device=device)
 
     def _bind_device(self) -> None:
         """Make the engine's card the calling thread's current device
@@ -602,7 +615,7 @@ class ClusterDriver:
         # which must itself be healthy (a flagged leader's store is
         # frozen: its snapshot would drop acked writes), and the leader
         # is never the recoveree (it recovers once deposed). No repair
-        # controller owns a replica in this port yet (item 12).
+        # controller owns a replica in this port yet (item 13).
         lead = self._leader_view
         if (self.cluster.need_recovery and lead >= 0
                 and lead not in self.cluster.need_recovery):
@@ -675,7 +688,30 @@ class ClusterDriver:
         observe pass and the idle-quiescence branch. The JAX driver
         evaluates alerts, samples its series, expires profiler captures
         and writes health files here; those come with ROADMAP Queue 1,
-        item 12, and until then this hook does nothing."""
+        item 13, and until then this hook does nothing."""
+
+    def _dump_audit_artifact(self, reason: str) -> Optional[str]:
+        """Write the audit artifact (ledger dump, flight ring, trace and
+        metrics) to ``<workdir>/audit_dump.json`` (a temporary file
+        without a workdir); returns its path, also kept in
+        ``audit_artifact``, or None when the write failed (evidence I/O
+        never kills the data path)."""
+        from rdma_paxos_tpu_torch.obs.audit import write_audit_artifact
+        path = (os.path.join(self._workdir, "audit_dump.json")
+                if self._workdir else None)
+        try:
+            self.audit_artifact = write_audit_artifact(
+                path, reason=reason, ledger=self.cluster.auditor,
+                flight=self.cluster.flight, obs=self.obs,
+                config=dict(n_replicas=self.R,
+                            n_slots=self.cfg.n_slots,
+                            slot_bytes=self.cfg.slot_bytes,
+                            window_slots=self.cfg.window_slots))
+        except OSError:
+            return None
+        self.obs.trace.record(obs_trace.AUDIT_DUMPED, reason=reason,
+                              path=self.audit_artifact)
+        return self.audit_artifact
 
     def evaluate_alerts(self) -> Dict:
         raise NotImplementedError("evaluate_alerts: " + OBS_LATER)
@@ -902,7 +938,8 @@ class ClusterDriver:
         leader): install the consensus determinant and transfer the event
         history into r's stable store (reset first — never duplicated).
         The app instance behind r must be fresh (restarted): its state is
-        rebuilt by replaying the store. Executes inside the poll loop."""
+        rebuilt by replaying the store, and the call returns once the app
+        has consumed it. Executes inside the poll loop."""
         self._admin_request("_recover_req", (r, donor), "recovery",
                             timeout)
 
@@ -910,8 +947,8 @@ class ClusterDriver:
         """Exit mis-speculation quarantine: the operator has restarted
         replica ``r``'s app FRESH; rebuild its state from r's own app
         checkpoint plus committed store (complete — persistence continued
-        while dirty) and resume live replay. Executes inside the poll
-        loop."""
+        while dirty) and resume live replay; returns once the app has
+        consumed that history. Executes inside the poll loop."""
         self._admin_request("_reset_req", (r,), "app reset", timeout)
 
     def checkpoint_app(self, r: int, timeout: float = 60.0) -> None:
@@ -951,17 +988,11 @@ class ClusterDriver:
         if rt.app_dirty:
             raise RuntimeError("cannot checkpoint a dirty app")
         dump_fn = self.app_snapshot[0]
-        probe_fn = (self.app_snapshot[2]
-                    if len(self.app_snapshot) > 2 else None)
         # store[base, n) was DELIVERED to the app's replay sockets, but
-        # delivery is not consumption: barrier first (a protocol probe
-        # per replay connection when the hook has one, else kernel queue
-        # quiescence), or compact(n) could drop records the checkpoint
-        # does not cover
+        # delivery is not consumption: barrier first, or compact(n)
+        # could drop records the checkpoint does not cover
         n = len(rt.store)
-        if probe_fn is not None:
-            rt.replay.barrier(probe_fn)
-        elif not rt.replay.quiesce():
+        if not self._await_replay_consumed(rt):
             raise RuntimeError(
                 "app did not consume its replay stream (quiesce "
                 "timeout); checkpoint aborted to protect compaction")
@@ -975,6 +1006,28 @@ class ClusterDriver:
         rt.log.info_wtime(
             "CHECKPOINT: app state at record %d (%d bytes); store "
             "compacted" % (n, len(blob)))
+
+    def _await_replay_consumed(self, rt: _ReplicaRuntime) -> bool:
+        """Wait until ``rt``'s app has consumed every byte replayed into
+        it: a protocol probe per replay connection when the
+        ``app_snapshot`` hook has one (processed input), else kernel
+        queue quiescence (read input). False when quiescence could not
+        be verified."""
+        probe_fn = (self.app_snapshot[2] if self.app_snapshot is not None
+                    and len(self.app_snapshot) > 2 else None)
+        if probe_fn is not None:
+            rt.replay.barrier(probe_fn)
+            return True
+        return rt.replay.quiesce()
+
+    def _rebuilt_app_ready(self, rt: _ReplicaRuntime, what: str) -> None:
+        """The end of an operator rebuild of a fresh app: return only
+        once the app has consumed its replayed history, so a caller's
+        next request sees the rebuilt state (the JAX driver returns on
+        delivery)."""
+        if not self._await_replay_consumed(rt):
+            rt.log.info_wtime("%s: the app's consumption of its replayed "
+                              "history could not be verified" % what)
 
     def _restore_ckpt(self, rt: _ReplicaRuntime, ckpt) -> None:
         restore_fn = self.app_snapshot[1]
@@ -998,6 +1051,7 @@ class ClusterDriver:
                         "checkpoint to rebuild from" % rt.store.base)
                 self._restore_ckpt(rt, ckpt)
             replay_store_into(rt.store, rt.replay, start=0)
+            self._rebuilt_app_ready(rt, "APP RESET")
         rt.app_dirty = False
         rt.log.info_wtime("APP RESET: rebuilt from committed store")
 
@@ -1007,33 +1061,35 @@ class ClusterDriver:
         """``app_fresh=False`` (the auto-recovery path) replays only the
         DELTA of the donor's history into r's still-running app — the
         app already executed its own store's prefix; a full replay would
-        double-apply non-idempotent commands. ``ledger`` (the repair
-        pipeline's digest-verified transfer) is not ported yet."""
-        if ledger is not None:
-            raise NotImplementedError(
-                "_do_recover(ledger=...): the digest-verified install "
-                "needs the audit chain and the repair pipeline (ROADMAP "
-                "Queue 1, items 9 and 12)")
+        double-apply non-idempotent commands. ``ledger`` (an
+        ``AuditLedger``) makes the transfer DIGEST-VERIFIED: the snapshot
+        carries the donor's audit-chain position and the install refuses
+        a donor contradicting the ledger majority, raising before any
+        state (device, store or app) is touched."""
         donor = self._leader_view if donor is None else donor
         if donor < 0:
             raise RuntimeError("no donor available")
         with self.cluster._host_lock:
             require_drained(self.cluster._tickets, "_do_recover")
-            snap = self._install_donor_snapshot(r, donor)
+            snap = self._install_donor_snapshot(
+                r, donor, ledger=ledger, min_verified=min_verified)
         self._load_donor_history(r, donor, snap, app_fresh)
 
     # holds-lock: cluster._host_lock, with no dispatch in flight
-    def _install_donor_snapshot(self, r: int, donor: int):
+    def _install_donor_snapshot(self, r: int, donor: int, *, ledger=None,
+                                min_verified: int = 1):
         """The device half of a recovery: snapshot the donor, restore r's
-        vote, install. The determinant and vote reads are host syncs,
-        safe only with nothing in flight (the caller holds the engine's
-        host lock, which brackets every dispatch, with no ticket)."""
+        vote, install (digest-verified against ``ledger`` when given).
+        The determinant and vote reads are host syncs, safe only with
+        nothing in flight (the caller holds the engine's host lock,
+        which brackets every dispatch, with no ticket)."""
         drt, rrt = self.runtimes[donor], self.runtimes[r]
         blob = drt.store.dump() if drt.store else b""
         # the blob matches the donor's HOST apply counter; the device
         # apply can lag it by one step's echo — snapshot at the host's
         snap = take_snapshot(self.cluster.state, donor, blob,
                              index=int(self.cluster.applied[donor]),
+                             digests=ledger is not None,
                              rebased_total=self.cluster.rebased_total)
         # election durability: the newest vote among live peers' records
         # (read BEFORE the install wipes r's rows) and r's HardState
@@ -1047,7 +1103,8 @@ class ClusterDriver:
                 vt, vf = hs[1], hs[2]
         self.cluster.state = install_snapshot(
             self.cluster.state, r, snap,
-            voted_term=vt, voted_for=vf, cur_term=cur_term)
+            voted_term=vt, voted_for=vf, cur_term=cur_term,
+            ledger=ledger, min_verified=min_verified)
         self.cluster.applied[r] = snap.index
         rrt.replay_cursor = len(self.cluster.replayed[r])
         # undrained frames predate the snapshot load: appending them to
@@ -1064,6 +1121,11 @@ class ClusterDriver:
         rrt = self.runtimes[r]
         if rrt.store is None or not snap.store_blob:
             return
+        if app_fresh and rrt.replay is not None:
+            # every replay socket of the old engine leads to the app
+            # process the operator replaced
+            rrt.replay.close()
+            rrt.replay = ReplayEngine("127.0.0.1", rrt.app_port)
         old_len = len(rrt.store)
         rrt.store.reset()
         rrt.store.load(snap.store_blob)
@@ -1095,6 +1157,8 @@ class ClusterDriver:
         # already executed — its own old store, a prefix of the donor's
         replay_store_into(rrt.store, rrt.replay,
                           start=0 if app_fresh else old_len)
+        if app_fresh and rrt.replay is not None:
+            self._rebuilt_app_ready(rrt, "RECOVERY")
 
     def _apply_new_entries(self, r: int, rt: _ReplicaRuntime) -> None:
         stream = self.cluster.replayed[r]

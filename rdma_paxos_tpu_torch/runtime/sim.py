@@ -9,15 +9,22 @@ staging pool, requeue of shortfalls, the committed-entry replay with
 its slot-recycling integrity check, the coordinated i32 rebase, and the
 surface the driver reads: ``max_inflight_dispatches``, the ``obs``
 facade (rebase counters and trace events, span stamps) and the
-``profiler`` phase hooks, and :meth:`SimCluster.prewarm`. The JAX
-engine's other attachments (``link_model``, ``leases``, ``reads``,
-``streams``, ``governor``, ``txn``, the ``auditor``/``flight`` pair of
-``audit=`` and ``telemetry=``) come in later slices: they read as None,
-and a dispatch with one attached raises.
+``profiler`` phase hooks, and :meth:`SimCluster.prewarm`.
 
-Every device result a finish needs is read back in ONE transfer, and a
-replay sweep fetches only as many rows as the furthest-behind replica
-decodes.
+``audit=True`` runs the digest-chain step variants and feeds every
+step's windows to an ``obs/audit.py`` ledger (``auditor``), with a
+bounded flight ring of step inputs and outputs (``flight``) and the
+range re-digest (:meth:`SimCluster.redigest`); ``telemetry=True`` runs
+the counter-vector variants and accumulates them in
+``device_counters``. Both are ingested in ``finish`` (the readback
+thread under the pipelined driver), before the rollover. The JAX
+engine's other attachments (``link_model``, ``leases``, ``reads``,
+``streams``, ``governor``, ``txn``) come in later slices: they read as
+None, and a dispatch with one attached raises.
+
+Every device result a finish needs (the audit windows and telemetry
+vectors included) is read back in ONE transfer, and a replay sweep
+fetches only as many rows as the furthest-behind replica decodes.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ from rdma_paxos_tpu_torch.consensus.log import EntryType, M_GIDX, META_W
 from rdma_paxos_tpu_torch.consensus.snapshot import rebase_offsets
 from rdma_paxos_tpu_torch.consensus.state import Role
 from rdma_paxos_tpu_torch.consensus.step import (
-    SCAN_KEYS, StepInput, fetch_window)
+    SCAN_KEYS, StepInput, build_redigest, fetch_window)
+from rdma_paxos_tpu_torch.obs import device as obs_device
 from rdma_paxos_tpu_torch.parallel.mesh import (
     build_sim_burst, build_sim_scan, build_sim_step, stack_states)
 from rdma_paxos_tpu_torch.runtime import hostpath
@@ -54,6 +62,50 @@ def cap_tiers(k_tiers: Sequence[int],
             "not a capped burst")
     return tuple(k for k in k_tiers if k <= int(max_k)) \
         or tuple(k_tiers[:1])
+
+
+def run_redigest(cluster, buf_row, lo: int, hi: int, *, group: int,
+                 rebased_total: int, replica: int) -> int:
+    """Digest the committed entries ``[lo, hi)`` (raw offsets) of one
+    replica's ring row ``buf_row`` and feed them to the cluster's ledger
+    as BACKFILL windows (absolute indices; the ledger's frontier
+    self-check is not consulted for out-of-order history). The stamped
+    gidx column must equal the expected index for every digested entry:
+    a recycled slot means the range is no longer physically present,
+    and backfilling it would fabricate coverage. Returns the number of
+    indices recorded. Needs the dispatches drained (the pass reads the
+    ring an in-flight step writes in place) and ``lo >= head``."""
+    require_drained(cluster._tickets, "redigest")
+    if cluster.auditor is None:
+        raise RuntimeError("redigest requires an audit=True cluster")
+    lo, hi = int(lo), int(hi)
+    if hi <= lo:
+        return 0
+    W = cluster._replay_W
+    fn = build_redigest(cluster.cfg, window_slots=W)
+    done = 0
+    start = lo
+    while start < hi:
+        with cluster._host_lock:
+            out = torch.stack(fn(buf_row, start))
+        dig_trm_gix = out.cpu().numpy()             # one transfer
+        dig = dig_trm_gix[0].view(np.uint32)
+        trm, gix = dig_trm_gix[1], dig_trm_gix[2]
+        n = min(hi - start, W)
+        expect = np.arange(start, start + n, dtype=gix.dtype)
+        if not np.array_equal(gix[:n], expect):
+            bad = int(np.argmax(gix[:n] != expect))
+            raise RuntimeError(
+                "redigest integrity: slot of index %d holds gidx %d "
+                "(recycled past the range) — cannot backfill" %
+                (start + bad, int(gix[bad])))
+        cluster.auditor.record_window(
+            replica, start + rebased_total, dig[:n], trm[:n],
+            start + n + rebased_total, group=group, backfill=True,
+            step=cluster.step_index)
+        done += n
+        start += n
+    return done
 
 
 def require_drained(tickets, site: str) -> None:
@@ -178,15 +230,15 @@ class SimCluster:
                  mode: str = "sim",
                  fanout: str = "gather", stable_fast_path: bool = True,
                  scan: bool = False, device=None,
-                 audit: bool = False, telemetry: bool = False,
-                 txn: bool = False):
-        if audit or telemetry or txn:
+                 audit: bool = False, flight_capacity: int = 64,
+                 telemetry: bool = False, txn: bool = False):
+        if txn:
             raise NotImplementedError(
-                "audit=, telemetry= and txn= clusters are not ported")
+                "txn= clusters are not ported (ROADMAP Queue 1, item 13)")
         if mode == "spmd":
             raise NotImplementedError(
                 "mode='spmd' (one replica per device) is not ported yet "
-                "(ROADMAP Queue 1, item 13)")
+                "(ROADMAP Queue 1, item 14)")
         if mode != "sim":
             raise ValueError(f"unknown mode {mode!r}")
         if fanout not in ("gather", "psum"):
@@ -199,10 +251,28 @@ class SimCluster:
         self.scan_dispatches = 0
         self._fanout = fanout
         self._stable_fast_path = stable_fast_path
+        # the step variants: audit=True adds the digest windows (fed to
+        # the ledger, with a bounded flight ring of dispatches), and
+        # telemetry=True the device counter vectors (accumulated into
+        # device_counters [R, T_N]); both off, the steps are unchanged
+        self._audit = bool(audit)
+        self._telemetry = bool(telemetry)
+        if audit:
+            from rdma_paxos_tpu_torch.obs.audit import (
+                AuditLedger, FlightRecorder)
+            self.auditor = AuditLedger(n_replicas)
+            self.flight = FlightRecorder(flight_capacity)
+        else:
+            self.auditor = None
+            self.flight = None
+        self.device_counters = (obs_device.zeros(n_replicas)
+                                if telemetry else None)
+        variants = dict(audit=self._audit, telemetry=self._telemetry)
         self._steps = {e: build_sim_step(cfg, n_replicas, fanout=fanout,
-                                         elections=e)
+                                         elections=e, **variants)
                        for e in (True, False)}
-        self._burst = build_sim_burst(cfg, n_replicas, fanout=fanout)
+        self._burst = build_sim_burst(cfg, n_replicas, fanout=fanout,
+                                      **variants)
         self._scans: Dict[int, object] = {}
         # guarded-by: _host_lock [writes]
         self.state = stack_states(cfg, n_replicas, self.group_size,
@@ -241,17 +311,15 @@ class SimCluster:
         self.obs = None
         self.profiler = None
         # attachments of later slices (chaos link model, read path,
-        # streams, governor, transactions; audit ledger and flight
-        # recorder): None, as on the JAX engine without them; the
-        # driver refuses the flags that would attach them
+        # streams, governor, transactions): None, as on the JAX engine
+        # without them; the driver refuses the flags that would attach
+        # them
         self.link_model = None
         self.leases = None
         self.reads = None
         self.streams = None
         self.governor = None
         self.txn = None
-        self.auditor = None
-        self.flight = None
 
     # ---------------- client-side API ----------------
 
@@ -398,7 +466,8 @@ class SimCluster:
         if fn is None:
             fn = build_sim_scan(self.cfg, self.R,
                                 replay_slots=self._scan_slots(K),
-                                fanout=self._fanout)
+                                fanout=self._fanout, audit=self._audit,
+                                telemetry=self._telemetry)
             self._scans[K] = fn
         return fn
 
@@ -459,30 +528,57 @@ class SimCluster:
             prof.stop("device_dispatch")
         return ticket
 
-    def _readback(self, ticket: StepTicket) -> Dict[str, np.ndarray]:
-        """The finish's device results in ONE transfer."""
+    def _readback(self, ticket: StepTicket
+                  ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        """The finish's device results in ONE transfer: the result dict
+        (the final step's scalars and ``peer_acked``; ``accepted``
+        summed over a burst) and the variants' per-step arrays
+        (``audit_*`` and ``telemetry``, ``[K, ...]`` for a burst or
+        scan, the step's own otherwise)."""
         out = ticket.out
+        fused = ticket.kind != "step"
         if ticket.kind == "scan":
             mat = torch.cat([out["scal"][-1], out["peer_acked"][-1]], 1)
-            mat = mat.cpu().numpy()
-            ns = len(SCAN_KEYS)
-            res = {k: mat[:, i] for i, k in enumerate(SCAN_KEYS)
-                   if k in self.RES_KEYS}
-            res["peer_acked"] = mat[:, ns:]
-            return res
-        keys = [k for k in self.RES_KEYS
-                if k not in ("accepted", "peer_acked")]
-        if ticket.kind == "burst":
-            cols = [getattr(out, k)[-1] for k in keys]
-            cols.append(out.accepted.sum(0).to(torch.int32))
-            pa = out.peer_acked[-1]
+            names = [k for k in SCAN_KEYS if k in self.RES_KEYS]
+            idx = [SCAN_KEYS.index(k) for k in names]
+            ncols = len(SCAN_KEYS)
+            get = out.__getitem__
         else:
-            cols = [getattr(out, k) for k in keys] + [out.accepted]
-            pa = out.peer_acked
-        mat = torch.cat([torch.stack(cols, 1), pa], 1).cpu().numpy()
-        res = {k: mat[:, i] for i, k in enumerate(keys + ["accepted"])}
-        res["peer_acked"] = mat[:, len(cols):]
-        return res
+            names = [k for k in self.RES_KEYS
+                     if k not in ("accepted", "peer_acked")]
+            if ticket.kind == "burst":
+                cols = [getattr(out, k)[-1] for k in names]
+                cols.append(out.accepted.sum(0).to(torch.int32))
+                pa = out.peer_acked[-1]
+            else:
+                cols = [getattr(out, k) for k in names] + [out.accepted]
+                pa = out.peer_acked
+            names.append("accepted")
+            idx = list(range(len(names)))
+            ncols = len(cols)
+            mat = torch.cat([torch.stack(cols, 1), pa], 1)
+
+            def get(k):
+                return getattr(out, "commit" if k == "audit_commit" else k)
+        extra = []
+        if self._audit:
+            extra += ["audit_start", "audit_digest", "audit_term"]
+            if fused:
+                extra.append("audit_commit")
+        if self._telemetry:
+            extra.append("telemetry")
+        parts = [mat] + [get(k) for k in extra]
+        flat = (torch.cat([t.reshape(-1) for t in parts]) if extra
+                else mat.reshape(-1)).cpu().numpy()
+        arrs, off = [], 0
+        for t in parts:
+            n = t.numel()
+            arrs.append(flat[off:off + n].reshape(tuple(t.shape)))
+            off += n
+        mat = arrs[0]
+        res = {k: mat[:, i] for k, i in zip(names, idx)}
+        res["peer_acked"] = mat[:, ncols:]
+        return res, dict(zip(extra, arrs[1:]))
 
     def finish(self, ticket: StepTicket) -> Dict[str, np.ndarray]:
         """Block on ``ticket``'s outputs and run every post-step host
@@ -495,9 +591,34 @@ class SimCluster:
         if prof is not None:
             prof.sync(out)              # fenced device_sync (opt-in)
             prof.start("quorum_wait")
-        res = self._readback(ticket)
+        res, var = self._readback(ticket)
         if prof is not None:
             prof.stop("quorum_wait")
+        fused = ticket.kind != "step"
+        if self._audit:
+            # ingest BEFORE _maybe_rebase: the windows carry raw
+            # (pre-rollover) offsets, consistent with rebased_total; a
+            # fused dispatch's K windows in order, so they tile the
+            # committed prefix with no gap
+            a_s, a_t = var["audit_start"], var["audit_term"]
+            a_d = var["audit_digest"].view(np.uint32)
+            if fused:
+                a_c = var["audit_commit"]
+                for k in range(a_s.shape[0]):
+                    self._ingest_audit(a_s[k], a_d[k], a_t[k], a_c[k])
+                a_s, a_d, a_t = a_s[-1], a_d[-1], a_t[-1]
+            else:
+                self._ingest_audit(a_s, a_d, a_t, res["commit"])
+            res["audit_start"], res["audit_digest"] = a_s, a_d
+            res["audit_term"] = a_t
+        if self._telemetry:
+            # device counters: a fused dispatch's vectors reduced (sum
+            # counters, last quorum width, min headroom), folded into
+            # the accumulator and exported to an attached registry
+            tv = var["telemetry"].view(np.uint32).astype(np.int64)
+            res["telemetry"] = obs_device.reduce_steps(tv) if fused else tv
+            obs_device.accumulate(self.device_counters, res["telemetry"])
+            obs_device.ingest(self.obs, res["telemetry"])
         with self._host_lock:
             for r in range(self.R):
                 take = ticket.taken[r]
@@ -513,6 +634,9 @@ class SimCluster:
                             if ticket.kind == "scan" else None))
         if prof is not None:
             prof.stop("apply")
+        if self._audit:
+            self._record_flight(res, ticket.taken, ticket.timeouts,
+                                burst_k=ticket.K)
         # the rollover rewrites offsets host-side: never under
         # dispatches still in flight (deferred until the pipeline drains)
         with self._host_lock:
@@ -627,6 +751,10 @@ class SimCluster:
         self.applied -= delta
         for k in ("head", "apply", "commit", "end"):
             res[k] = res[k] - delta
+        # audit_start is an index too (the ledger already ingested the
+        # pre-rollover windows)
+        if "audit_start" in res:
+            res["audit_start"] = res["audit_start"] - delta
         self.rebases += 1
         self.rebased_total += delta
         self.rebase_stall_steps = 0
@@ -636,6 +764,56 @@ class SimCluster:
             self.obs.metrics.inc("rebased_entries_total", delta)
             self.obs.trace.record(_trace.REBASE_APPLIED, delta=delta,
                                   rebases=self.rebases)
+
+    # ---------------- audit (audit=True clusters) ----------------
+
+    def redigest(self, replica: int, lo: int, hi: int) -> int:
+        """Range re-digest backfill of replica ``replica``'s committed
+        entries ``[lo, hi)`` (raw offsets) into the ledger; serial path
+        only (see :func:`run_redigest`)."""
+        return run_redigest(self, self.state.log.buf[replica], lo, hi,
+                            group=0, rebased_total=self.rebased_total,
+                            replica=replica)
+
+    def _ingest_audit(self, starts, digests, terms, commits) -> None:
+        """Feed one step's per-replica digest windows (``[R]`` starts and
+        commits, ``[R, W]`` u32 digests and terms) to the ledger in
+        ABSOLUTE indices (raw + rebased_total: callers run this before
+        the rollover, so the two agree)."""
+        led = self.auditor
+        led.obs = self.obs              # pick up a late-attached facade
+        W = self.cfg.window_slots
+        reb = self.rebased_total
+        s_l, c_l = starts.tolist(), commits.tolist()
+        for r in range(self.R):
+            start, commit = s_l[r], c_l[r]
+            n = commit - start
+            if n <= 0:
+                continue
+            off = start - (commit - W)
+            led.record_window(r, start + reb, digests[r, off:off + n],
+                              terms[r, off:off + n], commit + reb,
+                              step=self.step_index)
+
+    def _record_flight(self, res, taken, timeouts, burst_k: int = 1
+                       ) -> None:
+        """One flight-recorder entry per dispatch: its inputs (the
+        per-replica batches), scalar outputs, host apply cursors and
+        digest heads, in raw offsets with the rebased_total in force,
+        so a dump is self-describing. Converted to plain JSON data only
+        when dumped."""
+        self.flight.record(dict(
+            step=self.step_index, burst_k=burst_k,
+            timeouts=[int(t) for t in timeouts],
+            rebased_total=int(self.rebased_total),
+            inputs=taken,
+            outputs={k: res[k].copy()
+                     for k in ("term", "role", "leader_id", "head",
+                               "apply", "commit", "end", "accepted")},
+            applied=self.applied.copy(),
+            digests=dict(start=res["audit_start"].copy(),
+                         commit=res["commit"].copy(),
+                         window=res["audit_digest"])))
 
     # ---------------- span hooks ----------------
 

@@ -357,7 +357,7 @@ def test_auto_recovery_matches_the_jax_driver(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(audit=True), dict(telemetry=True), dict(txn=True),
+    dict(txn=True),
     dict(scan=True), dict(repair=True), dict(governor=True),
     dict(streams=True), dict(link_model=object()), dict(metrics_port=0),
     dict(profile_on_page=1.0), dict(alert_rules=[]), dict(leases=True),
@@ -368,12 +368,126 @@ def test_later_slices_raise(kw):
         ClusterDriver(LogConfig(**GEO), 3, device="cpu", **kw)
 
 
+@pytest.mark.parametrize("variant", ["audit", "telemetry"])
+def test_variant_drivers_match_jax(variant, tmp_path):
+    """``ClusterDriver(audit=True)`` and ``(telemetry=True)`` (refused
+    before the variants were ported), step-locked against the JAX
+    driver: equal step results (the variant's fields included), ledger
+    dumps and flight rings, or device counters and their ``device_*``
+    series; an audited driver dumps its artifact under the workdir."""
+    from rdma_paxos_tpu.obs import audit as jaudit
+    from rdma_paxos_tpu_torch.obs import audit as taudit
+    jd, td = make_pair(tmp_path, pipeline=0, **{variant: True})
+    s = Lockstep(jd, td, stores=True)
+    try:
+        s.both(lambda d: setattr(d.runtimes[0].timer, "_deadline", 0.0))
+        s.step(2)
+        c1 = (0 << 24) | 1
+        s.event(0, CONNECT, c1)
+        for i in range(30):
+            s.event(0, SEND, c1, b"v%02d" % i)
+        s.step(4)
+        s.both(lambda d: d.cluster.partition([[0, 1], [2]]))
+        s.event(0, SEND, c1, b"partitioned")
+        s.step(2)
+        s.both(lambda d: d.cluster.heal())
+        s.step(3)
+        assert all(t.status == 0 for _, t in s.events)
+        jc, tc = jd.cluster, td.cluster
+        if variant == "audit":
+            jdump, tdump = jc.auditor.dump(), tc.auditor.dump()
+            jdump.pop("anchor")
+            tdump.pop("anchor")
+            assert tdump == jdump and tc.auditor.findings == []
+            jf, tf = jc.flight.dump(), tc.flight.dump()
+            jf.pop("anchor")
+            tf.pop("anchor")
+            assert tf == jf
+            path = td._dump_audit_artifact("test")
+            assert path == str(tmp_path / "t" / "audit_dump.json")
+            assert td.audit_artifact == path
+            assert taudit.main(["report", path]) == 0
+            assert jaudit.main(["report", path]) == 0
+        else:
+            np.testing.assert_array_equal(tc.device_counters,
+                                          jc.device_counters)
+            for r in range(3):
+                for name in ("device_committed_entries_total",
+                             "device_accepted_entries_total",
+                             "device_links_unheard_total",
+                             "device_log_headroom",
+                             "device_quorum_width"):
+                    assert td.obs.metrics.get(name, replica=r) == \
+                        jd.obs.metrics.get(name, replica=r), (name, r)
+            assert td.obs.metrics.get(
+                "device_committed_entries_total", replica=0) == int(
+                tc.last["commit"][0]) + tc.rebased_total
+    finally:
+        jd.stop()
+        td.stop()
+
+
+@pytest.mark.parametrize("part", ["do_recover", "take", "install"])
+def test_digest_verified_recovery_matches_jax(part, tmp_path):
+    """``_do_recover(ledger=)``, ``take_snapshot(digests=True)`` and
+    ``install_snapshot(ledger=)`` on a driver's audited engine (refused
+    before the audit chain was ported) give JAX's snapshots and
+    verdicts: a corrupted donor is refused before any state or store is
+    touched, a clean one installs and the stores and states stay equal
+    to the JAX driver's."""
+    from rdma_paxos_tpu.consensus import snapshot as jsnap
+    from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
+    from tests.test_torch_audit import corrupt
+    jd, td = make_pair(tmp_path, pipeline=0, audit=True)
+    s = Lockstep(jd, td, stores=True)
+    try:
+        s.both(lambda d: d.cluster.run_until_elected(0))
+        s.step()
+        for i in range(40):
+            s.both(lambda d: d.cluster.submit(0, b"a%03d" % i))
+        s.step(6)
+        s.both(lambda d: corrupt(d.cluster, 2,
+                                 int(d.cluster.applied[2]) - 1))
+        s.step()
+        jc, tc = jd.cluster, td.cluster
+        if part == "take":
+            for donor in range(3):
+                kw = dict(index=int(tc.applied[donor]), digests=True,
+                          rebased_total=tc.rebased_total)
+                js = jsnap.take_snapshot(jc.state, donor, **kw)
+                ts = tsnap.take_snapshot(tc.state, donor, **kw)
+                assert ts.audit_start == js.audit_start >= 0
+                np.testing.assert_array_equal(ts.audit_digests,
+                                              js.audit_digests)
+        elif part == "install":
+            for c, mod in ((jc, jsnap), (tc, tsnap)):
+                bad = mod.take_snapshot(c.state, 2, digests=True,
+                                        index=int(c.applied[2]))
+                with pytest.raises(mod.SnapshotVerifyError,
+                                   match="contradicts"):
+                    mod.install_snapshot(c.state, 1, bad, ledger=c.auditor)
+        else:
+            before = replica_state_to_numpy(tc.state)
+            stores = [rt.store.dump() for rt in td.runtimes]
+            for d in (jd, td):
+                with pytest.raises(RuntimeError, match="contradicts"):
+                    d._do_recover(1, 2, ledger=d.cluster.auditor)
+            after = replica_state_to_numpy(tc.state)
+            for k in before:
+                np.testing.assert_array_equal(before[k], after[k], k)
+            assert [rt.store.dump() for rt in td.runtimes] == stores
+            s.both(lambda d: d._do_recover(2, 0, ledger=d.cluster.auditor))
+            s.step(2)
+            js = replica_state_to_numpy(jc.state)
+            ts = replica_state_to_numpy(tc.state)
+            for k in js:
+                np.testing.assert_array_equal(js[k], ts[k], err_msg=k)
+    finally:
+        jd.stop()
+        td.stop()
+
+
 @pytest.mark.parametrize("call", [
-    lambda d: d._do_recover(1, 0, ledger=object()),
-    lambda d: tsnap.take_snapshot(d.cluster.state, 0, digests=True),
-    lambda d: tsnap.install_snapshot(
-        d.cluster.state, 1, tsnap.take_snapshot(d.cluster.state, 0),
-        ledger=object()),
     lambda d: tsnap.install_snapshot(
         d.cluster.state, 1, tsnap.take_snapshot(d.cluster.state, 0),
         group=0),
@@ -381,7 +495,7 @@ def test_later_slices_raise(kw):
     lambda d: d.serve_metrics(0), lambda d: d.start_profile()])
 def test_later_methods_raise(call):
     """What waits for later slices raises and names its ROADMAP item
-    (9: audit chain, 11: groups, 12: repair and host observability)."""
+    (12: groups, 13: repair and host observability)."""
     d = ClusterDriver(LogConfig(**GEO), 3, device="cpu")
     with pytest.raises(NotImplementedError, match=r"item"):
         call(d)

@@ -105,3 +105,22 @@ def test_snapshot_recovery_on_the_card():
     cpu = drive_recovery(torch.device("cpu"), geom, "gather", 3000, True)
     assert gpu["pruned"] and gpu["catch_up"] == cpu["catch_up"]
     assert gpu["marks"] == cpu["marks"]
+
+
+def test_audit_and_telemetry_on_the_card():
+    """Phases (8a) and (8b) of ``chip_smoke.py``: the audited engine with
+    telemetry at geometry (a) gives the CPU run's ledger, flight ring and
+    device counters; a corrupted word is found at its index, the
+    corrupted donor refused and the healthy one installed, as on the
+    CPU."""
+    _need_card()
+    from chip_smoke import drive_audited, drive_corruption
+    gpu, cpu = (drive_audited(torch.device(d)) for d in ("cuda", "cpu"))
+    for k in ("steps", "dump", "summary", "flight"):
+        assert gpu[k] == cpu[k], k
+    assert np.array_equal(gpu["counters"], cpu["counters"])
+    assert gpu["summary"]["findings"] == 0
+    gpu, cpu = (drive_corruption(torch.device(d)) for d in ("cuda", "cpu"))
+    for k in ("steps", "found_in", "first", "catch_up", "redigested",
+              "chains", "dump", "state"):
+        assert gpu[k] == cpu[k], k

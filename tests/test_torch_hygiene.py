@@ -17,6 +17,8 @@ import rdma_paxos_tpu.config as jconfig
 import rdma_paxos_tpu.consensus.log as jlog
 import rdma_paxos_tpu.consensus.snapshot as jsnapshot
 import rdma_paxos_tpu.runtime.hostpath as jhostpath
+import rdma_paxos_tpu.obs.audit as jaudit
+import rdma_paxos_tpu.obs.device as jdevice
 import rdma_paxos_tpu.obs.metrics as jmetrics
 import rdma_paxos_tpu.obs.spans as jspans
 import rdma_paxos_tpu.obs.trace as jtrace
@@ -31,6 +33,8 @@ import rdma_paxos_tpu_torch.consensus.log as tlog
 import rdma_paxos_tpu_torch.consensus.snapshot as tsnapshot
 import rdma_paxos_tpu_torch.convert as tconvert
 import rdma_paxos_tpu_torch.runtime.hostpath as thostpath
+import rdma_paxos_tpu_torch.obs.audit as taudit
+import rdma_paxos_tpu_torch.obs.device as tdevice
 import rdma_paxos_tpu_torch.obs.metrics as tmetrics
 import rdma_paxos_tpu_torch.obs.spans as tspans
 import rdma_paxos_tpu_torch.obs.trace as ttrace
@@ -62,11 +66,15 @@ def test_imports_with_jax_and_reference_blocked():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'rdma_paxos_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30
+    names = out.stdout.split()
+    assert len(names) >= 30
+    for mod in ("obs.audit", "obs.device", "consensus.step",
+                "runtime.sim", "runtime.driver"):
+        assert "rdma_paxos_tpu_torch." + mod in names, mod
 
 
 def _imports(path: Path):
@@ -79,9 +87,13 @@ def _imports(path: Path):
             yield node.lineno, node.module or ""
 
 
-@pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in
-    list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]))
+SOURCES = sorted(str(p.relative_to(ROOT)) for p in
+                 list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"])
+assert {"rdma_paxos_tpu_torch/obs/audit.py",
+        "rdma_paxos_tpu_torch/obs/device.py"} <= set(SOURCES)
+
+
+@pytest.mark.parametrize("path", SOURCES)
 def test_source_names_no_jax(path):
     """Neither JAX, the JAX package, nor a test module (which may import
     either): the card's machine has no JAX."""
@@ -94,7 +106,8 @@ def test_source_names_no_jax(path):
 
 def test_copied_constants_match_the_reference():
     # config
-    for k in ("MAX_BURST_K", "REBASE_STALL_STEPS", "MAX_SERVER_COUNT"):
+    for k in ("MAX_BURST_K", "REBASE_STALL_STEPS", "MAX_SERVER_COUNT",
+              "DIGEST_EPOCH"):
         assert getattr(tconfig, k) == getattr(jconfig, k), k
     jf = [(f.name, f.default) for f in dataclasses.fields(jconfig.LogConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(tconfig.LogConfig)]
@@ -126,6 +139,18 @@ def test_copied_constants_match_the_reference():
     jout = [f.name for f in dataclasses.fields(jstep.StepOutput)
             if f.default is dataclasses.MISSING]
     assert list(tstep.OUTPUT_FIELDS) == jout
+    # the variant fields: the JAX step's optional outputs but the txn
+    # lane's (ROADMAP Queue 1, item 13)
+    assert list(tstep.VARIANT_FIELDS) == [
+        f.name for f in dataclasses.fields(jstep.StepOutput)
+        if f.default is None and f.name != "txn_vote"]
+    # the audit and telemetry layouts
+    tcols = [k for k in vars(tstep) if k.startswith("T_")]
+    assert tcols == [k for k in vars(jstep) if k.startswith("T_")]
+    assert [getattr(tstep, k) for k in tcols] == [
+        getattr(jstep, k) for k in tcols]
+    assert taudit.AUDIT_KEYS == jaudit.AUDIT_KEYS
+    assert tdevice.NAMES == jdevice.NAMES
     assert tquorum.R_PAD == jquorum.R_PAD
     assert tsim.SimCluster.K_TIERS == jsim.SimCluster.K_TIERS
     assert tsim.SimCluster.RES_KEYS == jsim.SimCluster.RES_KEYS
@@ -195,7 +220,8 @@ def test_recovery_surface_matches_the_reference():
         return [(p.name, p.kind, p.default)
                 for p in inspect.signature(fn).parameters.values()]
     for name in ("take_snapshot", "install_snapshot", "recover_vote",
-                 "rebase_offsets", "export_row", "genesis_row"):
+                 "rebase_offsets", "export_row", "genesis_row",
+                 "verify_snapshot"):
         assert params(getattr(tsnapshot, name)) == params(
             getattr(jsnapshot, name)), name
     for name in ("stream_copy", "extend_stream"):
@@ -203,6 +229,7 @@ def test_recovery_surface_matches_the_reference():
             getattr(jhostpath, name)), name
     for name in ("recover_replica", "reset_app", "checkpoint_app",
                  "_do_recover", "_do_checkpoint", "_do_reset_app",
-                 "_drain_admin", "_read_ckpt", "_ckpt_path"):
+                 "_drain_admin", "_read_ckpt", "_ckpt_path",
+                 "_dump_audit_artifact"):
         assert params(getattr(tdriver.ClusterDriver, name)) == params(
             getattr(jdriver.ClusterDriver, name)), name

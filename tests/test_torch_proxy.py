@@ -231,3 +231,92 @@ def test_replay_engine_writes_the_committed_stream(tmp_path):
     lsn.close()
     eng.close()
     store.close()
+
+
+class EofDeafApp:
+    """A line-protocol app (``SET k v``, ``ECHO tok``, ``DUMPALL``, as
+    the toy server speaks them) that reads each connection to EOF and
+    then keeps its end open: it never closes on EOF."""
+
+    def __init__(self):
+        self.lsn = socket.socket()
+        self.lsn.bind(("127.0.0.1", 0))
+        self.lsn.listen(16)
+        self.port = self.lsn.getsockname()[1]
+        self.kv = {}
+        self.held = []
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self):
+        while True:
+            try:
+                c, _ = self.lsn.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._serve, args=(c,),
+                             daemon=True).start()
+
+    def _serve(self, c):
+        f = c.makefile("rb")
+        try:
+            for ln in f:
+                op, _, rest = ln.strip().partition(b" ")
+                if op == b"SET":
+                    k, _, v = rest.partition(b" ")
+                    self.kv[k] = v
+                    c.sendall(b"+OK\n")
+                elif op == b"ECHO":
+                    c.sendall(b"=" + rest + b"\n")
+                elif op == b"DUMPALL":
+                    c.sendall(b"".join(b"%s %s\n" % kv for kv in
+                                       sorted(self.kv.items())) + b".\n")
+        except OSError:
+            return
+        self.held.append(c)              # EOF read: the end stays open
+
+    def close(self):
+        self.lsn.close()
+        for c in self.held:
+            c.close()
+
+
+def test_half_closed_replay_is_released_for_an_app_that_ignores_eof(
+        tmp_path):
+    """A replayed session's CLOSE half-closes the replay socket. With an
+    app that never closes on EOF the wait is bounded: once the kernel
+    queues show every replayed byte read, the socket and its port are
+    released, so the checkpoint's barrier completes."""
+    from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
+    from tests.test_bounded_recovery import toy_dump, toy_probe, toy_restore
+    apps = [EofDeafApp() for _ in range(3)]
+    d = ClusterDriver(
+        LogConfig(n_slots=64, slot_bytes=64, window_slots=16,
+                  batch_slots=8), 3, workdir=str(tmp_path),
+        app_ports=[a.port for a in apps],
+        timeout_cfg=TimeoutConfig(elec_timeout_low=30.0,
+                                  elec_timeout_high=60.0),
+        app_snapshot=(toy_dump, toy_restore, toy_probe), device="cpu")
+    try:
+        d.cluster.run_until_elected(0)
+        d.step()
+        h = d._make_handler(0)
+        conn = (0 << 24) | 7
+        h(int(EntryType.CONNECT), conn, b"")
+        ev = h(int(EntryType.SEND), conn, b"SET a 1\n")
+        h(int(EntryType.CLOSE), conn, b"")
+        d.run(period=0.002)
+        assert ev.done.wait(30) and ev.status == 0
+        deadline = time.time() + 30
+        while time.time() < deadline and not (
+                apps[1].kv == {b"a": b"1"} and apps[1].held):
+            time.sleep(0.01)
+        assert apps[1].kv == {b"a": b"1"} and apps[1].held
+        d.checkpoint_app(1)
+        rep = d.runtimes[1].replay
+        assert not rep.closing and not rep._closed_at
+        assert d.runtimes[1].store.base > 0
+        assert d.loop_error is None
+    finally:
+        d.stop()
+        for a in apps:
+            a.close()

@@ -706,3 +706,37 @@ def test_misspeculation_quarantine_and_reset(stack_factory):
     assert kv(ports[nl], "SET after reset-ok") == b"+OK"
     assert wait_kv(ports[lead], "after", b"reset-ok") == b"reset-ok"
     assert d.loop_error is None
+
+
+@pytest.mark.parametrize("hook", ["probe", "quiesce"])
+def test_rebuilt_app_is_ready_when_the_call_returns(stack_factory, hook):
+    """``recover_replica`` and ``reset_app`` return only once the fresh
+    app has consumed its replayed history (many sessions, each closed, so
+    the half-closed waits matter): a COUNT sent right after either call
+    equals the leader's, with the probe barrier and with the kernel-queue
+    quiescence of a 2-tuple hook."""
+    hooks = ((toy_dump, toy_restore, toy_probe) if hook == "probe"
+             else (toy_dump, toy_restore))
+    st = stack_factory(app_snapshot=hooks)
+    d, ports = st.d, st.ports
+    lead = d.leader()
+    f1, f2 = [r for r in range(3) if r != lead]
+    for s in range(40):
+        c = Client(ports[lead])
+        c.s.sendall(b"".join(b"SET s%02dk%02d v%d\n" % (s, i, i)
+                             for i in range(25)))
+        for _ in range(25):
+            assert c.f.readline().strip() == b"+OK"
+        c.close()
+    want = kv(ports[lead], "COUNT")
+    assert want == b"1000"
+    for r in (f1, f2):
+        assert wait_kv(ports[r], "s39k24", b"v24") == b"v24"
+    st.restart(f2)
+    d.recover_replica(f2)
+    assert kv(ports[f2], "COUNT") == want, "recover_replica returned early"
+    st.restart(f1)
+    d.reset_app(f1)
+    assert kv(ports[f1], "COUNT") == want, "reset_app returned early"
+    assert not d.runtimes[f2].replay.closing
+    assert d.loop_error is None

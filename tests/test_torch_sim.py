@@ -43,11 +43,12 @@ def assert_engines_equal(j, t, tag):
 
 
 def run_workload(R, fanout, seed, *, rebase=None, wedge=False, scan=False,
-                 steps=60):
+                 steps=60, **variants):
+    """``variants``: the ``audit=``/``telemetry=`` flags, on both."""
     geo = dict(GEO, **({"rebase_threshold": rebase} if rebase else {}))
-    j = JSim(JCfg(**geo), R, fanout=fanout, scan=scan)
+    j = JSim(JCfg(**geo), R, fanout=fanout, scan=scan, **variants)
     t = SimCluster(LogConfig(**geo), R, fanout=fanout, scan=scan,
-                   device="cpu")
+                   device="cpu", **variants)
     for c in (j, t):
         c.collect_frames = True
     rng = np.random.default_rng(seed)
@@ -152,4 +153,11 @@ def test_engine_guards():
     assert c.drain() is None
     assert c.leader() == 0
     with pytest.raises(NotImplementedError):
-        SimCluster(LogConfig(**GEO), 3, audit=True, device="cpu")
+        SimCluster(LogConfig(**GEO), 3, txn=True, device="cpu")
+    # the audit and telemetry variants build their host consumers
+    v = SimCluster(LogConfig(**GEO), 3, audit=True, telemetry=True,
+                   flight_capacity=5, device="cpu")
+    assert v.auditor.R == 3 and v.flight.capacity == 5
+    assert v.device_counters.shape == (3, 8)
+    assert c.auditor is None and c.flight is None
+    assert c.device_counters is None

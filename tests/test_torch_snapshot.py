@@ -3,7 +3,8 @@ package and by the port from the same seeded engine run carry equal
 fields; installing them gives bit-equal replica state (offsets, wiped
 ring row, anchor term, election state, committed config); the vote
 records read back alike; a snapshot taken by either engine installs
-into the other; and the surfaces of later slices raise."""
+into the other; the audit chain of a snapshot and its digest-verified
+install give JAX's verdicts; and the surfaces of later slices raise."""
 
 import dataclasses
 
@@ -234,12 +235,9 @@ def test_snapshot_instrumentation_matches_jax():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s, sn: tsnap.take_snapshot(s, 0, digests=True), "item 9"),
-    (lambda s, sn: tsnap.install_snapshot(s, 1, sn, ledger=object()),
-     "items 9 and 12"),
-    (lambda s, sn: tsnap.take_snapshot(s, 0, group=0), "item 11"),
-    (lambda s, sn: tsnap.install_snapshot(s, 1, sn, group=0), "item 11"),
-    (lambda s, sn: tsnap.recover_vote(s, 1, group=0), "item 11")])
+    (lambda s, sn: tsnap.take_snapshot(s, 0, group=0), "item 12"),
+    (lambda s, sn: tsnap.install_snapshot(s, 1, sn, group=0), "item 12"),
+    (lambda s, sn: tsnap.recover_vote(s, 1, group=0), "item 12")])
 def test_later_slices_of_the_snapshot_raise(call, item):
     t = pair()[1]
     t.run_until_elected(0)
@@ -250,3 +248,69 @@ def test_later_slices_of_the_snapshot_raise(call, item):
     after = convert.replica_state_to_numpy(t.state)
     for k in before:          # a refused call touched no state
         np.testing.assert_array_equal(before[k], after[k], err_msg=k)
+
+
+def audited_pair(seed):
+    """Both engines, audited, through seeded traffic past the ring with
+    a brief partition of replica 2 that it catches up from."""
+    j = JSim(JCfg(**GEO), 3, audit=True)
+    t = SimCluster(LogConfig(**GEO), 3, audit=True, device="cpu")
+    rng = np.random.default_rng(seed)
+    for c in (j, t):
+        c.run_until_elected(0)
+    for i in range(40):
+        p = bytes(rng.integers(0, 256, 20, dtype=np.uint8))
+        for c in (j, t):
+            if i == 10:
+                c.partition([[0, 1], [2]])
+            elif i == 13:
+                c.heal()
+            c.submit(0, p)
+            c.step()
+    for c in (j, t):
+        c.step()
+    assert int(t.applied.min()) > 24
+    return j, t
+
+
+@pytest.mark.parametrize("part", ["take", "install"])
+def test_digest_chain_of_the_snapshot_matches_jax(part):
+    """``take_snapshot(digests=True)`` and ``install_snapshot(ledger=)``
+    (raising before the audit chain was ported) give JAX's chain and
+    JAX's verdicts, and a refused install touches no state."""
+    j, t = audited_pair(5)
+    if part == "take":
+        for donor in range(3):
+            js = jsnap.take_snapshot(j.state, donor, digests=True,
+                                     rebased_total=j.rebased_total)
+            ts = tsnap.take_snapshot(t.state, donor, digests=True,
+                                     rebased_total=t.rebased_total)
+            assert (ts.digest_epoch, ts.audit_start, ts.index) == (
+                js.digest_epoch, js.audit_start, js.index)
+            np.testing.assert_array_equal(ts.audit_digests,
+                                          js.audit_digests)
+        return
+    # a corrupted committed word on replica 2 contradicts the ledger
+    # majority: its snapshot is refused by both; the leader's installs
+    # into replica 2, equal to JAX's install
+    from tests.test_torch_audit import corrupt
+    for c in (j, t):
+        for _ in range(3):
+            c.step()
+        corrupt(c, 2, int(c.applied[2]) - 1)
+    before = convert.replica_state_to_numpy(t.state)
+    for c, mod in ((j, jsnap), (t, tsnap)):
+        bad = mod.take_snapshot(c.state, 2, digests=True,
+                                index=int(c.applied[2]))
+        with pytest.raises(mod.SnapshotVerifyError, match="contradicts"):
+            mod.install_snapshot(c.state, 1, bad, ledger=c.auditor)
+    after = convert.replica_state_to_numpy(t.state)
+    for k in before:
+        np.testing.assert_array_equal(before[k], after[k], err_msg=k)
+    for c, mod in ((j, jsnap), (t, tsnap)):
+        snap = mod.take_snapshot(c.state, 0, digests=True)
+        c.state = mod.install_snapshot(c.state, 2, snap, ledger=c.auditor)
+    js = convert.replica_state_to_numpy(j.state)
+    ts = convert.replica_state_to_numpy(t.state)
+    for k in js:
+        np.testing.assert_array_equal(js[k], ts[k], err_msg=k)

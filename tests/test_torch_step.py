@@ -18,7 +18,7 @@ from rdma_paxos_tpu_torch.config import LogConfig
 from rdma_paxos_tpu_torch.consensus.log import EntryType, M_LEN, M_TYPE, META_W
 from rdma_paxos_tpu_torch.consensus.state import ConfigState, clone_state
 from rdma_paxos_tpu_torch.consensus.step import (
-    OUTPUT_FIELDS, StepInput, make_step_input, replica_step)
+    OUTPUT_FIELDS, VARIANT_FIELDS, StepInput, make_step_input, replica_step)
 from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
 from rdma_paxos_tpu_torch.parallel.mesh import build_sim_step, stack_states
 
@@ -149,9 +149,20 @@ def test_stable_equals_full_without_timeouts():
 
 
 def test_unported_flags_raise():
+    """The txn= lane is not ported and raises; the audit= and telemetry=
+    variants add their fields (None when off). Their parity with JAX is
+    in tests/test_torch_audit.py and tests/test_torch_telemetry.py."""
     R = 3
     st = stack_states(CFG, R, R, device="cpu")
     inp = make_step_input(CFG, R, device="cpu")
-    for flag in ("audit", "telemetry", "txn"):
-        with pytest.raises(NotImplementedError):
-            replica_step(st, inp, cfg=CFG, n_replicas=R, **{flag: True})
+    with pytest.raises(NotImplementedError):
+        replica_step(st, inp, cfg=CFG, n_replicas=R, txn=True)
+    _, off = replica_step(clone_state(st), inp, cfg=CFG, n_replicas=R)
+    _, on = replica_step(clone_state(st), inp, cfg=CFG, n_replicas=R,
+                         audit=True, telemetry=True)
+    for k in VARIANT_FIELDS:
+        assert getattr(off, k) is None and getattr(on, k) is not None, k
+    for k in OUTPUT_FIELDS:
+        assert torch.equal(getattr(off, k), getattr(on, k)), k
+    assert on.audit_digest.shape == (R, CFG.window_slots)
+    assert on.telemetry.shape == (R, 8)
