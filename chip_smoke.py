@@ -73,7 +73,24 @@ exits non-zero without its result line):
    audit artifact written under the workdir and reported clean by
    ``python -m rdma_paxos_tpu_torch.obs.audit``; acked events/s with
    both variants on and both off, two alternating pairs;
-9. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+9. the chaos judge on the card: seeded ``NemesisRunner`` runs, each on
+   the card and again with ``device="cpu"`` in this process, with equal
+   verdicts (without ``artifact``), history JSONL byte for byte, audit
+   ledger and flight dumps; every verdict ``ok`` with every key decided
+   and one ``commit_window`` launch per protocol step (counted by the
+   wrapper and, for one run, by ``torch.profiler``). (9a) the runner's
+   defaults (``DEFAULT_KV_CFG``: 128 slots, so rings recycle and
+   rebase; gather; ``audit=True``; ``leases=True``; the six default
+   fault kinds): seeds 7 and 13, seed 3 with a leaseholder crash in a
+   read burst (lease and read-index reads served, two grants, a
+   revocation), ``pipeline=2`` and ``scan=True``; (9b) geometry (a)
+   with :data:`CHAOS_A`'s clients and keys over 200 steps; (9c) the
+   dedup bug (the fold's duplicate skip removed) caught as a
+   linearizability violation with no invariant violation, its artifact
+   replayed on the card to the same violations, and the unpatched run
+   clean. Protocol steps, launches, wall seconds and steps/s per run,
+   and the reads served by lease and by read-index;
+10. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
 after, so a failure names its phase.
@@ -95,6 +112,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1984,6 +2002,293 @@ def phase_audit(dev, card: str, kernels_per_step: float,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the chaos judge on the card
+# ---------------------------------------------------------------------------
+
+# the read burst and the leaseholder crash of tests/test_reads.py
+READ_BURST = dict(p_holder_read=0.9, p_follower_read=0.9)
+CRASH_MID_READ = [dict(step=20, op="crash", replica=0),
+                  dict(step=40, op="restart", replica=0)]
+# (9b): geometry (a) with 16 clients on 16 keys. The JAX runner on the
+# CPU decides every key at seed 7 over 200 steps for 8, 16, 32, 64,
+# 128, 256 and 512 clients (as many keys; the slow-marked test
+# tests/test_torch_chaos.py::test_geometry_a_jax_runner_decides_every_key
+# repeats this search), so the phase's time budget
+# bounds the size: the card folds each committed command into each
+# replica's table with ~70 small launches, and at 64 clients the run
+# took 56.8 s on an H100 80GB HBM3 at 700 W and its CPU twin 25.4 s
+CHAOS_A = dict(seed=7, steps=200, n_clients=16, n_keys=16,
+               kvs_cap=65536)
+# tests/test_chaos.py:_BUG_RUN
+BUG_RUN = dict(n_replicas=3, steps=80, n_keys=2,
+               workload_opts=dict(dup_msg_p=0.9, dup_delay=6, p_write=0.6),
+               fault_kinds=("partition", "crash"))
+
+
+def buggy_fold(self, r):
+    """``ReplicatedKVS._fold`` with the dedup skip removed (the bug
+    under test of ``tests/test_chaos.py:_buggy_fold``): ``last_req`` is
+    still tracked, but a duplicated PUT re-applies."""
+    from rdma_paxos_tpu_torch.consensus.log import EntryType
+    from rdma_paxos_tpu_torch.models.kvs import CMD_W, apply_cmd
+    stream = self.c.replayed[r]
+    while self._cursor[r] < len(stream):
+        etype, conn, req, payload = stream[self._cursor[r]]
+        self._cursor[r] += 1
+        if etype != int(EntryType.SEND) or len(payload) != CMD_W * 4:
+            continue
+        if req > 0 and conn > 0:
+            self.last_req[r][conn] = max(self.last_req[r].get(conn, 0),
+                                         req)
+        cmd = torch.from_numpy(np.frombuffer(payload, "<i4").copy()).to(
+            self.device)
+        self.tables[r], _ = apply_cmd(self.tables[r], cmd)
+
+
+def chaos_run(dev, replay: Optional[str] = None, **kw) -> dict:
+    """One seeded ``NemesisRunner`` run on ``dev`` (or the replay of an
+    artifact); returns what is compared across devices, with its
+    protocol steps, commit_window launches and wall time."""
+    from rdma_paxos_tpu_torch.chaos.runner import NemesisRunner
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    launches0 = commit_window.launches, commit_scan.launches
+    t0 = time.perf_counter()
+    if replay is not None:
+        runner = None
+        v = NemesisRunner.replay(replay, device=dev)
+    else:
+        runner = NemesisRunner(device=dev, **kw)
+        v = runner.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(verdict={k: x for k, x in v.items() if k != "artifact"},
+               artifact=v.get("artifact"), wall=wall,
+               launches=commit_window.launches - launches0[0],
+               scan_launches=commit_scan.launches - launches0[1])
+    if runner is not None:
+        c = runner.cluster
+        out.update(steps=c.step_index, scan_dispatches=c.scan_dispatches,
+                   inflight=c.max_inflight_dispatches,
+                   history=runner.history.to_jsonl(),
+                   ledger=json.dumps(no_anchor(c.auditor.dump()),
+                                     sort_keys=True),
+                   flight=json.dumps(no_anchor(c.flight.dump()),
+                                     sort_keys=True))
+    return out
+
+
+def chaos_pair(dev, tag: str, card: str, profile: bool = False,
+               **kw) -> dict:
+    """:func:`chaos_run` on the card and on the CPU: equal verdicts,
+    histories, ledgers and flight rings, one commit_window launch per
+    protocol step on the card (and in the profiler's count when
+    ``profile``); prints the run's line."""
+    cuda_kernels = None
+    if profile:
+        box = {}
+        wall_ms, kprof = device_profile(lambda: box.update(
+            gpu=chaos_run(dev, **kw)))
+        gpu = box["gpu"]
+        busy_ms = sum(us for _, us in kprof.values()) / 1e3
+        cuda_kernels = sum(n for k, (n, _) in kprof.items()
+                           if "commit_window_kernel" in k)
+        if kprof:                    # else the profiler saw no kernel
+            check(cuda_kernels == gpu["steps"],
+                  f"(9) {tag}: torch.profiler counted {cuda_kernels} "
+                  f"commit_window kernels in {gpu['steps']} protocol "
+                  f"steps")
+    else:
+        gpu = chaos_run(dev, **kw)
+    check(gpu["launches"] == gpu["steps"] > 0
+          and gpu["scan_launches"] == 0,
+          f"(9) {tag}: {gpu['launches']} commit_window and "
+          f"{gpu['scan_launches']} commit_scan launches in "
+          f"{gpu['steps']} protocol steps")
+    v = gpu["verdict"]
+    check(v["ok"] is True and v["linearizability"]["undecided"] == [],
+          f"(9) {tag}: verdict {v}")
+    t = time.perf_counter()
+    cpu = chaos_run(torch.device("cpu"), **kw)
+    for k in ("verdict", "history", "ledger", "flight", "steps"):
+        check(gpu[k] == cpu[k], f"(9) {tag}: the card's {k} differs from "
+                                f"the CPU run")
+    reads = v["reads"]
+    prof = ("the profiler saw no kernel" if profile and not cuda_kernels
+            else f"{cuda_kernels} counted by torch.profiler, which also "
+                 f"times this run: device busy {busy_ms:.1f} ms of "
+                 f"{wall_ms:.1f}, idle share {1 - busy_ms / wall_ms:.3f}"
+            if profile else None)
+    print(f"chaos (9) {tag} on {card}: ok, {v['linearizability']['ops']} "
+          f"checked ops, 0 undecided, {v['schedule_events']} fault "
+          f"events; {gpu['steps']} protocol steps, {gpu['launches']} "
+          f"commit_window launches" + (f" ({prof})" if prof else "")
+          + f", {gpu['wall']:.2f} s, {gpu['steps'] / gpu['wall']:.1f} "
+          f"steps/s on the card; reads by lease {reads['lease']}, by "
+          f"read-index {reads['read_index']}; lease grants "
+          f"{reads['leases']['grants']}, revocations "
+          f"{reads['leases']['revocations']}; verdict, history, ledger "
+          f"and flight ring equal to the CPU run "
+          f"({time.perf_counter() - t:.1f} s on the CPU)", flush=True)
+    return gpu
+
+
+def driver_reads(dev, card: str) -> dict:
+    """(9a) the driver's read queue on the card: a pipelined
+    ``ClusterDriver`` with its default read path serves linearizable
+    reads of a ``ReplicatedKVS`` on its readback thread (the serve
+    callback runs torch ops there) without a ring slot."""
+    from rdma_paxos_tpu_torch.chaos.runner import DEFAULT_KV_CFG
+    from rdma_paxos_tpu_torch.config import TimeoutConfig
+    from rdma_paxos_tpu_torch.models.replicated_kvs import ReplicatedKVS
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
+    d = ClusterDriver(DEFAULT_KV_CFG, R, timeout_cfg=TimeoutConfig(
+        elec_timeout_low=0.3, elec_timeout_high=0.6), pipeline=2,
+        device=dev)
+    kv = ReplicatedKVS(d.cluster, cap=256)
+    d.prewarm()
+    launches0 = commit_window.launches
+    t0 = time.perf_counter()
+    d.run(period=0.002)
+    try:
+        wait_for(lambda: d.leader() >= 0, "(9a) driver: a leader")
+        lead = d.leader()
+        sess = kv.session(client_id=5)
+        commit0 = int(d.cluster.last["commit"][lead])
+        keys = [b"key%d" % i for i in range(16)]
+        for i, k in enumerate(keys):
+            sess.put(lead, k, b"v%d" % i)
+        wait_for(lambda: int(d.cluster.applied[lead]) >= commit0 + 16,
+                 "(9a) driver: the puts applied on the leader")
+        end0 = int(d.cluster.last["end"].max())
+        tickets = []
+        t1 = time.perf_counter()
+        for k in keys:
+            r = d.read_replica()
+            tickets.append(d.read(lambda r=r, k=k: kv.serve_local(r, k),
+                                  replica=r))
+        read_s = time.perf_counter() - t1
+        end1 = int(d.cluster.last["end"].max())
+    finally:
+        d.stop()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    check(d.loop_error is None, f"(9a) driver: {d.loop_error!r}")
+    got = [(t.status, t.value) for t in tickets]
+    check(got == [("ok", b"v%d" % i) for i in range(16)],
+          f"(9a) driver: reads {got}")
+    paths = [t.path for t in tickets]
+    check(set(paths) <= {"lease", "read_index"} and end1 == end0,
+          f"(9a) driver: paths {paths}, end {end0} -> {end1}")
+    steps = d.cluster.step_index
+    launches = commit_window.launches - launches0
+    check(launches == steps > 0, f"(9a) driver: {launches} commit_window "
+                                 f"launches in {steps} protocol steps")
+    print(f"chaos (9a) driver read queue on {card}: {len(tickets)} "
+          f"linearizable reads of a ReplicatedKVS served on the readback "
+          f"thread ({paths.count('lease')} by lease, "
+          f"{paths.count('read_index')} by read-index) in {read_s:.3f} s, "
+          f"every value the acknowledged put's, no ring slot (end "
+          f"{end0} -> {end1}); {steps} protocol steps, {launches} "
+          f"commit_window launches in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return dict(launches=launches, steps=steps)
+
+
+def phase_chaos(dev, card: str) -> list:
+    """Phase 9: the chaos judge on the card; returns the protocol steps
+    and commit_window launches of its runs."""
+    from rdma_paxos_tpu_torch.chaos.faults import FaultSchedule
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.models.replicated_kvs import ReplicatedKVS
+    runs = []
+
+    # (9a) the runner's defaults
+    cases = [("(9a) seed 7", dict(seed=7, steps=50), True),
+             ("(9a) seed 13", dict(seed=13, steps=50), False),
+             ("(9a) seed 3, leaseholder crash in a read burst",
+              dict(seed=3, steps=55, workload_opts=dict(READ_BURST),
+                   schedule=CRASH_MID_READ), False),
+             ("(9a) seed 7, pipeline=2", dict(seed=7, steps=50,
+                                              pipeline=2), False),
+             ("(9a) seed 13, scan=True", dict(seed=13, steps=50,
+                                              scan=True), False)]
+    for tag, kw, prof in cases:
+        if "schedule" in kw:
+            kw = dict(kw, schedule=FaultSchedule(kw["schedule"]))
+        r = chaos_pair(dev, tag, card, profile=prof, **kw)
+        reads = r["verdict"]["reads"]
+        if "schedule" in kw:
+            check(reads["lease"] > 0 and reads["read_index"] > 0
+                  and reads["leases"]["grants"] >= 2
+                  and reads["leases"]["revocations"] >= 1,
+                  f"(9a) {tag}: reads {reads}")
+        if kw.get("scan"):
+            check(r["scan_dispatches"] > 0, f"(9a) {tag}: no scan dispatch")
+        if kw.get("pipeline"):
+            check(r["inflight"] >= 2, f"(9a) {tag}: never two dispatches "
+                                      f"in flight")
+        runs.append(r)
+    runs.append(driver_reads(dev, card))
+
+    # (9b) geometry (a)
+    geom, _ = GEOMETRIES["a"]
+    runs.append(chaos_pair(
+        dev, f"(9b) geometry (a) {geom}, {CHAOS_A['n_clients']} clients "
+             f"on {CHAOS_A['n_keys']} keys, seed {CHAOS_A['seed']}, "
+             f"{CHAOS_A['steps']} steps", card,
+        cfg=LogConfig(**geom), **CHAOS_A))
+
+    # (9c) the dedup bug, caught on the card
+    wd = tempfile.mkdtemp(prefix="rp-chaos-")
+    fold = ReplicatedKVS._fold
+    try:
+        ReplicatedKVS._fold = buggy_fold
+        art = os.path.join(wd, "dedup_bug.json")
+        bug = chaos_run(dev, seed=1, artifact_path=art, **BUG_RUN)
+        v = bug["verdict"]
+        check(v["ok"] is False and v["invariant_violations"] == []
+              and v["linearizability"]["ok"] is False
+              and bug["artifact"] == art and os.path.exists(art),
+              f"(9c): the dedup bug was not caught: {v}")
+        cpu = chaos_run(torch.device("cpu"), seed=1, **BUG_RUN)
+        for k in ("verdict", "history", "ledger", "flight", "steps"):
+            check(bug[k] == cpu[k], f"(9c): the card's {k} differs from "
+                                    f"the CPU run")
+        rep = chaos_run(dev, replay=art)
+        check(rep["verdict"]["linearizability"]["violations"]
+              == v["linearizability"]["violations"],
+              f"(9c): the replay found {rep['verdict']['linearizability']}")
+    finally:
+        ReplicatedKVS._fold = fold
+        shutil.rmtree(wd, ignore_errors=True)
+    clean = chaos_run(dev, seed=1, **BUG_RUN)
+    check(clean["verdict"]["ok"] is True,
+          f"(9c): the unpatched run is not clean: {clean['verdict']}")
+    for r in (bug, clean):
+        check(r["launches"] == r["steps"] > 0,
+              f"(9c): {r['launches']} commit_window launches in "
+              f"{r['steps']} protocol steps")
+    check(rep["launches"] == bug["steps"],
+          f"(9c): the replay launched commit_window {rep['launches']} "
+          f"times for {bug['steps']} protocol steps")
+    runs += [bug, dict(launches=rep["launches"], steps=bug["steps"]), clean]
+    print(f"chaos (9c) on {card}: the dedup bug caught as a "
+          f"linearizability violation on keys "
+          f"{v['linearizability']['violations']} with no invariant "
+          f"violation; verdict, history, ledger and flight ring equal to "
+          f"the CPU run; the artifact replayed on the card to the same "
+          f"violations; the unpatched run ok; {bug['steps']} + "
+          f"{bug['steps']} + {clean['steps']} protocol steps, "
+          f"{bug['launches'] + rep['launches'] + clean['launches']} "
+          f"commit_window launches, {bug['wall']:.2f} + "
+          f"{rep['wall']:.2f} + {clean['wall']:.2f} s on the card",
+          flush=True)
+    return [dict(launches=r["launches"], steps=r["steps"]) for r in runs]
+
+
 class Phase:
     """Prints ``phase N start`` (flushed) on entry and the phase's wall
     time on exit, so a failure names its phase."""
@@ -2050,6 +2355,9 @@ def main() -> int:
     with Phase(8, "audit and telemetry (8a engine, 8b corruption, "
                   "8c driver)"):
         main_runs += phase_audit(dev, smi, kernels_per_step, step_prof)
+    with Phase(9, "the chaos judge (9a defaults, 9b geometry (a), "
+                  "9c the dedup bug)"):
+        main_runs += phase_chaos(dev, smi)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

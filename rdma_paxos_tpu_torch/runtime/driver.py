@@ -21,19 +21,24 @@ while a readback thread finishes tickets and runs the post-step rules.
 Both threads make the engine's card their current device and use its
 current stream; the only host sync of a step is ``finish``'s readback.
 
+The read path runs as in the JAX driver: ``leases=True`` (the default)
+attaches ``runtime/reads.py``'s leader leases and read hub to the
+engine, :meth:`read` queues a linearizable read that the readback
+thread serves without a ring slot, and a step-down revokes the leader's
+lease. A chaos ``link_model`` may be attached (the loop then never
+idles: the drill owns its timing).
+
 Differences from the JAX driver, each failing loudly:
 
-* ``leases`` defaults to False: leader leases and the queued read path
-  (the JAX ``runtime/reads.py``) come with ROADMAP Queue 1, item 13.
-  ``leases=True`` raises ``NotImplementedError`` and :meth:`read`
-  raises the JAX driver's own "built with leases=False" error.
 * ``txn``, ``scan``, ``repair``, ``governor``, ``streams``,
-  ``link_model``, ``metrics_port``, ``profile_on_page`` and non-default
-  ``alert_rules`` raise ``NotImplementedError`` when set (items 11-13),
-  as do non-default settings of those subsystems (``health_period``,
-  ``alert_period``, ``series_capacity``, the ``*_opts`` dicts); so do
-  :meth:`health`, :meth:`evaluate_alerts`, :meth:`serve_metrics` and
-  :meth:`start_profile` (item 13). Until then the wall-cadenced
+  ``metrics_port``, ``profile_on_page`` and non-default
+  ``alert_rules`` raise ``NotImplementedError`` when set (ROADMAP
+  Queue 1, items 12-13), as do non-default settings of those subsystems
+  (``health_period``, ``alert_period``, ``series_capacity``, the
+  ``*_opts`` dicts but ``lease_opts``); so do :meth:`health`,
+  :meth:`evaluate_alerts`, :meth:`serve_metrics` and
+  :meth:`start_profile` (item 13) — :meth:`status` returns the part of
+  the health view the port fills. Until then the wall-cadenced
   observability pass (:meth:`_cadence_observe`: alerts, series, health
   files, the alert-triggered audit dump) does nothing.
 * ``audit=True`` and ``telemetry=True`` run as in the JAX driver: the
@@ -162,7 +167,7 @@ class ClusterDriver:
                  profile_on_page: float = 0.0,
                  repair: bool = False,
                  repair_opts: Optional[Dict] = None,
-                 leases: bool = False,
+                 leases: bool = True,
                  lease_opts: Optional[Dict] = None,
                  series_capacity: int = 1280,
                  metrics_port: Optional[int] = None,
@@ -178,23 +183,21 @@ class ClusterDriver:
         later = [name for name, on in (
             ("txn", txn),
             ("scan", scan), ("repair", repair), ("governor", governor),
-            ("streams", streams), ("link_model", link_model is not None),
+            ("streams", streams),
             ("metrics_port", metrics_port is not None),
             ("profile_on_page", profile_on_page > 0),
             ("alert_rules", alert_rules is not None),
-            ("leases", leases),
             # settings of those subsystems: never a silent no-op either
             ("health_period", health_period != 0.5),
             ("alert_period", alert_period != 0.25),
             ("series_capacity", series_capacity != 1280),
             ("repair_opts", repair_opts is not None),
-            ("lease_opts", lease_opts is not None),
             ("governor_opts", governor_opts is not None),
             ("streams_opts", streams_opts is not None)) if on]
         if later:
             raise NotImplementedError(
                 f"ClusterDriver({', '.join(later)}=...) is not ported yet "
-                "(ROADMAP Queue 1, items 11-13)")
+                "(ROADMAP Queue 1, items 12-13)")
         self.cfg = cfg
         self.sync_period = sync_period
         self._workdir = workdir
@@ -231,6 +234,21 @@ class ClusterDriver:
                                           device)
         self.cluster.obs = self.obs
         self.cluster.profiler = self._phase_prof
+        # read scaling (runtime/reads.py): step-domain leader leases
+        # renewed by the verified-quorum outputs every step already
+        # carries, plus the queued read hub drained on the readback
+        # thread between pipelined tickets. Host bookkeeping only —
+        # reads never enter begin_*/finish, never consume ring slots
+        if leases:
+            from rdma_paxos_tpu_torch.runtime import reads as _reads
+            _reads.attach(self.cluster, **(lease_opts or {}))
+        # chaos hook: a per-link fault model (chaos.faults.LinkModel)
+        # driven from outside the poll loop — fault drills against a
+        # live driver. With fanout="psum" any non-full mask is refused
+        # at dispatch, so drills need the default "gather"
+        if link_model is not None:
+            link_model.obs = self.obs
+            self.cluster.link_model = link_model
         # the card the engine's state lives on (with its index: a new
         # thread's current device is 0, so each loop thread binds it)
         self._state_device = self.cluster.state.term.device
@@ -777,6 +795,10 @@ class ClusterDriver:
                     and self.unverified[r] >= self.step_down_steps):
                 self.stepped_down.add(r)
                 rt = self.runtimes[r]
+                # a majority-less leader must not serve lease reads
+                # either: revoke before the serving gates react
+                if self.cluster.leases is not None:
+                    self.cluster.leases.revoke_all(r, "step_down")
                 self.obs.metrics.inc("step_downs_total", replica=r)
                 self.obs.trace.record(obs_trace.STEP_DOWN, replica=r,
                                       term=int(res["term"][r]),
@@ -1276,7 +1298,11 @@ class ClusterDriver:
         with self._lock:
             return bool(any(self._submitq)
                         or any(len(q) for q in self.cluster.pending)
-                        or self._waiter_count())
+                        or self._waiter_count()
+                        # queued reads need steps to confirm/serve —
+                        # keep the loop running until they resolve
+                        or (self.cluster.reads is not None
+                            and self.cluster.reads.pending_count()))
 
     # holds-lock: _lock
     def _waiter_count(self) -> int:
@@ -1357,6 +1383,9 @@ class ClusterDriver:
             return False
         c = self.cluster
         if c.last is None or self._leader_view < 0:
+            return False
+        # chaos drills (an attached link model) own their own timing
+        if c.link_model is not None:
             return False
         with self._lock:
             if (self._recover_req is not None
@@ -1532,8 +1561,12 @@ class ClusterDriver:
                 # step) may still be touching the native handles:
                 # closing them under it would be a use-after-free.
                 # Leak them loudly instead; a later stop() retries.
-                # But FIRST fail every blocked commit waiter: with
-                # _stop set no step will ever release them.
+                # But FIRST fail every blocked commit waiter (and
+                # queued read): with _stop set no step will ever
+                # release them.
+                if self.cluster.reads is not None:
+                    self.cluster.reads.fail_all(
+                        "stop (wedged poll thread)")
                 with self._lock:
                     n = sum(len(rt.inflight) for rt in self.runtimes)
                     for rt in self.runtimes:
@@ -1559,6 +1592,9 @@ class ClusterDriver:
             self._rb_thread.join(timeout=join_timeout)
         # release commit waiters that were already inflight at stop —
         # nothing will ever step again, so they must fail, not hang
+        # (queued reads the same: no step will ever confirm them)
+        if self.cluster.reads is not None:
+            self.cluster.reads.fail_all("stop")
         with self._lock:
             for rt in self.runtimes:
                 self._fail_inflight_locked(rt, "stop")
@@ -1580,12 +1616,57 @@ class ClusterDriver:
         with self._lock:
             return self._leader_view
 
+    # ------------------------------------------------------------------
+    # the linearizable read queue (runtime/reads.py)
+    # ------------------------------------------------------------------
+
+    def read_replica(self, group: int = 0) -> int:
+        """The replica a linearizable read should target: the group's
+        lease-serving holder (zero-traffic path) when one exists, else
+        the leader (read-index path), else replica 0 (the hub confirms
+        before serving, so a bad default only costs latency)."""
+        lm = self.cluster.leases
+        r = lm.serving_holder(group) if lm is not None else -1
+        if r < 0:
+            r = self.leader()
+        return r if r >= 0 else 0
+
     def read(self, fn=None, *, replica: Optional[int] = None,
              group: int = 0, timeout: float = 30.0):
-        """The queued linearizable read of the JAX driver; it needs the
-        lease read path, which this port does not attach yet."""
-        raise RuntimeError(
-            "driver was built with leases=False — no read path")
+        """Queue one linearizable read and block until it serves (or
+        fails). ``fn()`` runs AT the linearization point — on the
+        readback thread, against the serving replica's applied state —
+        and its return value lands on the returned ticket. Reads never
+        enter ``begin_*``/``finish`` and never consume ring slots; an
+        idle loop is woken so the confirming step dispatches
+        immediately."""
+        hub = self.cluster.reads
+        if hub is None:
+            raise RuntimeError(
+                "driver was built with leases=False — no read path")
+        if replica is None:
+            replica = self.read_replica(group)
+        t = hub.submit(fn, replica=replica, group=group)
+        self._wake.set()
+        t.wait(timeout)
+        return t
+
+    def status(self) -> Dict:
+        """The part of the JAX driver's :meth:`health` view this port
+        fills (live, from the last finished step): the leader, rebases,
+        the loop error, the audit summary and artifact, and the read
+        path's lease and hub state."""
+        c = self.cluster
+        return dict(
+            leader=self.leader(), n_replicas=self.R,
+            rebases=c.rebases, rebase_stalled=c.rebase_stalled,
+            loop_error=(repr(self.loop_error)
+                        if self.loop_error else None),
+            audit=(c.auditor.summary()
+                   if c.auditor is not None else None),
+            audit_artifact=self.audit_artifact,
+            leases=(c.leases.status() if c.leases is not None else None),
+            reads=(c.reads.status() if c.reads is not None else None))
 
     def can_serve_read(self, r: int) -> bool:
         """Read-index check: True iff replica ``r`` verified its

@@ -17,10 +17,17 @@ bounded flight ring of step inputs and outputs (``flight``) and the
 range re-digest (:meth:`SimCluster.redigest`); ``telemetry=True`` runs
 the counter-vector variants and accumulates them in
 ``device_counters``. Both are ingested in ``finish`` (the readback
-thread under the pipelined driver), before the rollover. The JAX
-engine's other attachments (``link_model``, ``leases``, ``reads``,
-``streams``, ``governor``, ``txn``) come in later slices: they read as
-None, and a dispatch with one attached raises.
+thread under the pipelined driver), before the rollover.
+
+Attachments, as on the JAX engine: a chaos ``link_model``
+(``chaos/faults.py:LinkModel``) refines ``peer_mask`` at every dispatch
+with the dispatch clock (``_dispatch_clock``: +1 per ``begin_step``,
++K per ``begin_burst``), and the psum fan-out check applies to that
+effective mask; the read path (``runtime/reads.py``, attached by
+``reads.attach``) observes leases and drains queued reads at the tail
+of every ``finish``. ``streams``, ``governor`` and ``txn`` are not
+ported (ROADMAP Queue 1, item 13): a dispatch with one of them set
+raises ``NotImplementedError`` rather than run without it.
 
 Every device result a finish needs (the audit windows and telemetry
 vectors included) is read back in ONE transfer, and a replay sweep
@@ -310,16 +317,24 @@ class SimCluster:
         # attached by the driver (or tests); never read by the step
         self.obs = None
         self.profiler = None
-        # attachments of later slices (chaos link model, read path,
-        # streams, governor, transactions): None, as on the JAX engine
-        # without them; the driver refuses the flags that would attach
-        # them
+        # per-link fault model (chaos/faults.py), consulted at every
+        # dispatch with the dispatch clock; host-side input data only
         self.link_model = None
+        # read path (runtime/reads.py, attached via reads.attach):
+        # leases observed and queued reads drained at the tail of every
+        # finish() — the readback thread under the pipelined driver
         self.leases = None
         self.reads = None
+        # attachments not ported (ROADMAP Queue 1, item 13): a dispatch
+        # with one set raises instead of running without it
         self.streams = None
         self.governor = None
         self.txn = None
+        # dispatch-side logical clock: advances at begin_* (step_index
+        # advances at finish) so an in-flight pipeline never feeds the
+        # link model the same per-step randomness twice; serial callers
+        # see the two clocks equal at every dispatch
+        self._dispatch_clock = 0
 
     # ---------------- client-side API ----------------
 
@@ -367,9 +382,26 @@ class SimCluster:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, copy=True)
 
-    def _check_dispatch(self) -> None:
-        """Refuse a partition under the psum fan-out."""
-        if self._fanout == "psum" and not self.peer_mask.all():
+    # attachments whose subsystems are not ported: a dispatch refuses
+    UNPORTED_ATTACHMENTS = ("streams", "governor", "txn")
+
+    def _effective_mask(self) -> np.ndarray:
+        """The step's hear-matrix: the base ``peer_mask``, refined by
+        the attached link model at the dispatch clock."""
+        if self.link_model is None:
+            return self.peer_mask
+        return self.link_model.effective_mask(self.peer_mask,
+                                              self._dispatch_clock)
+
+    def _check_dispatch(self, mask: np.ndarray) -> None:
+        """Refuse a dispatch with an attachment this port does not run,
+        and a non-full effective mask under the psum fan-out."""
+        for name in self.UNPORTED_ATTACHMENTS:
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"SimCluster.{name} is attached, but the {name} "
+                    "subsystem is not ported (ROADMAP Queue 1, item 13)")
+        if self._fanout == "psum" and not mask.all():
             raise ValueError(
                 "psum fan-out requires full connectivity; use "
                 "fanout='gather' to model partitions")
@@ -414,7 +446,8 @@ class SimCluster:
         if prof is not None:
             prof.start("host_encode")
         cfg, R, B = self.cfg, self.R, self.cfg.batch_slots
-        self._check_dispatch()
+        mask = self._effective_mask()
+        self._check_dispatch(mask)
         bufs = self._step_bufs()
         count = np.zeros((R,), np.int32)
         with self._host_lock:
@@ -437,7 +470,7 @@ class SimCluster:
             batch_data=self._dev(bufs["data"]),
             batch_meta=self._dev(bufs["meta"]),
             batch_count=self._dev(count), timeout_fired=self._dev(tmo),
-            peer_mask=self._dev(self.peer_mask),
+            peer_mask=self._dev(mask),
             apply_done=self._dev(applied), queue_depth=self._dev(qdepth))
         # no timer fired => Phase B is a no-op: the stable step
         fn = self._steps[not (self._stable_fast_path and not timeouts)]
@@ -450,6 +483,7 @@ class SimCluster:
                 StepTicket("step", out, taken, timeouts, 1, bufs))
         if prof is not None:
             prof.stop("device_dispatch")
+        self._dispatch_clock += 1
         return ticket
 
     def _tiers(self, max_k: Optional[int]) -> Tuple[int, ...]:
@@ -480,7 +514,8 @@ class SimCluster:
         prof = self.profiler
         if prof is not None:
             prof.start("host_encode")
-        self._check_dispatch()
+        mask = self._effective_mask()
+        self._check_dispatch(mask)
         tiers = self._tiers(max_k)
         with self._host_lock:
             reserved = self.reserved_appends()
@@ -517,7 +552,7 @@ class SimCluster:
             self.state, outs = fn(
                 self.state, self._dev(bufs["data"]),
                 self._dev(bufs["meta"]), self._dev(count),
-                self._dev(self.peer_mask), self._dev(applied),
+                self._dev(mask), self._dev(applied),
                 self._dev(qdepth))
             if scan:
                 self.scan_dispatches += 1
@@ -526,6 +561,7 @@ class SimCluster:
                 applied0=applied if scan else None))
         if prof is not None:
             prof.stop("device_dispatch")
+        self._dispatch_clock += K
         return ticket
 
     def _readback(self, ticket: StepTicket
@@ -647,6 +683,14 @@ class SimCluster:
             self.last = res
         self.step_index += ticket.K
         self._observe_spans(res)
+        # read path: renew or revoke leases from this finished step's
+        # verified-quorum outputs, then serve the due queued reads —
+        # after the audit ingest and the rollover, between pipelined
+        # tickets, never inside one
+        if self.leases is not None:
+            self.leases.observe(self, res)
+        if self.reads is not None:
+            self.reads.drain(self)
         B = self.cfg.batch_slots
         if ticket.kind == "step":
             dirty = [((r,), len(t)) for r, t in enumerate(ticket.taken)]

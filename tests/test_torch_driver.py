@@ -38,14 +38,14 @@ CONNECT, SEND, CLOSE = 2, 3, 4
 
 
 def make_pair(tmp_path=None, R=3, geo=GEO, **kw):
-    """The JAX driver and the port's, built alike (``leases`` off on
-    both: the port attaches no read path yet)."""
+    """The JAX driver and the port's, built alike (the read path on
+    both, as by default)."""
     wd = {}
     if tmp_path is not None:
         for side in ("j", "t"):
             (tmp_path / side).mkdir()
             wd[side] = str(tmp_path / side)
-    jd = JDriver(JCfg(**geo), R, timeout_cfg=JTO(**TIMERS), leases=False,
+    jd = JDriver(JCfg(**geo), R, timeout_cfg=JTO(**TIMERS),
                  workdir=wd.get("j"), **kw)
     td = ClusterDriver(LogConfig(**geo), R, timeout_cfg=TimeoutConfig(
         **TIMERS), workdir=wd.get("t"), device="cpu", **kw)
@@ -98,6 +98,13 @@ class Lockstep:
         np.testing.assert_array_equal(jd.unverified, td.unverified, tag)
         np.testing.assert_array_equal(jd.fail_count, td.fail_count, tag)
         assert jd.leader() == td.leader(), tag
+        # the read path: lease state (the step-down revokes) and hub
+        assert (jd.cluster.leases is None) == (td.cluster.leases is None)
+        if td.cluster.leases is not None:
+            assert jd.cluster.leases.status() == \
+                td.cluster.leases.status(), tag
+            assert jd.cluster.reads.status() == \
+                td.cluster.reads.status(), tag
         if self.stores:
             for jr, tr in zip(jd.runtimes, td.runtimes):
                 assert jr.store.dump() == tr.store.dump(), (tag, tr.idx)
@@ -180,8 +187,7 @@ def drive_record(d, pipeline_witness=False):
 
 
 def test_pipelined_and_serial_commit_the_jax_stream():
-    jd = JDriver(JCfg(**GEO), 3, timeout_cfg=JTO(**TIMERS), leases=False,
-                 pipeline=0)
+    jd = JDriver(JCfg(**GEO), 3, timeout_cfg=JTO(**TIMERS), pipeline=0)
     j_stream, j_st = drive_record(jd)
     runs = {}
     for depth in (0, 2):
@@ -359,10 +365,10 @@ def test_auto_recovery_matches_the_jax_driver(tmp_path):
 @pytest.mark.parametrize("kw", [
     dict(txn=True),
     dict(scan=True), dict(repair=True), dict(governor=True),
-    dict(streams=True), dict(link_model=object()), dict(metrics_port=0),
-    dict(profile_on_page=1.0), dict(alert_rules=[]), dict(leases=True),
+    dict(streams=True), dict(governor_opts={}), dict(metrics_port=0),
+    dict(profile_on_page=1.0), dict(alert_rules=[]), dict(streams_opts={}),
     dict(repair_opts={}), dict(mode="spmd"),
-    dict(health_period=1.0), dict(lease_opts={})])
+    dict(health_period=1.0), dict(alert_period=1.0)])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError):
         ClusterDriver(LogConfig(**GEO), 3, device="cpu", **kw)
@@ -496,7 +502,7 @@ def test_digest_verified_recovery_matches_jax(part, tmp_path):
 def test_later_methods_raise(call):
     """What waits for later slices raises and names its ROADMAP item
     (12: groups, 13: repair and host observability)."""
-    d = ClusterDriver(LogConfig(**GEO), 3, device="cpu")
+    d = ClusterDriver(LogConfig(**GEO), 3, device="cpu", leases=False)
     with pytest.raises(NotImplementedError, match=r"item"):
         call(d)
     with pytest.raises(RuntimeError, match="leases=False"):

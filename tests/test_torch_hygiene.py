@@ -73,7 +73,9 @@ def test_imports_with_jax_and_reference_blocked():
     names = out.stdout.split()
     assert len(names) >= 30
     for mod in ("obs.audit", "obs.device", "consensus.step",
-                "runtime.sim", "runtime.driver"):
+                "runtime.sim", "runtime.driver", "runtime.reads",
+                "chaos", "chaos.runner", "chaos.faults", "chaos.serialize",
+                "txn.records"):
         assert "rdma_paxos_tpu_torch." + mod in names, mod
 
 
@@ -233,3 +235,66 @@ def test_recovery_surface_matches_the_reference():
                  "_dump_audit_artifact"):
         assert params(getattr(tdriver.ClusterDriver, name)) == params(
             getattr(jdriver.ClusterDriver, name)), name
+
+
+def test_chaos_and_read_copies_match_the_reference():
+    """The chaos judge's and the read path's copies: the runner's
+    defaults and signature (plus the port's ``device``), the fault DSL's
+    ops, the transaction record format, the read-path labels and the
+    public signatures, with the reference's values."""
+    import inspect
+
+    import rdma_paxos_tpu.chaos.faults as jfaults
+    import rdma_paxos_tpu.chaos.runner as jrunner
+    import rdma_paxos_tpu.runtime.reads as jreads
+    import rdma_paxos_tpu.txn.records as jrecords
+    import rdma_paxos_tpu_torch.chaos.faults as tfaults
+    import rdma_paxos_tpu_torch.chaos.runner as trunner
+    import rdma_paxos_tpu_torch.runtime.reads as treads
+    import rdma_paxos_tpu_torch.txn.records as trecords
+
+    def params(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+    assert dataclasses.asdict(trunner.DEFAULT_KV_CFG) == \
+        dataclasses.asdict(jrunner.DEFAULT_KV_CFG)
+    tp = params(trunner.NemesisRunner)
+    assert tp[-1] == ("device", inspect.Parameter.KEYWORD_ONLY, None)
+    assert tp[:-1] == params(jrunner.NemesisRunner)
+    assert params(trunner._Workload) == params(jrunner._Workload)
+    assert params(trunner.NemesisRunner.replay) == params(
+        jrunner.NemesisRunner.replay)
+    assert tfaults._OPS == jfaults._OPS
+    assert tfaults.MASK_OPS == jfaults.MASK_OPS
+    for name in ("generate_schedule", "crash_replica", "restart_replica",
+                 "corrupt_slot"):
+        assert params(getattr(tfaults, name)) == params(
+            getattr(jfaults, name)), name
+    # the transaction record format
+    assert _upper_constants(trecords) == _upper_constants(jrecords)
+    assert {k for k in _upper_constants(trecords)
+            if k.startswith("TXN_")} == {
+        "TXN_PREPARE", "TXN_COMMIT", "TXN_ABORT", "TXN_MERGE", "TXN_CMD_W"}
+    assert trecords.encode_prepare(7, 1, b"key", b"v") == \
+        jrecords.encode_prepare(7, 1, b"key", b"v")
+    assert trecords.encode_merge(7, 3, 1, b"key", b"v") == \
+        jrecords.encode_merge(7, 3, 1, b"key", b"v")
+    rec = jrecords.encode_commit(9, 0b101)
+    assert trecords.encode_commit(9, 0b101) == rec
+    assert trecords.encode_abort(9, 2) == jrecords.encode_abort(9, 2)
+    t_dec, j_dec = trecords.decode_record(rec), jrecords.decode_record(rec)
+    assert t_dec[:3] == j_dec[:3] and np.array_equal(t_dec[3], j_dec[3])
+    # the read path: labels and the public signatures
+    assert _upper_constants(treads) == _upper_constants(jreads)
+    for name in ("attach", "count_read", "leader_claim", "read_counts"):
+        assert params(getattr(treads, name)) == params(
+            getattr(jreads, name)), name
+    for cls, meth in (("LeaseManager", "__init__"), ("ReadHub", "__init__"),
+                      ("ReadHub", "submit"), ("LeaseManager", "revoke_all")):
+        assert params(getattr(getattr(treads, cls), meth)) == params(
+            getattr(getattr(jreads, cls), meth)), (cls, meth)
+    # the trace kinds the chaos judge and the leases record
+    for k in ("FAULT_INJECTED", "CRASH_RESTART", "NEMESIS_VIOLATION",
+              "LEASE_GRANTED", "LEASE_RENEWED", "LEASE_EXPIRED",
+              "LEASE_REVOKED"):
+        assert getattr(ttrace, k) == getattr(jtrace, k), k
