@@ -90,7 +90,29 @@ exits non-zero without its result line):
    replayed on the card to the same violations, and the unpatched run
    clean. Protocol steps, launches, wall seconds and steps/s per run,
    and the reads served by lease and by read-index;
-10. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+10. groups, R = 3, gather fan-out, each run on the card and again with
+    ``device="cpu"`` in this process, equal, with one ``commit_window``
+    launch per protocol step over N = G·R instances: (10a)
+    ``ShardedCluster(G=1)`` at geometry (a) equal to the ``SimCluster``
+    on the card, with as many CUDA kernels per ``step()``; (10b) G = 8 at
+    geometry (a) (24 rings of 1.25 MiB) and (10c) G = 64 at
+    ``benchmarks/shard_bench.py``'s geometry: ``place_leaders()``, each
+    group's seeded SEND stream through ``step()``, ``step_burst()`` and
+    the scan tier, every group equal to the CPU run and the last group
+    to its ``SimCluster`` twin on the card; steps/s and aggregate
+    committed entries/s, kernels per ``step()``, the idle share, the
+    commit_window kernel's device time at N = 192 beside phase 5's, and
+    the host ms of ``begin_step`` and ``finish``; (10d)
+    ``ShardNemesisRunner`` seeds 0 and 2 at G = 4: verdict ``ok`` and
+    equal to the CPU run, the other groups' frontiers advancing, the
+    target group recovered; (10e) ``ShardedKVS`` at G = 4, geometry
+    (a): 256 session puts read back from every replica of each owning
+    group and linearizably from the leaseholders; (10f)
+    ``ShardedClusterDriver`` at G = 4, geometry (a): pre-queued SENDs
+    through all three replicas' shim handlers acked once each with
+    status 0 in per-group order, the per-group streams equal to a CPU
+    serial run; acked events/s;
+11. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
 after, so a failure names its phase.
@@ -663,7 +685,8 @@ def phase_kernel_times(dev, card: str) -> dict:
         print(f"times at geometry (a) on {card}, N = {N} ({G} group(s) x "
               f"{R}), W = {W}: " + kernel_line("commit_window", window[N]),
               flush=True)
-    return dict(commit_scan=scan, commit_window=window[R])
+    return dict(commit_scan=scan, commit_window=window[R],
+                commit_window_192=window[64 * R])
 
 
 def phase_times(dev, card: str):
@@ -2289,6 +2312,543 @@ def phase_chaos(dev, card: str) -> list:
     return [dict(launches=r["launches"], steps=r["steps"]) for r in runs]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: groups
+# ---------------------------------------------------------------------------
+
+# benchmarks/shard_bench.py:53's geometry, the N = 64 x 3 = 192 case
+SHARD_GEOM = dict(n_slots=2048, slot_bytes=128, window_slots=256,
+                  batch_slots=256)
+GROUP_FANOUT = "gather"
+GROUP_KV_PUTS = 256
+GROUP_CONNS_PER_REPLICA = 4
+GROUP_EVENTS_PER_CONN = 2048
+
+
+def group_sends(G: int, B: int) -> list:
+    """Each group's seeded SEND stream: six full batches of payloads of
+    1-128 bytes (lengths of a KVS command or a txn record skipped, as in
+    :func:`send_stream`), from its own seed."""
+    from rdma_paxos_tpu_torch.models.kvs import CMD_W
+    from rdma_paxos_tpu_torch.models.replicated_kvs import TXN_CMD_W
+    out = []
+    for g in range(G):
+        rng = np.random.default_rng(SEED + 100 + g)
+        lens = rng.integers(1, 129, 6 * B)
+        lens += np.isin(lens, (CMD_W * 4, TXN_CMD_W * 4))
+        out.append([bytes(rng.integers(0, 256, int(n), dtype=np.uint8))
+                    for n in lens])
+    return out
+
+
+def drive_groups(dev, geom: dict, G: int) -> dict:
+    """(10a-10c) the group engine's main path on ``dev``: place the
+    leaders round-robin, then every group's seeded SEND stream — two
+    batches through ``step()``, two through ``step_burst()``, two
+    through the scan tier — and three catch-up steps. Returns what the
+    caller compares (with the launches counted from 0 over the run)."""
+    from rdma_paxos_tpu_torch import convert
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    cfg = LogConfig(**geom)
+    B = cfg.batch_slots
+    sends = group_sends(G, B)
+    c = ShardedCluster(cfg, R, G, fanout=GROUP_FANOUT, device=dev)
+    commit_window.launches = commit_scan.launches = 0
+    t0 = time.perf_counter()
+    leaders = c.place_leaders()
+    n_place = c.step_index
+    check(leaders == [g % R for g in range(G)] and c.leaders() == leaders,
+          f"G={G}: leader placement gave {c.leaders()}")
+
+    def feed(lo, hi):
+        for g in range(G):
+            c.submit_many(g, leaders[g], [(3, 1 + i % 64, 0, p) for i, p in
+                                          enumerate(sends[g][lo:hi], lo)])
+
+    def busy():
+        return any(q for row in c.pending for q in row)
+    feed(0, 2 * B)
+    while busy():
+        c.step()
+    feed(2 * B, 4 * B)
+    while busy():
+        c.step_burst()
+    c.scan = True
+    feed(4 * B, 6 * B)
+    while busy():
+        c.step_burst()
+    c.scan = False
+    check(c.scan_dispatches > 0, f"G={G}: no scan dispatch")
+    for _ in range(3):
+        c.step()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, scans = commit_window.launches, commit_scan.launches
+    for g in range(G):
+        s0 = list(c.replayed[g][0])
+        check(all(list(c.replayed[g][r]) == s0 for r in range(R)),
+              f"G={G}: group {g}'s replicas committed different streams")
+        check([p for (t, _c, _q, p) in s0 if t == 3] == sends[g],
+              f"G={G}: group {g}'s committed SENDs are not its stream")
+        check((c.applied[g] == c.last["commit"][g]).all(),
+              f"G={G}: group {g} did not catch up")
+    return dict(steps=c.step_index, launches=launches, scans=scans,
+                wall=wall, n_place=n_place, sends=sends,
+                entries=int(sum(len(s) for s in sends)),
+                replayed=[[list(s) for s in row] for row in c.replayed],
+                state=convert.replica_state_to_numpy(c.state))
+
+
+def drive_twin(dev, geom: dict, g: int, n_place: int, sends: list) -> dict:
+    """Group ``g`` of :func:`drive_groups` as a single-group
+    ``SimCluster`` fed only that group's inputs, dispatch for
+    dispatch."""
+    from rdma_paxos_tpu_torch import convert
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    cfg = LogConfig(**geom)
+    B = cfg.batch_slots
+    s = SimCluster(cfg, R, fanout=GROUP_FANOUT, device=dev)
+    lead = g % R
+    for _ in range(n_place):
+        s.step(timeouts=[lead] if s.last is None or s.leader() != lead
+               else [])
+    for lo, mode in ((0, "step"), (2 * B, "burst"), (4 * B, "scan")):
+        s.submit_many(lead, [(3, 1 + i % 64, 0, p) for i, p in
+                             enumerate(sends[lo:lo + 2 * B], lo)])
+        s.scan = mode == "scan"
+        while s.pending[lead]:
+            s.step() if mode == "step" else s.step_burst()
+    s.scan = False
+    for _ in range(3):
+        s.step()
+    return dict(replayed=[list(x) for x in s.replayed],
+                state=convert.replica_state_to_numpy(s.state))
+
+
+def compare_runs(tag: str, a: dict, b: dict, keys=("steps", "replayed")):
+    for k in keys:
+        check(a[k] == b[k], f"{tag}: {k} differs")
+    for k, v in a["state"].items():
+        check(np.array_equal(v, b["state"][k]),
+              f"{tag}: state field {k} differs")
+
+
+def op_count(fn) -> int:
+    """The non-view PyTorch ops ``fn()`` dispatches — what decides the
+    kernels it launches, counted exactly (``torch.profiler`` drops a
+    few of the tens of thousands of kernel records of a long trace: one
+    deterministic 80-step chaos run counted 70864–70890 kernels over 16
+    profiles on an NVIDIA H100 80GB HBM3)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count() as m:
+        fn()
+    return m.n
+
+
+# the host stages of a group step, with the per-group loops of finish
+GROUP_STAGES = ("step", "begin_step", "pack_rows", "_dev", "replica_step",
+                "commit_window", "finish", "_readback", "_replay_committed",
+                "decode_window", "_stamp_appends", "_observe",
+                "leader_hint", "_maybe_rebase")
+
+
+def group_times(dev, geom: dict, G: Optional[int], card: str,
+                tag: str) -> dict:
+    """Rates and profiles of the group engine on ``dev`` (full batches
+    of 16-byte SENDs in every group; ``G=None``: the single-group
+    ``SimCluster`` instead): steps/s and aggregate committed
+    entries/s through ``step()`` and ``step_burst()``, CUDA kernels per
+    ``step()``, the device idle share, the commit_window kernel's device
+    time, and the cProfile of ``begin_step``/``finish``."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    cfg = LogConfig(**geom)
+    B = cfg.batch_slots
+    if G is not None:
+        c = ShardedCluster(cfg, R, G, fanout=GROUP_FANOUT, device=dev)
+        leaders = c.place_leaders()
+
+        def feed(n):
+            for g in range(G):
+                c.submit_many(g, leaders[g], [(3, 1, 0, b"x" * 16)] * n)
+
+        def committed():
+            return int(sum(int(c.last["commit"][g, leaders[g]])
+                           + int(c.rebased_total[g]) for g in range(G)))
+    else:
+        c = SimCluster(cfg, R, fanout=GROUP_FANOUT, device=dev)
+        lead = c.run_until_elected(0)
+
+        def feed(n):
+            c.submit_many(lead, [(3, 1, 0, b"x" * 16)] * n)
+
+        def committed():
+            return int(c.last["commit"][lead]) + int(c.rebased_total)
+    feed(2 * B)
+    for _ in range(3):
+        c.step()
+    rates = {}
+    for mode in ("step", "burst"):
+        n_disp = 20 if mode == "step" else 5
+        torch.cuda.synchronize()
+        s0, c0 = c.step_index, committed()
+        t0 = time.perf_counter()
+        for _ in range(n_disp):
+            feed(B if mode == "step" else 4 * B)
+            c.step() if mode == "step" else c.step_burst()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates[mode] = ((c.step_index - s0) / dt, (committed() - c0) / dt)
+
+    def ten_steps():
+        for _ in range(10):
+            feed(B)
+            c.step()
+    wall_ms, sprof, busy_ms, n_kern, n_copy = launch_profile(ten_steps)
+    cw = [(n, us) for k, (n, us) in sprof.items()
+          if "commit_window_kernel" in k]
+    host = host_profile(ten_steps, GROUP_STAGES)
+    ops = op_count(ten_steps) / 10
+    out = dict(kernels=n_kern / 10, copies=n_copy / 10, ops=ops, rates=rates,
+               busy_ms=busy_ms, wall_ms=wall_ms,
+               idle=(1 - busy_ms / wall_ms) if sprof else None,
+               cw_us=(cw[0][1] / cw[0][0]) if cw else None,
+               cw_launches=cw[0][0] if cw else 0, host=host)
+    if G is not None:
+        loops = host["finish"] - host["_readback"]
+        out["loop_share"] = loops / host["finish"] if host["finish"] else 0
+        out["per_group_ms"] = loops / 10 / G
+    name = "SimCluster" if G is None else f"G={G}"
+    print(f"groups ({tag}) {name} at {geom} on {card}: step(): "
+          f"{rates['step'][0]:.1f} steps/s {rates['step'][1]:.0f} "
+          f"committed entries/s (all groups); step_burst(): "
+          f"{rates['burst'][0]:.1f} steps/s {rates['burst'][1]:.0f} "
+          f"committed entries/s; {out['kernels']:.1f} CUDA kernels and "
+          f"{out['copies']:.1f} copies per step() (torch.profiler, 10 "
+          f"steps), {ops:.1f} PyTorch ops dispatched per step(); device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms, "
+          f"idle share "
+          + (f"{out['idle']:.3f}" if out["idle"] is not None
+             else "not measured")
+          + "; commit_window "
+          + (f"{out['cw_us']:.2f} us device time per launch, "
+             f"{out['cw_launches']} launches in 10 steps"
+             if cw else "not measured")
+          + "; host ms per step (cProfile, inclusive): "
+          + ", ".join(f"{k} {v / 10:.2f}" for k, v in host.items())
+          + (f"; finish outside its readback: {out['loop_share']:.3f} of "
+             f"finish, {out['per_group_ms']:.4f} ms per group per step"
+             if G is not None else ""), flush=True)
+    return out
+
+
+def drive_group_kvs(dev) -> dict:
+    """(10e) ``ShardedKVS`` at geometry (a), G = 4, with leases: 256 puts
+    over ``keys_for_groups`` keys, then every key read from every replica
+    of its group and linearizably from the group's leaseholder."""
+    from rdma_paxos_tpu_torch import convert
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.obs import Observability
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime import reads
+    from rdma_paxos_tpu_torch.shard import ShardedCluster, ShardedKVS
+    from rdma_paxos_tpu_torch.shard.chaos import keys_for_groups
+    geom, _ = GEOMETRIES["a"]
+    G = 4
+    c = ShardedCluster(LogConfig(**geom), R, G, fanout=GROUP_FANOUT,
+                       device=dev)
+    c.obs = Observability()
+    reads.attach(c)
+    commit_window.launches = 0
+    t0 = time.perf_counter()
+    c.place_leaders()
+    kv = ShardedKVS(c, cap=4096)
+    keys = [k for ks in keys_for_groups(kv.router, GROUP_KV_PUTS // G)
+            for k in ks]
+    sess = kv.session(1)
+    want = {}
+    for k in keys:
+        g, _ = sess.put(k, b"v-" + k)
+        want[k] = (g, b"v-" + k)
+    for _ in range(4):
+        c.step()
+    vals, lin = [], []
+    for k, (g, v) in want.items():
+        vals.append([kv.groups[g].get(r, k) for r in range(R)])
+        lin.append(kv.get(k, linearizable=True))
+    wall = time.perf_counter() - t0
+    check(all(v == [want[k][1]] * R for k, v in zip(want, vals)),
+          "(10e) a put did not read back from every replica of its group")
+    check(lin == [v for _, v in want.values()],
+          "(10e) a linearizable read disagrees")
+    served = reads.read_counts(c.obs)
+    check(served["lease"] > 0
+          and served["lease"] + served["read_index"] == len(keys),
+          f"(10e) linearizable reads served {served}")
+    return dict(steps=c.step_index, launches=commit_window.launches,
+                wall=wall, served=served,
+                groups=sorted({g for g, _ in want.values()}),
+                tables=[[convert.kv_state_to_numpy(t)
+                         for t in kv.groups[g].tables] for g in range(G)])
+
+
+def drive_sharded_driver(dev, pipeline: int) -> dict:
+    """(10f) ``ShardedClusterDriver`` at geometry (a), G = 4: the group
+    timers elect round-robin, then pre-queued SENDs through all three
+    replicas' shim handlers (a CONNECT held per connection, each
+    connection's keys in one group) until every event is acked."""
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
+    from rdma_paxos_tpu_torch.runtime.sharded_driver import (
+        ShardedClusterDriver)
+    geom, _ = GEOMETRIES["a"]
+    G = 4
+    d = ShardedClusterDriver(LogConfig(**geom), R, G, fanout=GROUP_FANOUT,
+                             pipeline=pipeline, device=dev,
+                             timeout_cfg=TimeoutConfig(**TIMERS_OFF),
+                             group_timer_lo=1, group_timer_hi=2)
+    try:
+        d.prewarm()
+        for _ in range(20):
+            if d.leader() >= 0:
+                break
+            d.step()
+        check(d.leaders() == [g % R for g in range(G)],
+              f"(10f) the group timers elected {d.leaders()}")
+        handlers = [d._make_handler(r) for r in range(R)]
+        evs, order = [], []
+        n_conn = GROUP_CONNS_PER_REPLICA
+        for r in range(R):
+            for i in range(n_conn):
+                conn = (r << 24) | (300 + i)
+                check(handlers[r](2, conn, b"") == 0,
+                      "(10f) a CONNECT was not held")
+                tid = r * n_conn + i
+                g = d.router.group_of(b"k%d" % tid)
+                for j in range(GROUP_EVENTS_PER_CONN):
+                    p = (b"SET k%d-%d " % (tid, j)).ljust(FRONT_BYTES, b"v")
+                    ev = handlers[r](3, conn, p)
+                    check(isinstance(ev, PendingEvent),
+                          "(10f) a SEND was refused")
+                    evs.append(ev)
+                    order.append((g, r))
+        rel = np.zeros(len(evs))
+        fired = np.zeros(len(evs), np.int64)
+
+        def mark(i, _status):
+            rel[i] = time.perf_counter()
+            fired[i] += 1
+        for i, e in enumerate(evs):
+            e.attach(functools.partial(mark, i))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        commit_window.launches = 0
+        steps0 = d.cluster.step_index
+        t0 = time.perf_counter()
+        d.run(period=0.001)
+        for i, e in enumerate(evs):
+            check(e.done.wait(300), f"(10f) event {i} was never acked")
+        wall = float(rel.max()) - t0
+        d.stop()
+        check(d.loop_error is None, f"(10f) the loop crashed: "
+                                    f"{d.loop_error!r}")
+        check([e.status for e in evs] == [0] * len(evs)
+              and (fired == 1).all(),
+              "(10f) not every event was acked once with status 0")
+        for g in range(G):
+            for r in range(R):
+                t = rel[[i for i, o in enumerate(order) if o == (g, r)]]
+                check((np.diff(t) >= 0).all(),
+                      f"(10f) group {g}'s acks on replica {r} out of order")
+        c = d.cluster
+        streams = [[list(s) for s in row] for row in c.replayed]
+        for g in range(G):
+            check(all(s == streams[g][0] for s in streams[g]),
+                  f"(10f) group {g}'s replicas committed different streams")
+        return dict(launches=commit_window.launches,
+                    steps=c.step_index - steps0, wall=wall,
+                    events=len(evs), streams=streams,
+                    max_inflight=c.max_inflight_dispatches)
+    finally:
+        d.stop()
+
+
+def phase_groups(dev, card: str, sim_kernels: float, times: dict) -> list:
+    """Phase 10: G groups of R = 3 on the card with the gather fan-out;
+    returns the protocol steps and commit_window launches of its
+    main-path runs."""
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.shard.chaos import ShardNemesisRunner
+    cpu = torch.device("cpu")
+    geom_a, _ = GEOMETRIES["a"]
+    runs = []
+
+    # (10a) G = 1 against the single-group engine, results and kernels
+    g1 = drive_groups(dev, geom_a, 1)
+    check(g1["launches"] == g1["steps"] > 0 and g1["scans"] == 0,
+          f"(10a) {g1['launches']} commit_window launches in "
+          f"{g1['steps']} protocol steps")
+    twin = drive_twin(dev, geom_a, 0, g1["n_place"], g1["sends"][0])
+    check(twin["replayed"] == g1["replayed"][0],
+          "(10a) G=1 replayed differently from the SimCluster")
+    for k, v in twin["state"].items():
+        check(np.array_equal(v, g1["state"][k][0]),
+              f"(10a) G=1 state field {k} differs from the SimCluster")
+    runs.append(g1)
+    t_sim = group_times(dev, geom_a, None, card, "10a")
+    t_g1 = group_times(dev, geom_a, 1, card, "10a")
+    check(t_g1["ops"] == t_sim["ops"],
+          f"(10a) G=1 dispatches {t_g1['ops']} ops per step(), the "
+          f"SimCluster {t_sim['ops']}")
+    print(f"groups (10a) on {card}: ShardedCluster(G=1) at geometry (a) "
+          f"{GROUP_FANOUT}: {g1['steps']} protocol steps, {g1['launches']} "
+          f"commit_window launches, {g1['entries']} SENDs, results and "
+          f"state equal to the SimCluster on the card; "
+          f"{t_g1['kernels']:.1f} CUDA kernels per step() against the "
+          f"SimCluster's {t_sim['kernels']:.1f} (torch.profiler; phase 5, "
+          f"psum: {sim_kernels:.1f}), the same {t_g1['ops']:.1f} PyTorch "
+          f"ops dispatched per step() by both", flush=True)
+
+    # (10b) G = 8 and (10c) G = 64: one launch per protocol step over
+    # N = G x R, every group equal to the CPU run, one group to its twin
+    per_g = {}
+    for tag, geom, G in (("10b", geom_a, 8), ("10c", SHARD_GEOM, 64)):
+        gpu = drive_groups(dev, geom, G)
+        check(gpu["launches"] == gpu["steps"] > 0 and gpu["scans"] == 0,
+              f"({tag}) {gpu['launches']} commit_window launches in "
+              f"{gpu['steps']} protocol steps")
+        t0 = time.perf_counter()
+        ref = drive_groups(cpu, geom, G)
+        compare_runs(f"({tag}) the CPU run", gpu, ref)
+        cpu_s = time.perf_counter() - t0
+        tg = G - 1
+        twin = drive_twin(dev, geom, tg, gpu["n_place"], gpu["sends"][tg])
+        check(twin["replayed"] == gpu["replayed"][tg],
+              f"({tag}) group {tg} replayed differently from its twin")
+        for k, v in twin["state"].items():
+            check(np.array_equal(v, gpu["state"][k][tg]),
+                  f"({tag}) group {tg}'s state field {k} differs from its "
+                  f"twin")
+        runs.append(gpu)
+        per_g[G] = group_times(dev, geom, G, card, tag)
+        check(per_g[G]["ops"] == t_g1["ops"],
+              f"({tag}) G={G} dispatches {per_g[G]['ops']} ops per step(), "
+              f"G=1 {t_g1['ops']}: the group step is not one pass")
+        print(f"groups ({tag}) on {card}: G={G} at {geom} "
+              f"{GROUP_FANOUT}: leaders placed round-robin, "
+              f"{gpu['steps']} protocol steps, {gpu['launches']} "
+              f"commit_window launches (one per step over N = "
+              f"{G * R}), {gpu['entries']} SENDs in {gpu['wall']:.2f} s "
+              f"on the card; every group equal to the CPU run "
+              f"({cpu_s:.1f} s), group {tg} to its SimCluster twin on "
+              f"the card; kernels per step() {per_g[G]['kernels']:.1f} "
+              f"against G=1's {t_g1['kernels']:.1f} (torch.profiler), ops "
+              f"dispatched per step() {per_g[G]['ops']:.1f} as at G=1",
+              flush=True)
+    syn = times.get("commit_window_192", {}).get("ms")
+    own = per_g[64]["cw_us"]
+    print(f"groups (10c) on {card}: commit_window at N = 192, W = "
+          f"{SHARD_GEOM['window_slots']} on the main path "
+          + (f"{own:.2f} us" if own is not None else "not measured")
+          + " device time per launch (torch.profiler); phase 5's synthetic"
+          f" N = 192, W = {geom_a['window_slots']}: "
+          + (f"{syn * 1e3:.2f} us" if syn is not None else "not measured"),
+          flush=True)
+
+    # (10d) the shard nemesis, seeds 0 and 2, each with its CPU twin
+    for seed, kw in ((0, dict(steps=40, crash_step=15)),
+                     (2, dict(steps=36, crash_step=14))):
+        out = {}
+        for d_ in (dev, cpu):
+            commit_window.launches = commit_scan.launches = 0
+            t0 = time.perf_counter()
+            r = ShardNemesisRunner(n_replicas=R, n_groups=4, seed=seed,
+                                   device=d_, **kw)
+            v = r.run()
+            out[d_.type] = dict(
+                verdict=json.dumps(v, sort_keys=True),
+                history=r.history.to_jsonl(),
+                ledger=json.dumps(no_anchor(r.shard.auditor.dump()),
+                                  sort_keys=True),
+                steps=r.shard.step_index, launches=commit_window.launches,
+                scans=commit_scan.launches, wall=time.perf_counter() - t0,
+                v=v)
+        g, c_ = out["cuda"], out["cpu"]
+        v = g["v"]
+        for k in ("verdict", "history", "ledger", "steps"):
+            check(g[k] == c_[k], f"(10d) seed {seed}: {k} differs from the "
+                                 f"CPU run")
+        f = v["frontiers"]
+        check(v["ok"] and v["target_recovered"]
+              and all(f["at_heal"][x] > f["at_crash"][x] for x in range(4)
+                      if x != v["target_group"]),
+              f"(10d) seed {seed}: {v}")
+        check(g["launches"] == g["steps"] > 0 and g["scans"] == 0,
+              f"(10d) seed {seed}: {g['launches']} launches in "
+              f"{g['steps']} protocol steps")
+        runs.append(g)
+        print(f"groups (10d) on {card}: ShardNemesisRunner seed {seed} "
+              f"G=4 {kw}: verdict ok, leader {v['crashed_leader']} of "
+              f"group {v['target_group']} crashed and replaced by "
+              f"{v['new_leader']}, the other groups' frontiers advanced "
+              f"{f['at_crash']} -> {f['at_heal']}; verdict, history and "
+              f"ledger equal to the CPU run; {g['steps']} protocol steps, "
+              f"{g['launches']} commit_window launches, {g['wall']:.2f} s "
+              f"on the card ({g['steps'] / g['wall']:.1f} steps/s), "
+              f"{c_['wall']:.2f} s on the CPU", flush=True)
+
+    # (10e) ShardedKVS
+    kv = drive_group_kvs(dev)
+    ref = drive_group_kvs(cpu)
+    check(kv["steps"] == ref["steps"] and all(
+        np.array_equal(a[k], b[k]) for ga, gb in zip(kv["tables"],
+                                                      ref["tables"])
+        for a, b in zip(ga, gb) for k in a),
+        "(10e) the KVS tables differ from the CPU run")
+    check(kv["launches"] == kv["steps"] > 0,
+          f"(10e) {kv['launches']} launches in {kv['steps']} steps")
+    runs.append(kv)
+    print(f"groups (10e) on {card}: ShardedKVS G=4 at geometry (a): "
+          f"{GROUP_KV_PUTS} session puts over groups {kv['groups']} read "
+          f"back from 3/3 replicas of each group and by lease from each "
+          f"leaseholder ({kv['served']}); tables equal to the CPU run; "
+          f"{kv['steps']} protocol steps, {kv['launches']} commit_window "
+          f"launches, {kv['wall']:.2f} s on the card", flush=True)
+
+    # (10f) the sharded driver, pipelined on the card, serial on the CPU
+    drv = drive_sharded_driver(dev, pipeline=2)
+    ref = drive_sharded_driver(cpu, pipeline=0)
+    check(drv["streams"] == ref["streams"],
+          "(10f) the per-group committed streams differ from the CPU run")
+    check(drv["launches"] == drv["steps"] > 0,
+          f"(10f) {drv['launches']} launches in {drv['steps']} steps")
+    runs.append(drv)
+    print(f"groups (10f) on {card}: ShardedClusterDriver G=4 at geometry "
+          f"(a), pipeline=2: {drv['events']} SEND events of {FRONT_BYTES} B"
+          f" on {R * GROUP_CONNS_PER_REPLICA} connections through 3 "
+          f"replicas acked once each with status 0, in order per group, "
+          f"in {drv['wall'] * 1e3:.1f} ms = "
+          f"{drv['events'] / drv['wall']:.0f} acked events/s; "
+          f"{drv['steps']} protocol steps, {drv['launches']} "
+          f"commit_window launches, max_inflight_dispatches "
+          f"{drv['max_inflight']}; streams equal to the CPU serial run",
+          flush=True)
+    return [dict(launches=r["launches"], steps=r["steps"]) for r in runs]
+
+
 class Phase:
     """Prints ``phase N start`` (flushed) on entry and the phase's wall
     time on exit, so a failure names its phase."""
@@ -2358,6 +2918,9 @@ def main() -> int:
     with Phase(9, "the chaos judge (9a defaults, 9b geometry (a), "
                   "9c the dedup bug)"):
         main_runs += phase_chaos(dev, smi)
+    with Phase(10, "groups (10a G=1, 10b G=8, 10c G=64, 10d shard "
+                   "nemesis, 10e ShardedKVS, 10f sharded driver)"):
+        main_runs += phase_groups(dev, smi, kernels_per_step, times)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

@@ -233,25 +233,27 @@ def corrupt_slot(cluster, r: int, g_idx: int, *,
                  group: Optional[int] = None, word: int = 0) -> None:
     """Add one to a payload word of the slot holding global index
     ``g_idx`` in replica ``r``'s device log memory (int32 wrap) — the
-    SILENT fault the audit subsystem detects. Pure state surgery (no
-    link/timer effects); callers must be on the drained serial path.
-    The ring is rewritten into a fresh tensor, never in place: the
-    previous step's outputs alias the state. ``group`` (a sharded
-    cluster) is not ported (ROADMAP Queue 1, item 12)."""
+    SILENT fault the audit subsystem detects. ``group`` targets one
+    consensus group of a sharded cluster (and is refused on an
+    unsharded one, as its absence is on a sharded one). Pure state
+    surgery (no link/timer effects); callers must be on the drained
+    serial path. The ring is rewritten into a fresh tensor, never in
+    place: the previous step's outputs alias the state."""
     import dataclasses as _dc
 
     from rdma_paxos_tpu_torch.consensus.log import Log as _Log
 
-    if group is not None:
-        raise NotImplementedError(
-            "corrupt_slot(group=...): sharded clusters are not ported "
-            "(ROADMAP Queue 1, item 12)")
+    sharded = cluster.state.log.buf.dim() == 4
+    if sharded != (group is not None):
+        raise ValueError("corrupt_slot(group=%r) on a %s cluster" % (
+            group, "sharded" if sharded else "single-group"))
     slot = int(g_idx) & (cluster.cfg.n_slots - 1)
+    at = ((int(r),) if group is None else (int(group), int(r))) + (
+        slot, int(word))
     with cluster._host_lock:
         buf = cluster.state.log.buf.clone()
-        v = int(buf[int(r), slot, int(word)])
-        buf[int(r), slot, int(word)] = ((v + 1 + (1 << 31))
-                                        & 0xFFFFFFFF) - (1 << 31)
+        v = int(buf[at])
+        buf[at] = ((v + 1 + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
         cluster.state = _dc.replace(cluster.state, log=_Log(buf=buf))
 
 

@@ -24,8 +24,9 @@ digests=True)`` digests the donor's physically present committed prefix
 on the host with the step's fold (``consensus/step.py:digest_fold_np``),
 and ``install_snapshot(ledger=...)`` runs :func:`verify_snapshot` before
 it touches any state, refusing a donor that contradicts the ledger's
-majority digests. Not ported yet: the group axis (ROADMAP Queue 1, item
-12); ``group=`` raises ``NotImplementedError``.
+majority digests. ``group=`` selects one consensus group's replica row
+of a sharded ``[G, R]`` state (``ShardedCluster``); on an unsharded
+``[R]`` state it raises, as does its absence on a sharded one.
 """
 
 from __future__ import annotations
@@ -46,9 +47,6 @@ from rdma_paxos_tpu_torch.obs import trace as obs_trace
 from rdma_paxos_tpu_torch.obs.metrics import default_registry
 from rdma_paxos_tpu_torch.obs.trace import default_ring
 
-GROUPS_LATER = ("the group axis (sharded [G, R] state) is not ported yet "
-                "(ROADMAP Queue 1, item 12)")
-
 
 class SnapshotVerifyError(RuntimeError):
     """The snapshot's digest chain contradicts the audit ledger's
@@ -62,11 +60,22 @@ class SnapshotEpochError(SnapshotVerifyError):
 
 
 def _row_idx(group, r):
-    """State-row index tuple: ``(r,)`` on the [R]-batched state. The
-    group axis (``(group, r)``) comes with the sharded engine."""
-    if group is not None:
-        raise NotImplementedError("group=: " + GROUPS_LATER)
-    return (int(r),)
+    """State-row index tuple: ``(r,)`` on the [R]-batched SimCluster
+    state, ``(group, r)`` on the [G, R]-batched sharded state — the one
+    place the snapshot path widens by the group axis."""
+    return (int(r),) if group is None else (int(group), int(r))
+
+
+def _state_idx(state_b: ReplicaState, group, r):
+    """:func:`_row_idx`, refusing a ``group`` that does not match the
+    state's rank (an index of the wrong rank would select a ring slot
+    or a whole group instead of one replica's row)."""
+    sharded = state_b.term.dim() == 2
+    if sharded != (group is not None):
+        raise ValueError(
+            "group=%r on a %s state" % (
+                group, "sharded [G, R]" if sharded else "[R]-batched"))
+    return _row_idx(group, r)
 
 
 @dataclasses.dataclass
@@ -120,7 +129,7 @@ def take_snapshot(state_b: ReplicaState, donor: int,
     (``rebased_total`` added) with ``config.DIGEST_EPOCH``. Entries whose
     stamped gidx disagrees with the expected index (a recycled slot)
     truncate the chain from below."""
-    idx = _row_idx(group, donor)
+    idx = _state_idx(state_b, group, donor)
     log = state_b.log
     if index is None:
         index = int(state_b.apply[idx])
@@ -210,9 +219,12 @@ def recover_vote(state_b: ReplicaState, r: int, peers=None, *,
     Returns the newest ``(voted_term, voted_for)`` any queried peer
     retains for ``r`` (query BEFORE installing a snapshot into ``r``).
     ``peers`` defaults to everyone except ``r``: a crashed replica's own
-    record is exactly what the crash lost."""
-    _row_idx(group, r)
+    record is exactly what the crash lost. ``group`` selects one
+    consensus group's records on the sharded state."""
+    _state_idx(state_b, group, r)
     rec_t, rec_f = state_b.vote_rec_term, state_b.vote_rec_for
+    if group is not None:
+        rec_t, rec_f = rec_t[int(group)], rec_f[int(group)]
     if peers is None:
         peers = [p for p in range(rec_t.shape[0]) if p != r]
     sel = list(peers)
@@ -294,7 +306,7 @@ def install_snapshot(state_b: ReplicaState, r: int, snap: Snapshot, *,
 
     A member mask with bit 31 installs as its u32 bit pattern (the JAX
     package's install raises ``OverflowError`` on such a mask)."""
-    idx = _row_idx(group, r)
+    idx = _state_idx(state_b, group, r)
     if ledger is not None:
         lg = group if ledger_group is None else ledger_group
         verify_snapshot(snap, ledger, group=(lg or 0),

@@ -18,6 +18,15 @@ committed-config checkpoint. F and G's commit-crossing window search
 are one call, ``ops/quorum.py:commit_window`` (one CUDA kernel that
 reads the ring in place on the card).
 
+The same function steps G independent groups of R replicas at once
+(the JAX ``group_step``, there ``replica_step`` under two ``vmap`` calls):
+every state and input tensor then carries a leading group axis
+(``[G, R, ...]``), every cross-replica read and reduction runs over the
+trailing replica axes only — no value ever crosses the group axis — and
+the per-instance ring work runs on the N = G·R instances as rows. One
+step of all G groups is one set of launches, with one ``commit_window``
+launch over N = G·R instances.
+
 Two optional variants add outputs and change nothing else:
 ``audit=True`` emits the digest chain of the committed window (one u32
 :func:`digest_fold` checksum per entry of ``[commit - W, commit)``, read
@@ -70,7 +79,8 @@ S_VALID, S_WSTART, S_WCOUNT, S_TERM, S_PREV, S_COMMIT, S_HEAD, S_N = range(8)
 
 @dataclasses.dataclass
 class StepInput:
-    """Host->device inputs of one step, ``[R, ...]``."""
+    """Host->device inputs of one step, ``[R, ...]`` (``[G, R, ...]``
+    for a group step)."""
 
     batch_data: torch.Tensor    # [R, B, slot_words] i32
     batch_meta: torch.Tensor    # [R, B, META_W] i32
@@ -83,7 +93,8 @@ class StepInput:
 
 @dataclasses.dataclass
 class StepOutput:
-    """Device->host results of one step, ``[R]`` (``peer_acked [R, R]``)."""
+    """Device->host results of one step, ``[R]`` (``peer_acked [R,
+    R]``), with the group axis in front for a group step."""
 
     term: torch.Tensor
     role: torch.Tensor
@@ -120,24 +131,27 @@ VARIANT_FIELDS = tuple(f.name for f in dataclasses.fields(StepOutput)
                        if f.default is None)
 
 
-def make_step_input(cfg, n_replicas: int, *, device) -> StepInput:
-    """An idle (no client traffic, no timeout) input for R replicas."""
-    R = n_replicas
+def make_step_input(cfg, n_replicas: int, *, device,
+                    n_groups: Optional[int] = None) -> StepInput:
+    """An idle (no client traffic, no timeout) input for R replicas (of
+    each of ``n_groups`` groups, which adds the leading group axis)."""
+    rs = (n_replicas,) if n_groups is None else (n_groups, n_replicas)
 
     def z(*shape):
-        return torch.zeros(shape, dtype=I32, device=device)
+        return torch.zeros(rs + shape, dtype=I32, device=device)
     return StepInput(
-        batch_data=z(R, cfg.batch_slots, cfg.slot_words),
-        batch_meta=z(R, cfg.batch_slots, META_W),
-        batch_count=z(R), timeout_fired=z(R),
-        peer_mask=torch.ones((R, R), dtype=I32, device=device),
-        apply_done=z(R), queue_depth=z(R))
+        batch_data=z(cfg.batch_slots, cfg.slot_words),
+        batch_meta=z(cfg.batch_slots, META_W),
+        batch_count=z(), timeout_fired=z(),
+        peer_mask=torch.ones(rs + (n_replicas,), dtype=I32, device=device),
+        apply_done=z(), queue_depth=z())
 
 
 def _members(bitmask: torch.Tensor, n: int) -> torch.Tensor:
-    """``[R] u32-in-int64`` bitmasks -> ``[R, n]`` 0/1 i32 membership."""
+    """``[..., R] u32-in-int64`` bitmasks -> ``[..., R, n]`` 0/1 i32
+    membership."""
     r = torch.arange(n, device=bitmask.device)
-    return ((bitmask[:, None] >> r) & 1).to(I32)
+    return ((bitmask[..., None] >> r) & 1).to(I32)
 
 
 def _u32(words: torch.Tensor) -> torch.Tensor:
@@ -150,9 +164,22 @@ def _maj(members: torch.Tensor) -> torch.Tensor:
 
 
 def _pick(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``t[r, idx[r]]`` for ``t [R, n, ...]``, ``idx [R]`` (clamped >= 0)."""
-    r = torch.arange(t.shape[0], device=t.device)
-    return t[r, torch.clamp(idx, min=0).long()]
+    """Per instance, ``t[i, idx[i]]`` for ``t [..., R, n, ...]`` and
+    ``idx [..., R]`` (clamped >= 0), the instances as N rows."""
+    N = idx.numel()
+    tf = t.reshape(N, *t.shape[idx.dim():])
+    r = torch.arange(N, device=t.device)
+    out = tf[r, torch.clamp(idx, min=0).long().reshape(-1)]
+    return out.view(*idx.shape, *out.shape[1:])
+
+
+def _from_sender(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per receiver, the sender ``idx`` row of ``t``: ``out[..., i, ...]
+    = t[..., idx[..., i], ...]`` for ``t [..., R, ...]`` and ``idx
+    [..., R]`` (int64, >= 0) — within each group, never across."""
+    d = idx.dim() - 1
+    ix = idx.view(*idx.shape, *([1] * (t.dim() - idx.dim())))
+    return torch.gather(t, d, ix.expand(*idx.shape, *t.shape[d + 1:]))
 
 
 # the audit fold's constants (FNV-1a prime and offset basis, then a
@@ -279,38 +306,43 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
         raise ValueError(f"unknown fanout {fanout!r}")
     R, W = n_replicas, cfg.window_slots
     dev = state.term.device
+    rs = tuple(state.term.shape)                 # [R], or [G, R]
     log = state.log
     me = torch.arange(R, dtype=I32, device=dev)
     peer = me[None, :]                                     # sender index
     eye = me[:, None] == peer
-    heard = inp.peer_mask.bool()                           # [R, R]
+    heard = inp.peer_mask.bool()                           # [..., R, R]
 
-    in_new = _members(state.bitmask_new, R)                # [R, R]
+    def diag(t):
+        return t.diagonal(dim1=-2, dim2=-1)
+
+    in_new = _members(state.bitmask_new, R)                # [..., R, R]
     in_old = _members(state.bitmask_old, R)
     transit = (state.cid_state == int(ConfigState.TRANSIT)).to(I32)
     ext = state.cid_state == int(ConfigState.EXTENDED)
-    in_vote = torch.where(ext[:, None], in_old, in_new)
+    in_vote = torch.where(ext[..., None], in_old, in_new)
     maj_vote = _maj(in_vote)
     maj_old = _maj(in_old)
-    i_member = (torch.diagonal(in_vote) > 0) | (
-        (transit > 0) & (torch.diagonal(in_old) > 0))
+    i_member = (diag(in_vote) > 0) | ((transit > 0) & (diag(in_old) > 0))
     my_lterm = last_term(log, state.end)
 
     # ---- Phase A: control gather (every receiver reads the stack) ----
     g_term, g_end, g_lterm = state.term, state.end, my_lterm
     g_apply = torch.minimum(inp.apply_done, state.commit)
-    rec_upd0 = heard & (state.voted_term[None, :] > state.vote_rec_term)
-    vote_rec_term1 = torch.where(rec_upd0, state.voted_term[None, :],
+    rec_upd0 = heard & (state.voted_term[..., None, :]
+                        > state.vote_rec_term)
+    vote_rec_term1 = torch.where(rec_upd0, state.voted_term[..., None, :],
                                  state.vote_rec_term)
-    vote_rec_for1 = torch.where(rec_upd0, state.voted_for[None, :],
+    vote_rec_for1 = torch.where(rec_upd0, state.voted_for[..., None, :],
                                 state.vote_rec_for)
 
     # ---- Phase B: one-round election ----
     if not elections:
         new_voted_term, new_voted_for = state.voted_term, state.voted_for
         vote_rec_term2, vote_rec_for2 = vote_rec_term1, vote_rec_for1
-        became = torch.zeros(R, dtype=torch.bool, device=dev)
-        max_heard = torch.where(heard, g_term[None, :], I32_MIN).max(1).values
+        became = torch.zeros(rs, dtype=torch.bool, device=dev)
+        max_heard = torch.where(heard, g_term[..., None, :],
+                                I32_MIN).max(-1).values
         new_term = torch.maximum(state.term, max_heard)
         role = torch.where(new_term > state.term, int(Role.FOLLOWER),
                            state.role).to(I32)
@@ -322,44 +354,46 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
             log, state.end, state.head, inp.batch_data, inp.batch_meta,
             torch.where(i_lead, inp.batch_count, 0).to(I32), new_term)
     else:
-        is_cand = (inp.timeout_fired > 0)[None, :] & (in_vote > 0)
+        is_cand = (inp.timeout_fired > 0)[..., None, :] & (in_vote > 0)
         cand_term = g_term + 1                             # [R] by sender
-        i_cand = torch.diagonal(is_cand) & (state.role != int(Role.LEADER))
+        i_cand = diag(is_cand) & (state.role != int(Role.LEADER))
         can_grant = (
             heard & is_cand
-            & (cand_term[None, :] >= state.term[:, None])
-            & ((cand_term[None, :] > state.voted_term[:, None])
-               | ((cand_term[None, :] == state.voted_term[:, None])
-                  & (peer == state.voted_for[:, None])))
-            & ((g_lterm[None, :] > my_lterm[:, None])
-               | ((g_lterm[None, :] == my_lterm[:, None])
-                  & (g_end[None, :] >= state.end[:, None]))))
-        keys = [k[None, :].expand(R, R) for k in (cand_term, g_lterm, g_end)]
+            & (cand_term[..., None, :] >= state.term[..., :, None])
+            & ((cand_term[..., None, :] > state.voted_term[..., :, None])
+               | ((cand_term[..., None, :] == state.voted_term[..., :, None])
+                  & (peer == state.voted_for[..., :, None])))
+            & ((g_lterm[..., None, :] > my_lterm[..., :, None])
+               | ((g_lterm[..., None, :] == my_lterm[..., :, None])
+                  & (g_end[..., None, :] >= state.end[..., :, None]))))
+        keys = [k[..., None, :].expand(heard.shape)
+                for k in (cand_term, g_lterm, g_end)]
         best = lex_argmax(can_grant, keys)
         my_vote = torch.where(i_cand, me,
                               torch.where(i_member, best, -1)).to(I32)
         vote_cast = my_vote >= 0
         new_voted_term = torch.where(
             vote_cast,
-            torch.maximum(state.voted_term,
-                          cand_term[torch.clamp(my_vote, min=0).long()]),
+            torch.maximum(state.voted_term, _from_sender(
+                cand_term, torch.clamp(my_vote, min=0).long())),
             state.voted_term)
         new_voted_for = torch.where(vote_cast, my_vote, state.voted_for)
 
-        got = (my_vote[None, :] == me[:, None]) & heard
-        rec_upd = heard & (new_voted_term[None, :] > vote_rec_term1)
-        vote_rec_term2 = torch.where(rec_upd, new_voted_term[None, :],
+        got = (my_vote[..., None, :] == me[:, None]) & heard
+        rec_upd = heard & (new_voted_term[..., None, :] > vote_rec_term1)
+        vote_rec_term2 = torch.where(rec_upd, new_voted_term[..., None, :],
                                      vote_rec_term1)
-        vote_rec_for2 = torch.where(rec_upd, new_voted_for[None, :],
+        vote_rec_for2 = torch.where(rec_upd, new_voted_for[..., None, :],
                                     vote_rec_for1)
         got_i = got.to(I32)
-        win = (i_cand & ((got_i * in_vote).sum(1) >= maj_vote)
+        win = (i_cand & ((got_i * in_vote).sum(-1) >= maj_vote)
                & torch.where(transit > 0,
-                             (got_i * in_old).sum(1) >= maj_old, True))
+                             (got_i * in_old).sum(-1) >= maj_old, True))
 
         my_term1 = torch.where(i_cand, state.term + 1, state.term)
-        eff_term = torch.where(is_cand, cand_term[None, :], g_term[None, :])
-        max_heard = torch.where(heard, eff_term, I32_MIN).max(1).values
+        eff_term = torch.where(is_cand, cand_term[..., None, :],
+                               g_term[..., None, :])
+        max_heard = torch.where(heard, eff_term, I32_MIN).max(-1).values
         new_term = torch.maximum(my_term1, max_heard)
         role = torch.where(
             win, int(Role.LEADER),
@@ -373,8 +407,9 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
                                  state.leader_id)).to(I32)
 
         # ---- Phase C: leader append (NOOP on election, then batch) ----
-        noop_data = torch.zeros((R, 1, cfg.slot_words), dtype=I32, device=dev)
-        noop_meta = torch.zeros((R, 1, META_W), dtype=I32, device=dev)
+        noop_data = torch.zeros(rs + (1, cfg.slot_words), dtype=I32,
+                                device=dev)
+        noop_meta = torch.zeros(rs + (1, META_W), dtype=I32, device=dev)
         noop_meta[..., M_TYPE] = int(EntryType.NOOP)
         log1, end1 = append_batch(log, state.end, state.head, noop_data,
                                   noop_meta, became.to(I32), new_term)
@@ -384,38 +419,40 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
 
     # ---- Phase D: leader fan-out ----
     others = heard & (in_new > 0) & ~eye
-    min_end = torch.where(others, g_end[None, :], I32_MAX).min(1).values
+    min_end = torch.where(others, g_end[..., None, :], I32_MAX
+                          ).min(-1).values
     wstart = torch.minimum(torch.maximum(min_end, end2 - W), end2)
     wstart = torch.clamp(torch.maximum(wstart, state.head), min=0)
     wcount = torch.clamp(end2 - wstart, 0, W).to(I32)
     wdata, wmeta = extract_window(log2, wstart, W)
     prev_term = torch.where(wstart > 0, term_at(log2, wstart - 1), 0)
-    min_apply = torch.where(heard & (in_new > 0), g_apply[None, :],
-                            I32_MAX).min(1).values
+    min_apply = torch.where(heard & (in_new > 0), g_apply[..., None, :],
+                            I32_MAX).min(-1).values
 
     contrib = i_lead.to(I32)
     msg_scal = torch.stack([
         torch.ones_like(wstart), wstart, wcount, new_term, prev_term,
-        state.commit, state.head], dim=1) * contrib[:, None]  # [R, S_N]
-    claim = heard & (msg_scal[None, :, S_VALID] > 0)
-    dom = lex_argmax(claim, [msg_scal[None, :, S_TERM].expand(R, R)])
+        state.commit, state.head], dim=-1) * contrib[..., None]  # [R, S_N]
+    claim = heard & (msg_scal[..., None, :, S_VALID] > 0)
+    dom = lex_argmax(claim,
+                     [msg_scal[..., None, :, S_TERM].expand(heard.shape)])
     has_msg = dom >= 0
     dsafe = torch.clamp(dom, min=0).long()
-    m_scal = msg_scal[dsafe]                               # [R, S_N]
-    m_term = m_scal[:, S_TERM]
+    m_scal = _from_sender(msg_scal, dsafe)                 # [R, S_N]
+    m_term = m_scal[..., S_TERM]
     if fanout == "psum":
-        m_data = (wdata * contrib[:, None, None]).sum(0, dtype=torch.int64
-                                                       ).to(I32)
-        m_meta = (wmeta * contrib[:, None, None]).sum(0, dtype=torch.int64
-                                                       ).to(I32)
-        m_data = m_data[None].expand(R, -1, -1)
-        m_meta = m_meta[None].expand(R, -1, -1)
+        m_data = (wdata * contrib[..., None, None]).sum(
+            -3, dtype=torch.int64).to(I32)
+        m_meta = (wmeta * contrib[..., None, None]).sum(
+            -3, dtype=torch.int64).to(I32)
+        m_data = m_data[..., None, :, :].expand(wdata.shape)
+        m_meta = m_meta[..., None, :, :].expand(wmeta.shape)
     else:
-        m_data = (wdata * contrib[:, None, None])[dsafe]
-        m_meta = (wmeta * contrib[:, None, None])[dsafe]
+        m_data = _from_sender(wdata * contrib[..., None, None], dsafe)
+        m_meta = _from_sender(wmeta * contrib[..., None, None], dsafe)
 
     # ---- Phase E: term-gated absorb ----
-    use = has_msg & (m_scal[:, S_VALID] > 0) & (m_term >= new_term)
+    use = has_msg & (m_scal[..., S_VALID] > 0) & (m_term >= new_term)
     new_term2 = torch.where(use, torch.maximum(new_term, m_term), new_term)
     role2 = torch.where(
         use & ((m_term > new_term) | (dom != me)),
@@ -424,10 +461,10 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     leader_id2 = torch.where(use, dom, leader_id)
     i_lead2 = role2 == int(Role.LEADER)
 
-    m_wstart, m_wcount = m_scal[:, S_WSTART], m_scal[:, S_WCOUNT]
+    m_wstart, m_wcount = m_scal[..., S_WSTART], m_scal[..., S_WCOUNT]
     gap = m_wstart > end2
     local_prev = torch.where(m_wstart > 0, term_at(log2, m_wstart - 1), 0)
-    prev_ok = (m_wstart == 0) | (local_prev == m_scal[:, S_PREV])
+    prev_ok = (m_wstart == 0) | (local_prev == m_scal[..., S_PREV])
     can_absorb = use & ~gap & prev_ok
     log3, end3 = absorb_window(log2, end2, m_data, m_meta, m_wstart,
                                torch.where(can_absorb, m_wcount, 0))
@@ -436,12 +473,12 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     commit1 = torch.where(
         can_absorb & ~i_lead2,
         torch.maximum(state.commit,
-                      torch.minimum(torch.minimum(m_scal[:, S_COMMIT], end3),
+                      torch.minimum(torch.minimum(m_scal[..., S_COMMIT], end3),
                                     state.commit + W)),
         state.commit)
     head1 = torch.where(
         can_absorb,
-        torch.maximum(state.head, torch.minimum(m_scal[:, S_HEAD], commit1)),
+        torch.maximum(state.head, torch.minimum(m_scal[..., S_HEAD], commit1)),
         state.head)
 
     # ---- CONFIG derivation (latest CONFIG in the log, else checkpoint) ----
@@ -450,9 +487,9 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     stale_src = state.cfg_src >= end3
     wp = torch.clamp(state.cfg_src - m_wstart, 0, W - 1)
     wp_meta = _pick(m_meta, wp)
-    same_entry = ((wp_meta[:, M_GIDX] == state.cfg_src)
-                  & (wp_meta[:, M_TYPE] == int(EntryType.CONFIG))
-                  & (wp_meta[:, M_TERM] == state.cfg_src_term))
+    same_entry = ((wp_meta[..., M_GIDX] == state.cfg_src)
+                  & (wp_meta[..., M_TYPE] == int(EntryType.CONFIG))
+                  & (wp_meta[..., M_TERM] == state.cfg_src_term))
     replaced = (can_absorb & (state.cfg_src >= m_wstart)
                 & (state.cfg_src < wend_abs) & ~same_entry)
     cfg_invalid = (state.cfg_src >= 0) & (stale_src | replaced)
@@ -460,67 +497,67 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     all_meta = log3.meta
     all_gidx = all_meta[..., M_GIDX]                       # [R, n_slots]
     live = ((all_meta[..., M_TYPE] == int(EntryType.CONFIG))
-            & (all_gidx >= head1[:, None]) & (all_gidx < end3[:, None]))
+            & (all_gidx >= head1[..., None]) & (all_gidx < end3[..., None]))
     pos = lex_argmax(live, [all_gidx])
     found = pos >= 0
     rw = _pick(log3.buf, pos)                              # [R, cols]
     base_src = torch.where(
-        cfg_invalid, torch.where(found, rw[:, sw + M_GIDX], -1),
+        cfg_invalid, torch.where(found, rw[..., sw + M_GIDX], -1),
         state.cfg_src)
     base_sterm = torch.where(
-        cfg_invalid, torch.where(found, rw[:, sw + M_TERM], 0),
+        cfg_invalid, torch.where(found, rw[..., sw + M_TERM], 0),
         state.cfg_src_term)
     base_old = torch.where(
-        cfg_invalid, torch.where(found, _u32(rw[:, 0]), state.ccfg_old),
+        cfg_invalid, torch.where(found, _u32(rw[..., 0]), state.ccfg_old),
         state.bitmask_old)
     base_new = torch.where(
-        cfg_invalid, torch.where(found, _u32(rw[:, 1]), state.ccfg_new),
+        cfg_invalid, torch.where(found, _u32(rw[..., 1]), state.ccfg_new),
         state.bitmask_new)
     base_cid = torch.where(
-        cfg_invalid, torch.where(found, rw[:, 2], state.ccfg_cid),
+        cfg_invalid, torch.where(found, rw[..., 2], state.ccfg_cid),
         state.cid_state)
     base_epoch = torch.where(
-        cfg_invalid, torch.where(found, rw[:, 3], state.ccfg_epoch),
+        cfg_invalid, torch.where(found, rw[..., 3], state.ccfg_epoch),
         state.epoch)
 
     # newest CONFIG in the absorbed window
     w_offs = torch.arange(W, dtype=I32, device=dev)
-    w_gidx = m_wstart[:, None] + w_offs
-    w_is_cfg = (can_absorb[:, None] & (w_offs < m_wcount[:, None])
+    w_gidx = m_wstart[..., None] + w_offs
+    w_is_cfg = (can_absorb[..., None] & (w_offs < m_wcount[..., None])
                 & (m_meta[..., M_TYPE] == int(EntryType.CONFIG))
                 & (m_meta[..., M_GIDX] == w_gidx)
-                & (w_gidx >= head1[:, None]) & (w_gidx < end3[:, None]))
+                & (w_gidx >= head1[..., None]) & (w_gidx < end3[..., None]))
     wpos = lex_argmax(w_is_cfg, [w_gidx])
     w_words = _pick(m_data, wpos)
     w_src = torch.where(wpos >= 0, m_wstart + wpos, -1)
-    w_term = _pick(m_meta, wpos)[:, M_TERM]
+    w_term = _pick(m_meta, wpos)[..., M_TERM]
 
     # newest CONFIG in the just-appended batch
-    Bn = inp.batch_meta.shape[1]
+    Bn = inp.batch_meta.shape[-2]
     b_offs = torch.arange(Bn, dtype=I32, device=dev)
-    b_is_cfg = ((b_offs < (end2 - end1)[:, None])
+    b_is_cfg = ((b_offs < (end2 - end1)[..., None])
                 & (inp.batch_meta[..., M_TYPE] == int(EntryType.CONFIG))
-                & ((end1[:, None] + b_offs) < end3[:, None]))
-    bpos = lex_argmax(b_is_cfg, [b_offs.expand(R, Bn)])
+                & ((end1[..., None] + b_offs) < end3[..., None]))
+    bpos = lex_argmax(b_is_cfg, [b_offs.expand(b_is_cfg.shape)])
     b_words = _pick(inp.batch_data, bpos)
     b_src = torch.where(bpos >= 0, end1 + bpos, -1)
 
-    cand_src = torch.stack([base_src, w_src, b_src], 1).to(I32)
+    cand_src = torch.stack([base_src, w_src, b_src], -1).to(I32)
     cand_sterm = torch.stack([
         base_sterm, torch.where(wpos >= 0, w_term, 0),
-        torch.where(bpos >= 0, new_term, 0)], 1).to(I32)
+        torch.where(bpos >= 0, new_term, 0)], -1).to(I32)
     pick = torch.clamp(
         lex_argmax(cand_src >= -1, [cand_src, cand_sterm]), min=0)
     cfg_src2 = _pick(cand_src, pick)
     cfg_src_term2 = _pick(cand_sterm, pick)
-    bm_old2 = _pick(torch.stack([base_old, _u32(w_words[:, 0]),
-                                 _u32(b_words[:, 0])], 1), pick)
-    bm_new2 = _pick(torch.stack([base_new, _u32(w_words[:, 1]),
-                                 _u32(b_words[:, 1])], 1), pick)
-    cid2 = _pick(torch.stack([base_cid, w_words[:, 2], b_words[:, 2]], 1),
-                 pick)
-    epoch2 = _pick(torch.stack([base_epoch, w_words[:, 3], b_words[:, 3]],
-                               1), pick)
+    bm_old2 = _pick(torch.stack([base_old, _u32(w_words[..., 0]),
+                                 _u32(b_words[..., 0])], -1), pick)
+    bm_new2 = _pick(torch.stack([base_new, _u32(w_words[..., 1]),
+                                 _u32(b_words[..., 1])], -1), pick)
+    cid2 = _pick(torch.stack([base_cid, w_words[..., 2], b_words[..., 2]],
+                             -1), pick)
+    epoch2 = _pick(torch.stack([base_epoch, w_words[..., 3],
+                                b_words[..., 3]], -1), pick)
     in_new2 = _members(bm_new2, R)
     in_old2 = _members(bm_old2, R)
     maj_old2 = _maj(in_old2)
@@ -532,15 +569,22 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
 
     # ---- Phase F: ack gather + quorum commit scan, with Phase G's
     # commit-crossing CONFIG search over the same window rows (one
-    # kernel launch on the card: ops/quorum.py:commit_window) ----
+    # kernel launch on the card: ops/quorum.py:commit_window, over the
+    # N = G·R instances as rows; the ring goes in as a view) ----
     my_ack = torch.where(can_absorb, m_wstart + m_wcount, 0).to(I32)
     ack_dom = torch.where(can_absorb, dom, -1)
-    peer_acked = heard & (ack_dom[None, :] == me[:, None])     # [R, R]
+    peer_acked = heard & (ack_dom[..., None, :] == me[:, None])  # [R, R]
+
+    def flat(t):
+        return t.reshape(-1)
     commit2, xpos = commit_window(
-        log3.buf, peer_acked, my_ack, w=W, commit=state.commit,
-        my_term=new_term2, my_end=end3, bm_old=bm_old2, bm_new=q_mask2,
-        transit=transit2, maj_old=maj_old2, maj_new=maj_q2, i_lead=i_lead2,
-        commit1=commit1)
+        log3.buf.view(-1, cfg.n_slots, log3.buf.shape[-1]),
+        peer_acked.reshape(-1, R), flat(my_ack), w=W,
+        commit=flat(state.commit), my_term=flat(new_term2),
+        my_end=flat(end3), bm_old=flat(bm_old2), bm_new=flat(q_mask2),
+        transit=flat(transit2), maj_old=flat(maj_old2),
+        maj_new=flat(maj_q2), i_lead=flat(i_lead2), commit1=flat(commit1))
+    commit2, xpos = commit2.view(rs), xpos.view(rs)
 
     # ---- Phase G: apply echo, pruning, committed-config checkpoint ----
     apply2 = torch.minimum(torch.maximum(
@@ -555,12 +599,12 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     head2 = torch.where(i_lead2 & hard, torch.maximum(head2, apply2), head2)
 
     xw = gather_rows(log3.buf, (state.commit + torch.clamp(xpos, min=0)
-                                )[:, None])[:, 0]
-    newer = (xpos >= 0) & (xw[:, 3] > state.ccfg_epoch)
-    cc1_old = torch.where(newer, _u32(xw[:, 0]), state.ccfg_old)
-    cc1_new = torch.where(newer, _u32(xw[:, 1]), state.ccfg_new)
-    cc1_cid = torch.where(newer, xw[:, 2], state.ccfg_cid)
-    cc1_epoch = torch.where(newer, xw[:, 3], state.ccfg_epoch)
+                                )[..., None])[..., 0, :]
+    newer = (xpos >= 0) & (xw[..., 3] > state.ccfg_epoch)
+    cc1_old = torch.where(newer, _u32(xw[..., 0]), state.ccfg_old)
+    cc1_new = torch.where(newer, _u32(xw[..., 1]), state.ccfg_new)
+    cc1_cid = torch.where(newer, xw[..., 2], state.ccfg_cid)
+    cc1_epoch = torch.where(newer, xw[..., 3], state.ccfg_epoch)
     promote = (cfg_src2 >= 0) & (cfg_src2 < commit2) & (epoch2 > cc1_epoch)
 
     pa = peer_acked.to(I32)
@@ -574,10 +618,11 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     # leaves it, before the next step appends in place.
     audit_start = audit_digest = audit_term = None
     if audit:
-        a_g = (commit2 - W)[:, None] + torch.arange(W, dtype=I32, device=dev)
+        a_g = (commit2 - W)[..., None] + torch.arange(W, dtype=I32,
+                                                      device=dev)
         audit_start = torch.clamp(torch.maximum(commit2 - W, head2),
                                   min=0).to(I32)
-        a_valid = a_g >= audit_start[:, None]
+        a_valid = a_g >= audit_start[..., None]
         a_rows = gather_rows(log3.buf, a_g)                # [R, W, cols]
         audit_digest = torch.where(a_valid, digest_fold(a_rows).to(I32), 0)
         audit_term = torch.where(a_valid, a_rows[..., sw + M_TERM], 0)
@@ -591,14 +636,15 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
             # granted: voted for ANOTHER replica's candidacy; denied:
             # heard candidacies (own excluded) that did not get the vote
             t_grant = (vote_cast & (my_vote != me)).to(I32)
-            n_cand = (is_cand & heard).to(I32).sum(1)
+            n_cand = (is_cand & heard).to(I32).sum(-1)
             t_deny = torch.clamp(n_cand - t_elec - t_grant, min=0)
         else:
-            t_elec = t_grant = t_deny = torch.zeros(R, dtype=I32, device=dev)
+            t_elec = t_grant = t_deny = torch.zeros(rs, dtype=I32,
+                                                    device=dev)
         telemetry_vec = torch.stack([c.to(I32) for c in (
             t_elec, t_grant, t_deny, end2 - end1, commit2 - state.commit,
-            R - heard.sum(1), pa.sum(1),
-            (cfg.n_slots - 1) - (end3 - head2))], 1)
+            R - heard.sum(-1), pa.sum(-1),
+            (cfg.n_slots - 1) - (end3 - head2))], -1)
 
     new_state = ReplicaState(
         log=log3, term=new_term2, role=role2, leader_id=leader_id2,
@@ -612,9 +658,10 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
         ccfg_cid=torch.where(promote, cid2, cc1_cid),
         ccfg_epoch=torch.where(promote, epoch2, cc1_epoch),
     )
-    is_leader_row = state.role[None, :] == int(Role.LEADER)
-    max_end = torch.where(heard, g_end[None, :], 0).max(1).values
-    min_head = torch.where(heard, state.head[None, :], I32_MAX).min(1).values
+    is_leader_row = state.role[..., None, :] == int(Role.LEADER)
+    max_end = torch.where(heard, g_end[..., None, :], 0).max(-1).values
+    min_head = torch.where(heard, state.head[..., None, :], I32_MAX
+                           ).min(-1).values
     out = StepOutput(
         term=new_term2, role=role2, leader_id=leader_id2,
         voted_term=new_voted_term, voted_for=new_voted_for,
@@ -625,12 +672,12 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
         accepted=(end2 - end1).to(I32),
         peer_acked=pa,
         leadership_verified=(
-            i_lead2 & ((pa * in_q2).sum(1) >= maj_q2)
-            & ((transit2 <= 0) | ((pa * in_old2).sum(1) >= maj_old2))
+            i_lead2 & ((pa * in_q2).sum(-1) >= maj_q2)
+            & ((transit2 <= 0) | ((pa * in_old2).sum(-1) >= maj_old2))
         ).to(I32),
         burst_hint=torch.where(heard & is_leader_row,
-                               inp.queue_depth[None, :], 0
-                               ).max(1).values.to(I32),
+                               inp.queue_depth[..., None, :], 0
+                               ).max(-1).values.to(I32),
         rebase_delta=torch.where(
             max_end >= cfg.rebase_threshold,
             torch.clamp(min_head & ~(cfg.n_slots - 1), min=0), 0).to(I32),
@@ -675,6 +722,7 @@ def scan_readback(out: StepOutput, accepted_total: torch.Tensor, *,
 
 
 def fetch_window(log, start: torch.Tensor, *, window_slots: int):
-    """Host helper: ``window_slots`` entries from ``start [R]`` of every
-    replica's log — newly committed payloads for replay."""
+    """Host helper: ``window_slots`` entries from ``start [..., R]`` of
+    every replica's log (every group's) — newly committed payloads for
+    replay."""
     return extract_window(log, start, window_slots)

@@ -2,7 +2,8 @@
 
 The port never imports the JAX package: these functions read any
 object (or mapping) with the right field names, so a caller holding a
-JAX ``ReplicaState``/``KVState``/``SimCluster`` passes it straight in
+JAX ``ReplicaState`` (``[R]`` or ``[G, R]`` stacked), ``KVState``,
+``Snapshot``, ``SimCluster`` or ``ShardedCluster`` passes it straight in
 (``np.asarray`` reads a JAX array without importing JAX here). Field
 dtypes follow the JAX package: every field int32 except the u32 member
 bitmasks ``bitmask_*``/``ccfg_*`` (int64 in the port).
@@ -149,3 +150,59 @@ def sim_restore(cluster, snap: dict) -> None:
         cluster.rebased_total = snap["rebased_total"]
         cluster.rebase_stall_steps = snap["rebase_stall_steps"]
         cluster.step_index = snap["step_index"]
+
+
+_GROUP_COUNTERS = ("rebases", "rebased_total", "rebase_stall_steps",
+                   "rebase_stalled")
+
+
+def sharded_snapshot(cluster) -> dict:
+    """A ``ShardedCluster``'s ``[G, R]`` device state plus its per-group
+    host bookkeeping (either package's engine, drained): what
+    :func:`sharded_restore` loads. ``need_recovery`` and the wedges are
+    ``{(group, replica)}`` sets."""
+    if cluster._tickets:
+        raise RuntimeError("snapshot with dispatches in flight")
+    out = dict(
+        state=replica_state_to_numpy(cluster.state),
+        applied=np.array(cluster.applied, np.int64),
+        peer_mask=np.array(cluster.peer_mask, np.int32),
+        pending=[[list(q) for q in row] for row in cluster.pending],
+        replayed=[[list(s) for s in row] for row in cluster.replayed],
+        last=(None if cluster.last is None
+              else {k: np.array(v) for k, v in cluster.last.items()}),
+        need_recovery=set(cluster.need_recovery),
+        wedged=set(cluster._wedged),
+        step_index=int(cluster.step_index),
+        dispatch_clock=int(cluster._dispatch_clock),
+        prev_commit_max=np.array(cluster._prev_commit_max, np.int64))
+    for k in _GROUP_COUNTERS:
+        out[k] = np.array(getattr(cluster, k), np.int64)
+    return out
+
+
+def sharded_restore(cluster, snap: dict) -> None:
+    """Load :func:`sharded_snapshot` output into the port's
+    ``ShardedCluster`` (same geometry and group count), on the
+    cluster's device."""
+    if cluster._tickets:
+        raise RuntimeError("restore with dispatches in flight")
+    with cluster._host_lock:
+        cluster.state = replica_state_from_jax(snap["state"],
+                                               cluster.device)
+        cluster.applied = np.array(snap["applied"], np.int64)
+        cluster.peer_mask = np.array(snap["peer_mask"], np.int32)
+        cluster.pending = [[list(q) for q in row] for row in snap["pending"]]
+        cluster.replayed = [[LazyReplayStream(s) for s in row]
+                            for row in snap["replayed"]]
+        cluster.last = (None if snap["last"] is None
+                        else {k: np.array(v)
+                              for k, v in snap["last"].items()})
+        cluster.need_recovery = set(snap["need_recovery"])
+        cluster._wedged = set(snap["wedged"])
+        cluster.step_index = snap["step_index"]
+        cluster._dispatch_clock = snap["dispatch_clock"]
+        cluster._prev_commit_max = np.array(snap["prev_commit_max"],
+                                            np.int64)
+        for k in _GROUP_COUNTERS:
+            setattr(cluster, k, np.array(snap[k], np.int64))

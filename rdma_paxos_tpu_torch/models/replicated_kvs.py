@@ -42,8 +42,8 @@ class ReplicatedKVS:
 
     def __init__(self, cluster, cap: int = 4096):
         self.c = cluster
-        # consensus group this instance serves (set by a sharded KVS,
-        # which is not ported): labels the dedup metric series
+        # consensus group this instance serves (set by ShardedKVS):
+        # labels the dedup metric series
         self.group: Optional[int] = None
         self.device = cluster.device
         self.tables: List[KVState] = [make_kvs(cap, device=self.device)

@@ -4,9 +4,15 @@ one device (the JAX package's ``vmap``-simulated replica axis).
 Each builder returns a plain function over tensors; there is nothing to
 compile, so a "build" only binds the static configuration. The fused
 K-step burst and scan are Python loops of the stable step (the JAX
-``lax.scan``). The state is updated in place and returned. The
-multi-device (spmd, 2-D mesh) builders belong to the multi-device
-slice.
+``lax.scan``). The state is updated in place and returned.
+
+The group builders (``build_sim_group_*``) step G independent groups of
+R replicas stacked ``[G, R, ...]`` in one pass: the step is written over
+leading batch axes, so they bind the same functions with the JAX
+builders' ``[K, G, R, ...]`` input contract, and one step of every
+group is one set of launches. The multi-device (spmd, 2-D mesh)
+builders, ``build_mesh_2d`` and ``group_sharding`` belong to the
+multi-device slice (ROADMAP Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -29,6 +35,19 @@ def stack_states(cfg, n_replicas: int, group_size: int, *, device
     one = make_replica_state(cfg, group_size, n_replicas, device=device)
     return map_state(
         lambda x: x.expand((n_replicas,) + tuple(x.shape)).clone(), one)
+
+
+def stack_group_states(cfg, n_groups: int, n_replicas: int,
+                       group_size: int, *, device) -> ReplicaState:
+    """Batched initial state for G groups: every field gains leading
+    ``[group, replica]`` axes, every group starting from the same
+    per-replica state. Each group gets its own CLONE: the step updates
+    the state in place, so an expanded view (the JAX ``broadcast_to``)
+    would alias one ring across every group."""
+    one = make_replica_state(cfg, group_size, n_replicas, device=device)
+    return map_state(
+        lambda x: x.expand((n_groups, n_replicas) + tuple(x.shape)).clone(),
+        one)
 
 
 def _stack_outputs(outs) -> StepOutput:
@@ -108,3 +127,34 @@ def build_sim_scan(cfg, n_replicas: int, *, replay_slots: int,
             state.log, applied, replay_slots)
         return state, res
     return scan
+
+
+def build_sim_group_step(cfg, n_replicas: int, *, fanout: str = "gather",
+                         elections: bool = True, audit: bool = False,
+                         telemetry: bool = False, txn: bool = False):
+    """``fn(state, inp) -> (state, out)``: one protocol step of every
+    group of a ``[G, R, ...]`` state, in one pass (the G count is not
+    bound: any stack of groups sharing ``cfg`` runs through it)."""
+    return build_sim_step(cfg, n_replicas, fanout=fanout,
+                          elections=elections, audit=audit,
+                          telemetry=telemetry, txn=txn)
+
+
+def build_sim_group_burst(cfg, n_replicas: int, *, fanout: str = "gather",
+                          audit: bool = False, telemetry: bool = False):
+    """:func:`build_sim_burst` over every group: ``burst(state, datas
+    [K,G,R,B,sw], metas [K,G,R,B,MW], counts [K,G,R], peer_mask
+    [G,R,R], applied [G,R], qdepth [G,R])`` — the single-group burst's
+    contract applied per group, one pass per protocol step."""
+    return build_sim_burst(cfg, n_replicas, fanout=fanout, audit=audit,
+                           telemetry=telemetry)
+
+
+def build_sim_group_scan(cfg, n_replicas: int, *, replay_slots: int,
+                         fanout: str = "gather", audit: bool = False,
+                         telemetry: bool = False):
+    """:func:`build_sim_scan` over every group (inputs as
+    :func:`build_sim_group_burst`; the readback's axes gain ``G`` after
+    ``K``, the replay rows are ``[G, R, replay_slots, ...]``)."""
+    return build_sim_scan(cfg, n_replicas, replay_slots=replay_slots,
+                          fanout=fanout, audit=audit, telemetry=telemetry)

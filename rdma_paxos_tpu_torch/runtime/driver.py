@@ -33,7 +33,7 @@ Differences from the JAX driver, each failing loudly:
 * ``txn``, ``scan``, ``repair``, ``governor``, ``streams``,
   ``metrics_port``, ``profile_on_page`` and non-default
   ``alert_rules`` raise ``NotImplementedError`` when set (ROADMAP
-  Queue 1, items 12-13), as do non-default settings of those subsystems
+  Queue 1, item 13), as do non-default settings of those subsystems
   (``health_period``, ``alert_period``, ``series_capacity``, the
   ``*_opts`` dicts but ``lease_opts``); so do :meth:`health`,
   :meth:`evaluate_alerts`, :meth:`serve_metrics` and
@@ -197,7 +197,7 @@ class ClusterDriver:
         if later:
             raise NotImplementedError(
                 f"ClusterDriver({', '.join(later)}=...) is not ported yet "
-                "(ROADMAP Queue 1, items 12-13)")
+                "(ROADMAP Queue 1, item 13)")
         self.cfg = cfg
         self.sync_period = sync_period
         self._workdir = workdir
@@ -1357,7 +1357,7 @@ class ClusterDriver:
 
     def _repair_idle(self) -> bool:
         """True iff the repair pipeline has nothing in flight; no repair
-        controller is attached in this port yet (item 12)."""
+        controller is attached in this port yet (item 13)."""
         return self.repair is None
 
     def _idle_margin(self) -> float:
@@ -1384,8 +1384,10 @@ class ClusterDriver:
         c = self.cluster
         if c.last is None or self._leader_view < 0:
             return False
-        # chaos drills (an attached link model) own their own timing
-        if c.link_model is not None:
+        # chaos drills (an attached link model, or a sharded engine's
+        # per-group ones) own their own timing
+        if (getattr(c, "link_model", None) is not None
+                or getattr(c, "link_models", None)):
             return False
         with self._lock:
             if (self._recover_req is not None

@@ -570,11 +570,13 @@ class SimCluster:
         (the final step's scalars and ``peer_acked``; ``accepted``
         summed over a burst) and the variants' per-step arrays
         (``audit_*`` and ``telemetry``, ``[K, ...]`` for a burst or
-        scan, the step's own otherwise)."""
+        scan, the step's own otherwise). Written over the trailing
+        replica axes, so the sharded engine reads its ``[G, R]`` results
+        with it too."""
         out = ticket.out
         fused = ticket.kind != "step"
         if ticket.kind == "scan":
-            mat = torch.cat([out["scal"][-1], out["peer_acked"][-1]], 1)
+            mat = torch.cat([out["scal"][-1], out["peer_acked"][-1]], -1)
             names = [k for k in SCAN_KEYS if k in self.RES_KEYS]
             idx = [SCAN_KEYS.index(k) for k in names]
             ncols = len(SCAN_KEYS)
@@ -592,7 +594,7 @@ class SimCluster:
             names.append("accepted")
             idx = list(range(len(names)))
             ncols = len(cols)
-            mat = torch.cat([torch.stack(cols, 1), pa], 1)
+            mat = torch.cat([torch.stack(cols, -1), pa], -1)
 
             def get(k):
                 return getattr(out, "commit" if k == "audit_commit" else k)
@@ -612,8 +614,8 @@ class SimCluster:
             arrs.append(flat[off:off + n].reshape(tuple(t.shape)))
             off += n
         mat = arrs[0]
-        res = {k: mat[:, i] for k, i in zip(names, idx)}
-        res["peer_acked"] = mat[:, ncols:]
+        res = {k: mat[..., i] for k, i in zip(names, idx)}
+        res["peer_acked"] = mat[..., ncols:]
         return res, dict(zip(extra, arrs[1:]))
 
     def finish(self, ticket: StepTicket) -> Dict[str, np.ndarray]:

@@ -45,6 +45,7 @@ from rdma_paxos_tpu_torch.runtime.sim import SimCluster
 from tests.test_torch_sim import GEO, run_workload
 from tests.test_torch_step import (
     CFG, INPUT_FIELDS, JCFG, assert_same, random_input)
+from tests.test_torch_sim import jax_step_cache_restored  # noqa: F401
 
 # tiny tensors: one intra-op thread per process keeps parallel test
 # workers from oversubscribing the cores

@@ -26,6 +26,7 @@ from rdma_paxos_tpu_torch.consensus import snapshot as tsnap
 from rdma_paxos_tpu_torch.consensus.state import ConfigState
 from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
 from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
+from tests.test_torch_sim import jax_step_cache_restored  # noqa: F401
 
 # tiny tensors: one intra-op thread per process keeps parallel test
 # workers from oversubscribing the cores
@@ -493,15 +494,19 @@ def test_digest_verified_recovery_matches_jax(part, tmp_path):
         td.stop()
 
 
+def _attach_governor_and_step(d):
+    d.cluster.governor = object()
+    d.step()
+
+
 @pytest.mark.parametrize("call", [
-    lambda d: tsnap.install_snapshot(
-        d.cluster.state, 1, tsnap.take_snapshot(d.cluster.state, 0),
-        group=0),
+    _attach_governor_and_step,
     lambda d: d.health(), lambda d: d.evaluate_alerts(),
     lambda d: d.serve_metrics(0), lambda d: d.start_profile()])
 def test_later_methods_raise(call):
     """What waits for later slices raises and names its ROADMAP item
-    (12: groups, 13: repair and host observability)."""
+    (13: the governor and the other host subsystems, host
+    observability)."""
     d = ClusterDriver(LogConfig(**GEO), 3, device="cpu", leases=False)
     with pytest.raises(NotImplementedError, match=r"item"):
         call(d)

@@ -124,3 +124,38 @@ def test_audit_and_telemetry_on_the_card():
     for k in ("steps", "found_in", "first", "catch_up", "redigested",
               "chains", "dump", "state"):
         assert gpu[k] == cpu[k], k
+
+
+def test_group_step_on_the_card():
+    """One G = 4 group step on the card (leaders placed, per-group
+    traffic) equals its CPU run, results and state, and launches
+    ``commit_window`` exactly once, over the 12 instances."""
+    _need_card()
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    cfg = LogConfig(n_slots=64, slot_bytes=32, window_slots=16,
+                    batch_slots=8)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        c = ShardedCluster(cfg, 3, 4, device=dev)
+        c.place_leaders()
+        rng = np.random.default_rng(3)
+        for g in range(4):
+            for _ in range(int(rng.integers(1, 9))):
+                c.submit(g, c.leader_hint(g), bytes(
+                    rng.integers(0, 256, 20, dtype=np.uint8)))
+        before = commit_window.launches
+        res = c.step()
+        launched = commit_window.launches - before
+        runs[dev] = (res, replica_state_to_numpy(c.state), launched,
+                     [[list(s) for s in row] for row in c.replayed])
+    (cres, cst, _, crep), (gres, gst, launched, grep) = (
+        runs["cpu"], runs["cuda"])
+    assert launched == 1
+    for k in cres:
+        assert np.array_equal(cres[k], gres[k]), k
+    for k in cst:
+        assert np.array_equal(cst[k], gst[k]), k
+    assert crep == grep

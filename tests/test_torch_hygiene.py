@@ -75,7 +75,8 @@ def test_imports_with_jax_and_reference_blocked():
     for mod in ("obs.audit", "obs.device", "consensus.step",
                 "runtime.sim", "runtime.driver", "runtime.reads",
                 "chaos", "chaos.runner", "chaos.faults", "chaos.serialize",
-                "txn.records"):
+                "txn.records", "shard", "shard.router", "shard.cluster",
+                "shard.kvs", "shard.chaos", "runtime.sharded_driver"):
         assert "rdma_paxos_tpu_torch." + mod in names, mod
 
 
@@ -203,6 +204,13 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
     assert tconfig.resolve_device("cpu") == torch.device("cpu")
     assert tsim.SimCluster(cfg, 3, device="cpu").state.term.device.type \
         == "cpu"
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedCluster(cfg, 3, 2)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ShardedCluster(cfg, 3, 2, mesh=(2, 3))
+    assert ShardedCluster(cfg, 3, 2, device="cpu").state.log.buf.shape[:2] \
+        == (2, 3)
 
 
 def test_recovery_surface_matches_the_reference():
@@ -298,3 +306,72 @@ def test_chaos_and_read_copies_match_the_reference():
               "LEASE_GRANTED", "LEASE_RENEWED", "LEASE_EXPIRED",
               "LEASE_REVOKED"):
         assert getattr(ttrace, k) == getattr(jtrace, k), k
+
+
+def test_shard_copies_match_the_reference():
+    """The sharded slice's copies: the router's constants, hash and
+    serialized form (``to_dict``/``from_dict`` and the tamper guard),
+    the public signatures of the engine, KVS, nemesis and driver (plus
+    the port's ``device``), and the driver's routing delimiters."""
+    import inspect
+
+    import rdma_paxos_tpu.runtime.sharded_driver as jsd
+    import rdma_paxos_tpu.shard as jshard
+    import rdma_paxos_tpu.shard.chaos as jschaos
+    import rdma_paxos_tpu.shard.router as jrouter
+    import rdma_paxos_tpu_torch.runtime.sharded_driver as tsd
+    import rdma_paxos_tpu_torch.shard as tshard
+    import rdma_paxos_tpu_torch.shard.chaos as tschaos
+    import rdma_paxos_tpu_torch.shard.router as trouter
+
+    def params(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+    assert tshard.__all__ == jshard.__all__
+    assert _upper_constants(trouter) == _upper_constants(jrouter)
+    for name in ("fnv1a32", "_fmix32", "ring_hash", "canon_key"):
+        assert params(getattr(trouter, name)) == params(
+            getattr(jrouter, name)), name
+    for key in (b"", b"k", b"key42", "ключ".encode(), bytes(range(256))):
+        assert trouter.fnv1a32(key) == jrouter.fnv1a32(key)
+        assert trouter.ring_hash(key) == jrouter.ring_hash(key)
+    for meth in ("__init__", "to_dict", "from_dict", "group_of",
+                 "install_rule", "remove_rule"):
+        if hasattr(jrouter.KeyRouter, meth):
+            assert params(getattr(trouter.KeyRouter, meth)) == params(
+                getattr(jrouter.KeyRouter, meth)), meth
+    r = trouter.KeyRouter(4, overrides=[(b"a", b"c", 2)])
+    d = r.to_dict()
+    assert d == jrouter.KeyRouter(4, overrides=[(b"a", b"c", 2)]).to_dict()
+    assert trouter.KeyRouter.from_dict(d).to_dict() == d
+    for mod in (trouter, jrouter):
+        with pytest.raises(ValueError, match="checksum mismatch"):
+            mod.KeyRouter.from_dict(dict(d, ring_checksum=d[
+                "ring_checksum"] ^ 1))
+    tp = params(tschaos.ShardNemesisRunner)
+    assert tp[-1] == ("device", inspect.Parameter.KEYWORD_ONLY, None)
+    assert tp[:-1] == params(jschaos.ShardNemesisRunner)
+    assert params(tschaos.keys_for_groups) == params(
+        jschaos.keys_for_groups)
+    assert tsd.PREFIX_DELIMS == jsd.PREFIX_DELIMS
+    # the default key_of is each package's own key_prefix_of
+    tp, jp = (params(m.ShardedClusterDriver) for m in (tsd, jsd))
+    assert [(n, k) for n, k, _ in tp] == [(n, k) for n, k, _ in jp]
+    assert [d for n, _, d in tp if n != "key_of"] == [
+        d for n, _, d in jp if n != "key_of"]
+    assert dict((n, d) for n, _, d in tp)["key_of"] is tsd.key_prefix_of
+    for name in ("read", "read_replica", "can_serve_read", "leaders",
+                 "recover_replica", "reset_app", "checkpoint_app",
+                 "request_membership"):
+        assert params(getattr(tsd.ShardedClusterDriver, name)) == params(
+            getattr(jsd.ShardedClusterDriver, name)), name
+    from rdma_paxos_tpu.shard.cluster import ShardedCluster as JSC
+    from rdma_paxos_tpu_torch.shard.cluster import ShardedCluster as TSC
+    for name in ("submit", "submit_many", "partition", "heal",
+                 "wedge_apply", "begin_step", "begin_burst", "finish",
+                 "step", "step_burst", "redigest", "leader",
+                 "leader_hint", "run_until_elected", "place_leaders",
+                 "prewarm"):
+        assert params(getattr(TSC, name)) == params(getattr(JSC, name)), \
+            name
+    assert TSC.K_TIERS == JSC.K_TIERS

@@ -24,6 +24,7 @@ from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
 from rdma_paxos_tpu_torch.parallel.mesh import (
     build_sim_burst, build_sim_scan, build_sim_step, stack_states)
 from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+from tests.test_torch_sim import jax_step_cache_restored  # noqa: F401
 
 # tiny tensors: one intra-op thread per process keeps parallel test
 # workers from oversubscribing the cores

@@ -25,6 +25,22 @@ torch.set_num_threads(1)
 GEO = dict(n_slots=64, slot_bytes=32, window_slots=16, batch_slots=8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def jax_step_cache_restored():
+    """Leave the JAX engine's shared step cache as this module found it.
+    The JAX package's own tests assert which keys a cluster ADDS to
+    ``rdma_paxos_tpu.runtime.sim.STEP_CACHE``; a JAX engine built here
+    with the same geometry and variant would have added them first
+    when a test worker runs this module before theirs. Every port
+    module that builds a JAX variant or group engine imports this
+    fixture (autouse), so it deletes only the keys it added."""
+    from rdma_paxos_tpu.runtime.sim import STEP_CACHE
+    before = set(STEP_CACHE)
+    yield
+    for k in set(STEP_CACHE) - before:
+        del STEP_CACHE[k]
+
+
 def assert_engines_equal(j, t, tag):
     for k, v in j.last.items():
         if k in t.last:

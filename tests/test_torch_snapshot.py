@@ -24,12 +24,16 @@ from rdma_paxos_tpu_torch.obs import trace as obs_trace
 from rdma_paxos_tpu_torch.obs.metrics import default_registry
 from rdma_paxos_tpu_torch.obs.trace import default_ring
 from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+from tests.test_torch_sim import jax_step_cache_restored  # noqa: F401
 
 # tiny tensors: one intra-op thread per process keeps parallel test
 # workers from oversubscribing the cores
 torch.set_num_threads(1)
 
 GEO = dict(n_slots=32, slot_bytes=32, window_slots=8, batch_slots=4)
+# the audited pair's geometry, which no JAX test uses: the JAX package's
+# tests count the step-cache keys an audited engine adds, at GEO too
+AUDIT_GEO = dict(n_slots=32, slot_bytes=40, window_slots=8, batch_slots=4)
 
 
 def pair(R=3, group_size=None, geo=GEO):
@@ -235,15 +239,19 @@ def test_snapshot_instrumentation_matches_jax():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda s, sn: tsnap.take_snapshot(s, 0, group=0), "item 12"),
-    (lambda s, sn: tsnap.install_snapshot(s, 1, sn, group=0), "item 12"),
-    (lambda s, sn: tsnap.recover_vote(s, 1, group=0), "item 12")])
+    (lambda s, sn: tsnap.take_snapshot(s, 0, group=0), "group=0"),
+    (lambda s, sn: tsnap.install_snapshot(s, 1, sn, group=0), "group=0"),
+    (lambda s, sn: tsnap.recover_vote(s, 1, group=0), "group=0")])
 def test_later_slices_of_the_snapshot_raise(call, item):
+    """``group=`` (ported with the sharded engine, where
+    tests/test_torch_shard.py holds it against JAX) names a row of a
+    [G, R] state: on an [R]-batched state it raises rather than index a
+    ring slot, and touches no state."""
     t = pair()[1]
     t.run_until_elected(0)
     snap = tsnap.take_snapshot(t.state, 0)
     before = convert.replica_state_to_numpy(t.state)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         call(t.state, snap)
     after = convert.replica_state_to_numpy(t.state)
     for k in before:          # a refused call touched no state
@@ -253,8 +261,8 @@ def test_later_slices_of_the_snapshot_raise(call, item):
 def audited_pair(seed):
     """Both engines, audited, through seeded traffic past the ring with
     a brief partition of replica 2 that it catches up from."""
-    j = JSim(JCfg(**GEO), 3, audit=True)
-    t = SimCluster(LogConfig(**GEO), 3, audit=True, device="cpu")
+    j = JSim(JCfg(**AUDIT_GEO), 3, audit=True)
+    t = SimCluster(LogConfig(**AUDIT_GEO), 3, audit=True, device="cpu")
     rng = np.random.default_rng(seed)
     for c in (j, t):
         c.run_until_elected(0)

@@ -27,6 +27,7 @@ from rdma_paxos_tpu_torch.obs import device as tdevice
 from rdma_paxos_tpu_torch.runtime.sim import SimCluster
 from tests.test_torch_audit import run_step_schedule
 from tests.test_torch_sim import GEO, run_workload
+from tests.test_torch_sim import jax_step_cache_restored  # noqa: F401
 
 # tiny tensors: one intra-op thread per process keeps parallel test
 # workers from oversubscribing the cores
