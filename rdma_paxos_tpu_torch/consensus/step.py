@@ -27,13 +27,15 @@ the per-instance ring work runs on the N = G·R instances as rows. One
 step of all G groups is one set of launches, with one ``commit_window``
 launch over N = G·R instances.
 
-Two optional variants add outputs and change nothing else:
+Three optional variants add outputs and change nothing else:
 ``audit=True`` emits the digest chain of the committed window (one u32
 :func:`digest_fold` checksum per entry of ``[commit - W, commit)``, read
-by ``obs/audit.py``), and ``telemetry=True`` the ``[R, T_N]`` device
-counter vector (read by ``obs/device.py``). With both off the step
-launches exactly what it launched before they existed, and the optional
-``StepOutput`` fields are None.
+by ``obs/audit.py``), ``telemetry=True`` the ``[R, T_N]`` device
+counter vector (read by ``obs/device.py``), and ``txn=True`` the
+``[R]`` prepare vote of the cross-group transaction lane
+(``txn/lane.py``, read by ``txn/coordinator.py``). With all three off
+the step launches exactly what it launched before they existed, and the
+optional ``StepOutput`` fields are None.
 
 The state is updated in place (the JAX step donates it) and returned.
 The step never synchronises with the host: every decision is a tensor
@@ -59,6 +61,7 @@ from rdma_paxos_tpu_torch.consensus.state import (
     ConfigState, ReplicaState, Role, U32_MASK)
 from rdma_paxos_tpu_torch.ops.quorum import (
     I32_MIN, commit_window, lex_argmax)
+from rdma_paxos_tpu_torch.txn.lane import prepare_vote
 
 I32 = torch.int32
 I32_MAX = (1 << 31) - 1
@@ -89,6 +92,11 @@ class StepInput:
     peer_mask: torch.Tensor     # [R, R] i32 — row i: who replica i hears
     apply_done: torch.Tensor    # [R] i32
     queue_depth: torch.Tensor   # [R] i32
+    # txn=True only: each group's armed prepare watch in LOG-OFFSET
+    # domain (the host subtracts its rebase total; -1 = no watch) and
+    # the term it was appended under, [R] i32 each
+    txn_watch: Optional[torch.Tensor] = None
+    txn_term: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -121,6 +129,9 @@ class StepOutput:
     audit_term: Optional[torch.Tensor] = None
     # telemetry=True only: [R, T_N] counter vector (u32 as i32 bits)
     telemetry: Optional[torch.Tensor] = None
+    # txn=True only: [R] i32 prepare vote (txn/lane.py constants) for the
+    # group's armed watch, against each replica's post-absorb log
+    txn_vote: Optional[torch.Tensor] = None
 
 
 # the fields every step emits, and those only a variant's step emits
@@ -295,13 +306,9 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     receiver (split-brain safe under partitions); ``"psum"`` sums the
     leader windows over senders, sound only under full connectivity.
     ``elections=False`` is the stable step: Phase B removed, identical
-    results whenever no election timer fired. ``audit=`` and
-    ``telemetry=`` add their optional outputs (see the module
-    docstring); the ``txn=`` lane comes with ROADMAP Queue 1, item 13."""
-    if txn:
-        raise NotImplementedError(
-            "the txn= step variant is not ported (ROADMAP Queue 1, "
-            "item 13)")
+    results whenever no election timer fired. ``audit=``,
+    ``telemetry=`` and ``txn=`` add their optional outputs (see the
+    module docstring)."""
     if fanout not in ("gather", "psum"):
         raise ValueError(f"unknown fanout {fanout!r}")
     R, W = n_replicas, cfg.window_slots
@@ -646,6 +653,22 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
             R - heard.sum(-1), pa.sum(-1),
             (cfg.n_slots - 1) - (end3 - head2))], -1)
 
+    # ---- txn: each replica's vote on its group's armed prepare watch,
+    # read from its own post-absorb log (one row per instance; the row of
+    # an unarmed watch, -1, is gathered at offset 0 and masked) ----
+    txn_vote = None
+    if txn:
+        t_w = (inp.txn_watch if inp.txn_watch is not None
+               else torch.full(rs, -1, dtype=I32, device=dev))
+        t_wt = (inp.txn_term if inp.txn_term is not None
+                else torch.zeros(rs, dtype=I32, device=dev))
+        t_row = gather_rows(log3.buf, torch.clamp(t_w, min=0)[..., None]
+                            )[..., 0, :]
+        txn_vote = prepare_vote(
+            watch=t_w, watch_term=t_wt, head=head2, commit=commit2,
+            entry_term=t_row[..., sw + M_TERM],
+            entry_gidx=t_row[..., sw + M_GIDX])
+
     new_state = ReplicaState(
         log=log3, term=new_term2, role=role2, leader_id=leader_id2,
         voted_term=new_voted_term, voted_for=new_voted_for,
@@ -682,7 +705,7 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
             max_end >= cfg.rebase_threshold,
             torch.clamp(min_head & ~(cfg.n_slots - 1), min=0), 0).to(I32),
         audit_start=audit_start, audit_digest=audit_digest,
-        audit_term=audit_term, telemetry=telemetry_vec,
+        audit_term=audit_term, telemetry=telemetry_vec, txn_vote=txn_vote,
     )
     return new_state, out
 

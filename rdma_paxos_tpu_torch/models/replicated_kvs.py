@@ -14,25 +14,40 @@ by ``runtime/reads.py``) or verified its leadership on the latest step
 replica. An attached ``chaos.history.HistoryRecorder`` (``history``)
 records every client-visible operation for the linearizability checker.
 
-A committed transaction record (``TXN_CMD_W`` words) raises: the
-transaction lane is a later slice of the port, and skipping its records
-would silently drop writes.
+Committed transaction records (``TXN_CMD_W`` words, ``txn/records.py``)
+fold as in the JAX package's ``_fold_txn``: a PREPARE stages its write
+per tid, a COMMIT applies the tid's staged writes, an ABORT drops them,
+a MERGE applies at once; records dedup per tid. A fold builds one list
+of command words in commit order — plain commands and the writes a
+txn record releases interleaved as they committed — and applies it in
+that order, so a COMMIT's writes land between the commands around it.
 """
 
 from __future__ import annotations
 
+import collections
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from rdma_paxos_tpu_torch.consensus.log import EntryType
-import time
-
 from rdma_paxos_tpu_torch.models.kvs import (
     CMD_W, KEY_W, OP_GET, OP_PUT, OP_RM, KVState, apply_cmd, decode_val,
     encode_cmd, lookup, make_kvs)
-from rdma_paxos_tpu_torch.txn.records import TXN_CMD_W
+from rdma_paxos_tpu_torch.txn.records import (
+    TXN_ABORT, TXN_CMD_W, TXN_COMMIT, TXN_MERGE, TXN_PREPARE, decode_record)
+
+# capacity of the per-replica ring of finished (decided or complete)
+# transaction ids: duplicate txn records (decisions and merges are
+# retried under their ORIGINAL stamp across failover) trail their first
+# committed copy by at most the retry patience plus a couple of
+# confirmation dispatches, all of them serial while the transaction is
+# live (the coordinator's wants_serial gate), so the stream gap between
+# a record and its last duplicate is a few hundred entries — orders of
+# magnitude under this bound
+TXN_DONE_CAP = 65536
 
 
 class ReplicatedKVS:
@@ -58,6 +73,17 @@ class ReplicatedKVS:
         # linearizable GETs, retransmits) is recorded as invoke/ok/fail
         # events for the linearizability checker
         self.history = None
+        # txn staging and exactly-once, folded deterministically from the
+        # committed stream like last_req: per replica, tid -> {"reqs":
+        # stamped reqs folded so far, "staged": buffered command words}
+        # for live tids only; a finished tid moves to the bounded
+        # done-ring (a set plus its FIFO) and its entry here is dropped
+        self._txn_buf: List[dict] = [dict() for _ in range(cluster.R)]
+        self._txn_done: List[set] = [set() for _ in range(cluster.R)]
+        self._txn_done_fifo: List[collections.deque] = [
+            collections.deque() for _ in range(cluster.R)]
+        self.txn_applied: List[int] = [0] * cluster.R
+        self.txn_discarded: List[int] = [0] * cluster.R
 
     def _spans(self):
         """The cluster's span recorder when causal tracing is on —
@@ -73,13 +99,18 @@ class ReplicatedKVS:
         return f(r) if f is not None else r
 
     def rebuild(self, r: int) -> None:
-        """Crash-restart of replica ``r``'s app: discard its table and
-        dedup registry and refold from the replay stream."""
+        """Crash-restart of replica ``r``'s app: discard its table, dedup
+        registry and txn staging and refold from the replay stream."""
         self.tables[r] = make_kvs(int(self.tables[r].cap),
                                   device=self.device)
         self._cursor[r] = 0
         self.last_req[r] = dict()
         self.deduped[r] = 0
+        self._txn_buf[r] = dict()
+        self._txn_done[r] = set()
+        self._txn_done_fifo[r] = collections.deque()
+        self.txn_applied[r] = 0
+        self.txn_discarded[r] = 0
 
     def _fold(self, r: int) -> None:
         """Fold newly committed commands into replica r's table."""
@@ -96,9 +127,10 @@ class ReplicatedKVS:
             if etype != int(EntryType.SEND):
                 continue
             if len(payload) == TXN_CMD_W * 4:
-                raise NotImplementedError(
-                    "committed transaction record: the txn lane is not "
-                    "ported")
+                # a txn record: the writes it releases join the list here,
+                # in commit order (dedup per tid, in _fold_txn)
+                cmds.extend(self._fold_txn(r, conn, req, payload))
+                continue
             if len(payload) != CMD_W * 4:
                 continue                      # not a KVS command: skip
             if req > 0 and conn > 0:
@@ -119,6 +151,69 @@ class ReplicatedKVS:
         words = torch.from_numpy(np.stack(cmds)).to(self.device)
         for i in range(words.shape[0]):
             self.tables[r], _ = apply_cmd(self.tables[r], words[i])
+
+    def _txn_retire(self, r: int, tid: int) -> None:
+        """Move ``tid`` to replica ``r``'s done-ring: late duplicates
+        (retried decisions and merges) and stragglers of a finished
+        transaction are dropped without per-record registry residue."""
+        done = self._txn_done[r]
+        if tid in done:
+            return
+        done.add(tid)
+        fifo = self._txn_done_fifo[r]
+        fifo.append(tid)
+        while len(fifo) > TXN_DONE_CAP:
+            done.discard(fifo.popleft())
+
+    def _fold_txn(self, r: int, conn: int, req: int,
+                  payload: bytes) -> List[np.ndarray]:
+        """Fold one committed txn record (``txn/records.py`` layout) and
+        return the command words it releases, for the caller to apply
+        at this record's place in commit order: PREPARE stages its
+        embedded write per tid (releases nothing), COMMIT releases the
+        tid's staged writes in staging order, ABORT drops them, MERGE
+        releases its own write at once and retires the tid once its last
+        merge record lands. Exactly-once is per tid: stamped duplicates
+        dedup against the live tid's req set or the done-ring, not the
+        session ``last_req`` registry, and a record of an already
+        finished tid (a retried duplicate, or a PREPARE landing after its
+        transaction's decision) is dropped. Deterministic over the
+        committed stream, so every replica — and any rebuild — derives
+        the same table (the JAX package's ``_fold_txn``)."""
+        txn_op, tid, arg, cmd_words = decode_record(payload)
+        if tid in self._txn_done[r]:
+            self.deduped[r] += 1
+            return []
+        stamped = req > 0 and conn > 0
+        buf = self._txn_buf[r]
+        out: List[np.ndarray] = []
+        if txn_op in (TXN_PREPARE, TXN_MERGE):
+            ent = buf.setdefault(tid, {"reqs": set(), "staged": []})
+            if stamped:
+                if req in ent["reqs"]:
+                    self.deduped[r] += 1
+                    return out
+                ent["reqs"].add(req)
+            if txn_op == TXN_PREPARE:
+                ent["staged"].append(cmd_words)
+                return out
+            out.append(cmd_words)
+            self.txn_applied[r] += 1
+            if stamped and len(ent["reqs"]) == arg:
+                # the coordinator submits exactly ``arg`` merge records
+                # here: all folded, the tid is complete
+                del buf[tid]
+                self._txn_retire(r, tid)
+        elif txn_op == TXN_COMMIT:
+            ent = buf.pop(tid, None)
+            out.extend(ent["staged"] if ent else ())
+            self.txn_applied[r] += len(out)
+            self._txn_retire(r, tid)
+        elif txn_op == TXN_ABORT:
+            ent = buf.pop(tid, None)
+            self.txn_discarded[r] += len(ent["staged"]) if ent else 0
+            self._txn_retire(r, tid)
+        return out
 
     # ------------------------------------------------------------------
 

@@ -134,7 +134,10 @@ def build_sim_group_step(cfg, n_replicas: int, *, fanout: str = "gather",
                          telemetry: bool = False, txn: bool = False):
     """``fn(state, inp) -> (state, out)``: one protocol step of every
     group of a ``[G, R, ...]`` state, in one pass (the G count is not
-    bound: any stack of groups sharing ``cfg`` runs through it)."""
+    bound: any stack of groups sharing ``cfg`` runs through it). With
+    ``txn=True`` the input carries ``txn_watch``/``txn_term`` ``[G, R]``
+    (each group's watch repeated over its replicas) and the output the
+    ``[G, R]`` vote matrix; bursts and scans never carry the lane."""
     return build_sim_step(cfg, n_replicas, fanout=fanout,
                           elections=elections, audit=audit,
                           telemetry=telemetry, txn=txn)

@@ -28,9 +28,16 @@ thread serves without a ring slot, and a step-down revokes the leader's
 lease. A chaos ``link_model`` may be attached (the loop then never
 idles: the drill owns its timing).
 
+``txn=True`` runs the engine's serial steps with the cross-group
+transaction lane, so a coordinator can be attached
+(``txn.attach_coordinator`` over a ``ShardedKVS`` on the sharded
+driver's cluster); while it has a transaction in flight
+(``wants_serial``) the loop gives way from bursts and pipelining, keeps
+stepping, and :meth:`status` carries its ``health()`` as ``txn``.
+
 Differences from the JAX driver, each failing loudly:
 
-* ``txn``, ``scan``, ``repair``, ``governor``, ``streams``,
+* ``scan``, ``repair``, ``governor``, ``streams``,
   ``metrics_port``, ``profile_on_page`` and non-default
   ``alert_rules`` raise ``NotImplementedError`` when set (ROADMAP
   Queue 1, item 13), as do non-default settings of those subsystems
@@ -181,7 +188,6 @@ class ClusterDriver:
                  streams_opts: Optional[Dict] = None,
                  device=None):
         later = [name for name, on in (
-            ("txn", txn),
             ("scan", scan), ("repair", repair), ("governor", governor),
             ("streams", streams),
             ("metrics_port", metrics_port is not None),
@@ -228,10 +234,11 @@ class ClusterDriver:
         # partitions can be modeled. audit=True runs the digest-chain
         # step variants with the engine's ledger and flight ring;
         # telemetry=True the device-counter variants, ingested on the
-        # readback thread into device_* series
+        # readback thread into device_* series; txn=True the
+        # transaction vote lane, so a coordinator can be attached
         self.cluster = self._make_cluster(cfg, n_replicas, group_size,
                                           mode, fanout, audit, telemetry,
-                                          device)
+                                          device, txn=bool(txn))
         self.cluster.obs = self.obs
         self.cluster.profiler = self._phase_prof
         # read scaling (runtime/reads.py): step-domain leader leases
@@ -346,12 +353,18 @@ class ClusterDriver:
         self._rb_thread: Optional[threading.Thread] = None
 
     def _make_cluster(self, cfg, n_replicas, group_size, mode, fanout,
-                      audit, telemetry, device):
+                      audit, telemetry, device, txn=False):
         """Engine factory: the port's SimCluster on ``device`` (the card
         unless the caller names the CPU)."""
         return SimCluster(cfg, n_replicas, group_size, mode=mode,
                           fanout=fanout, audit=audit, telemetry=telemetry,
-                          device=device)
+                          txn=txn, device=device)
+
+    def _txn_live(self) -> bool:
+        """A transaction is in flight: its votes and decision records
+        ride serial dispatches only, so the loop gives way from bursts
+        and pipelining and keeps stepping until it decides."""
+        return self.cluster.txn is not None and self.cluster.txn.wants_serial()
 
     def _bind_device(self) -> None:
         """Make the engine's card the calling thread's current device
@@ -544,7 +557,7 @@ class ClusterDriver:
         # and idle heartbeats.
         if (depose < 0
                 and self._leader_view >= 0 and self.cluster.last is not None
-                and self._backlog()):
+                and self._backlog() and not self._txn_live()):
             self._timer_obs.start("device_step")
             res = self.cluster.step_burst()
             self._timer_obs.stop("device_step")
@@ -1302,7 +1315,8 @@ class ClusterDriver:
                         # queued reads need steps to confirm/serve —
                         # keep the loop running until they resolve
                         or (self.cluster.reads is not None
-                            and self.cluster.reads.pending_count()))
+                            and self.cluster.reads.pending_count())
+                        or self._txn_live())
 
     # holds-lock: _lock
     def _waiter_count(self) -> int:
@@ -1332,6 +1346,8 @@ class ClusterDriver:
         # the rebase is deferred until the pipeline drains, and the
         # headroom margin covers only boundedly many in-flight bursts
         if int(c.last["end"].max()) >= self.cfg.rebase_threshold:
+            return False
+        if self._txn_live():
             return False
         # pipelining pays off only while APPEND BATCHES flow (encode
         # k+1 while k runs); with just blocked waiters and an empty
@@ -1656,8 +1672,9 @@ class ClusterDriver:
     def status(self) -> Dict:
         """The part of the JAX driver's :meth:`health` view this port
         fills (live, from the last finished step): the leader, rebases,
-        the loop error, the audit summary and artifact, and the read
-        path's lease and hub state."""
+        the loop error, the audit summary and artifact, the read path's
+        lease and hub state, and the transaction coordinator's
+        ``health()``."""
         c = self.cluster
         return dict(
             leader=self.leader(), n_replicas=self.R,
@@ -1668,7 +1685,8 @@ class ClusterDriver:
                    if c.auditor is not None else None),
             audit_artifact=self.audit_artifact,
             leases=(c.leases.status() if c.leases is not None else None),
-            reads=(c.reads.status() if c.reads is not None else None))
+            reads=(c.reads.status() if c.reads is not None else None),
+            txn=(c.txn.health() if c.txn is not None else None))
 
     def can_serve_read(self, r: int) -> bool:
         """Read-index check: True iff replica ``r`` verified its

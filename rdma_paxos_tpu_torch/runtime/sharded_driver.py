@@ -20,6 +20,10 @@ ShardedCluster` on the card (``device="cpu"`` in the tests):
   * **Acks demux per group.** Commit waiters are tracked per
     ``(replica, group)`` FIFO; group g's commit stream releases only
     g's waiters.
+  * **Transactions.** With ``txn=True`` the engine runs the vote lane,
+    and a coordinator attached over a ``ShardedKVS`` on
+    ``driver.cluster`` decides off the loop's serial steps: while one
+    is in flight the loop gives way from bursts and pipelining.
 
 Differences from the JAX driver, each failing loudly: the surfaces that
 are single-group by design raise as in the JAX driver (membership,
@@ -122,11 +126,11 @@ class ShardedClusterDriver(ClusterDriver):
         self._elect_round = [0] * self.G
 
     def _make_cluster(self, cfg, n_replicas, group_size, mode, fanout,
-                      audit, telemetry, device):
+                      audit, telemetry, device, txn=False):
         return ShardedCluster(cfg, n_replicas, self.G, router=self._router,
                               fanout=fanout, group_size=group_size,
                               audit=audit, mesh=self._mesh,
-                              telemetry=telemetry, device=device)
+                              telemetry=telemetry, txn=txn, device=device)
 
     def _wire_repair(self) -> None:
         raise NotImplementedError(
@@ -246,7 +250,8 @@ class ShardedClusterDriver(ClusterDriver):
             return bool(any(self._submitq) or self._backlog()
                         or self._waiter_count()
                         or (self.cluster.reads is not None
-                            and self.cluster.reads.pending_count()))
+                            and self.cluster.reads.pending_count())
+                        or self._txn_live())
 
     def step(self) -> Dict:
         """One host-loop iteration: elections for leaderless groups ride
@@ -270,7 +275,7 @@ class ShardedClusterDriver(ClusterDriver):
                                          group=g)
         if (not timeouts and c.last is not None
                 and all(v >= 0 for v in self._group_views)
-                and self._backlog()):
+                and self._backlog() and not self._txn_live()):
             self._timer_obs.start("device_step")
             res = c.step_burst()
             self._timer_obs.stop("device_step")
@@ -289,6 +294,8 @@ class ShardedClusterDriver(ClusterDriver):
         if c.need_recovery:
             return False
         if int(c.last["end"].max()) >= self.cfg.rebase_threshold:
+            return False
+        if self._txn_live():
             return False
         # append batches only (see ClusterDriver._pipeline_ready)
         with self._lock:
@@ -480,7 +487,8 @@ class ShardedClusterDriver(ClusterDriver):
                    if c.auditor is not None else None),
             audit_artifact=self.audit_artifact,
             leases=(c.leases.status() if c.leases is not None else None),
-            reads=(c.reads.status() if c.reads is not None else None))
+            reads=(c.reads.status() if c.reads is not None else None),
+            txn=(c.txn.health() if c.txn is not None else None))
 
     def read(self, fn=None, *, key=None, group: Optional[int] = None,
              replica: Optional[int] = None, timeout: float = 30.0):

@@ -25,9 +25,17 @@ with the dispatch clock (``_dispatch_clock``: +1 per ``begin_step``,
 +K per ``begin_burst``), and the psum fan-out check applies to that
 effective mask; the read path (``runtime/reads.py``, attached by
 ``reads.attach``) observes leases and drains queued reads at the tail
-of every ``finish``. ``streams``, ``governor`` and ``txn`` are not
-ported (ROADMAP Queue 1, item 13): a dispatch with one of them set
-raises ``NotImplementedError`` rather than run without it.
+of every ``finish``; a transaction coordinator (``txn``) is told of its
+records' appends after the stamp loop and observes every ``finish``
+last. ``streams`` and ``governor`` are not ported (ROADMAP Queue 1,
+item 13): a dispatch with one of them set raises
+``NotImplementedError`` rather than run without it.
+
+``txn=True`` runs the serial steps with the cross-group transaction
+lane (``txn/lane.py``): the watch armed by :meth:`SimCluster.
+set_txn_watch` (an absolute index and its term) goes to the card in
+log-offset domain, and a serial ``finish`` reports each replica's vote
+as ``res["txn_vote"]``; bursts and scans never carry the lane.
 
 Every device result a finish needs (the audit windows and telemetry
 vectors included) is read back in ONE transfer, and a replay sweep
@@ -239,9 +247,6 @@ class SimCluster:
                  scan: bool = False, device=None,
                  audit: bool = False, flight_capacity: int = 64,
                  telemetry: bool = False, txn: bool = False):
-        if txn:
-            raise NotImplementedError(
-                "txn= clusters are not ported (ROADMAP Queue 1, item 13)")
         if mode == "spmd":
             raise NotImplementedError(
                 "mode='spmd' (one replica per device) is not ported yet "
@@ -259,11 +264,18 @@ class SimCluster:
         self._fanout = fanout
         self._stable_fast_path = stable_fast_path
         # the step variants: audit=True adds the digest windows (fed to
-        # the ledger, with a bounded flight ring of dispatches), and
+        # the ledger, with a bounded flight ring of dispatches),
         # telemetry=True the device counter vectors (accumulated into
-        # device_counters [R, T_N]); both off, the steps are unchanged
+        # device_counters [R, T_N]), and txn=True the prepare votes of
+        # the serial steps; all off, the steps are unchanged
         self._audit = bool(audit)
         self._telemetry = bool(telemetry)
+        self._txn = bool(txn)
+        # the armed prepare watch: an ABSOLUTE index (-1 = clear) and the
+        # term it was appended under; begin_step converts the index to
+        # the log-offset domain the card compares in
+        self._txn_watch = -1
+        self._txn_wterm = 0
         if audit:
             from rdma_paxos_tpu_torch.obs.audit import (
                 AuditLedger, FlightRecorder)
@@ -276,7 +288,8 @@ class SimCluster:
                                 if telemetry else None)
         variants = dict(audit=self._audit, telemetry=self._telemetry)
         self._steps = {e: build_sim_step(cfg, n_replicas, fanout=fanout,
-                                         elections=e, **variants)
+                                         elections=e, txn=self._txn,
+                                         **variants)
                        for e in (True, False)}
         self._burst = build_sim_burst(cfg, n_replicas, fanout=fanout,
                                       **variants)
@@ -325,11 +338,14 @@ class SimCluster:
         # finish() — the readback thread under the pipelined driver
         self.leases = None
         self.reads = None
+        # cross-group 2PC coordinator (txn/coordinator.py, attached by
+        # txn.attach_coordinator): told of its records' appends after
+        # the stamp loop and observed at the very tail of every finish()
+        self.txn = None
         # attachments not ported (ROADMAP Queue 1, item 13): a dispatch
         # with one set raises instead of running without it
         self.streams = None
         self.governor = None
-        self.txn = None
         # dispatch-side logical clock: advances at begin_* (step_index
         # advances at finish) so an in-flight pipeline never feeds the
         # link model the same per-step randomness twice; serial callers
@@ -352,6 +368,20 @@ class SimCluster:
                     ) -> None:
         with self._host_lock:
             self.pending[replica].extend(entries)
+
+    def set_txn_watch(self, index: int, term: int) -> None:
+        """Arm the prepare watch: every later serial step reports a
+        per-replica vote on whether ABSOLUTE log index ``index`` is
+        committed under ``term`` (txn=True clusters only). Sticky until
+        :meth:`clear_txn_watch`."""
+        if not self._txn:
+            raise RuntimeError("set_txn_watch requires txn=True")
+        self._txn_watch = int(index)
+        self._txn_wterm = int(term)
+
+    def clear_txn_watch(self) -> None:
+        self._txn_watch = -1
+        self._txn_wterm = 0
 
     def partition(self, groups: Sequence[Sequence[int]]) -> None:
         """Split the cluster: replicas hear only same-group peers."""
@@ -383,7 +413,7 @@ class SimCluster:
             self.device, copy=True)
 
     # attachments whose subsystems are not ported: a dispatch refuses
-    UNPORTED_ATTACHMENTS = ("streams", "governor", "txn")
+    UNPORTED_ATTACHMENTS = ("streams", "governor")
 
     def _effective_mask(self) -> np.ndarray:
         """The step's hear-matrix: the base ``peer_mask``, refined by
@@ -472,6 +502,14 @@ class SimCluster:
             batch_count=self._dev(count), timeout_fired=self._dev(tmo),
             peer_mask=self._dev(mask),
             apply_done=self._dev(applied), queue_depth=self._dev(qdepth))
+        if self._txn:
+            # the card compares log offsets: shift the armed ABSOLUTE
+            # index by the rollovers applied so far
+            watch = (self._txn_watch - self.rebased_total
+                     if self._txn_watch >= 0 else -1)
+            inp.txn_watch = self._dev(np.full((R,), watch, np.int32))
+            inp.txn_term = self._dev(np.full((R,), self._txn_wterm,
+                                             np.int32))
         # no timer fired => Phase B is a no-op: the stable step
         fn = self._steps[not (self._stable_fast_path and not timeouts)]
         if prof is not None:
@@ -570,9 +608,9 @@ class SimCluster:
         (the final step's scalars and ``peer_acked``; ``accepted``
         summed over a burst) and the variants' per-step arrays
         (``audit_*`` and ``telemetry``, ``[K, ...]`` for a burst or
-        scan, the step's own otherwise). Written over the trailing
-        replica axes, so the sharded engine reads its ``[G, R]`` results
-        with it too."""
+        scan, the step's own otherwise; ``txn_vote`` of a serial step).
+        Written over the trailing replica axes, so the sharded engine
+        reads its ``[G, R]`` results with it too."""
         out = ticket.out
         fused = ticket.kind != "step"
         if ticket.kind == "scan":
@@ -605,6 +643,8 @@ class SimCluster:
                 extra.append("audit_commit")
         if self._telemetry:
             extra.append("telemetry")
+        if self._txn and not fused:
+            extra.append("txn_vote")
         parts = [mat] + [get(k) for k in extra]
         flat = (torch.cat([t.reshape(-1) for t in parts]) if extra
                 else mat.reshape(-1)).cpu().numpy()
@@ -657,13 +697,26 @@ class SimCluster:
             res["telemetry"] = obs_device.reduce_steps(tv) if fused else tv
             obs_device.accumulate(self.device_counters, res["telemetry"])
             obs_device.ingest(self.obs, res["telemetry"])
+        if "txn_vote" in var:
+            # serial dispatches only: bursts and scans carry no lane
+            res["txn_vote"] = var["txn_vote"]
+        txn_notes = []
         with self._host_lock:
             for r in range(self.R):
                 take = ticket.taken[r]
                 if take and res["role"][r] == int(Role.LEADER):
                     acc_r = int(res["accepted"][r])
                     self._stamp_appends(r, take, acc_r, res)
+                    if self.txn is not None and acc_r > 0:
+                        txn_notes.append(
+                            (0, r, take[:acc_r], int(res["term"][r]),
+                             int(res["end"][r]) + self.rebased_total))
                     requeue_shortfall(self.pending[r], take, acc_r)
+        # outside _host_lock: note_appends takes the coordinator's lock,
+        # which client threads hold while submitting (coordinator, then
+        # cluster) — taking it here under _host_lock would invert that
+        for note in txn_notes:
+            self.txn.note_appends(*note)
         if prof is not None:
             prof.start("apply")
         self._replay_committed(
@@ -693,6 +746,8 @@ class SimCluster:
             self.leases.observe(self, res)
         if self.reads is not None:
             self.reads.drain(self)
+        if self.txn is not None:
+            self.txn.observe(self, res)
         B = self.cfg.batch_slots
         if ticket.kind == "step":
             dirty = [((r,), len(t)) for r, t in enumerate(ticket.taken)]

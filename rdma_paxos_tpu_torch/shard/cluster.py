@@ -17,17 +17,22 @@ dispatch clock), the K tiers and the scan tier, one readback transfer
 per finish for all groups, one replay fetch sweep over all G·R logs,
 the per-group i32 rollover and its stall, the audit ledger keyed
 ``(group, term, index)``, telemetry ``[G, R, T_N]``, span stamps and the
-``...{group=g}`` metric series, leader placement, and the read path
-(``runtime/reads.py``'s per-group leases and hub).
+``...{group=g}`` metric series, leader placement, the read path
+(``runtime/reads.py``'s per-group leases and hub), and with ``txn=True``
+the cross-group transaction lane: per-group prepare watches
+(:meth:`ShardedCluster.set_txn_watch`, absolute indices converted per
+group at dispatch), the ``[G, R]`` vote matrix of every serial step as
+``res["txn_vote"]``, and an attached coordinator (``txn``) told of its
+records' appends and observing every ``finish``.
 
 Single-group is the G = 1 case of this machinery: its results equal
 ``SimCluster``'s bit for bit on the same inputs.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
 Queue 1 item): the multi-chip mesh engine (``mesh=``, item 14), the
-``txn=`` step variant and the ``streams``/``governor``/``txn``/
-``topology`` attachments (item 13, at dispatch), and :meth:`health`
-(item 13); the per-group fields it would report are attributes
+``streams``/``governor``/``topology`` attachments (item 13, at
+dispatch), and :meth:`health` (item 13); the per-group fields it would
+report are attributes
 (``rebases``, ``rebased_total``, ``applied``, ``router``, ``auditor``,
 ``leases``).
 """
@@ -74,7 +79,7 @@ class ShardedCluster:
     RES_KEYS = SimCluster.RES_KEYS
     REBASE_STALL_STEPS = REBASE_STALL_STEPS
     # attachments whose subsystems are not ported: a dispatch refuses
-    UNPORTED_ATTACHMENTS = ("streams", "governor", "txn", "topology")
+    UNPORTED_ATTACHMENTS = ("streams", "governor", "topology")
 
     def __init__(self, cfg: LogConfig, n_replicas: int, n_groups: int,
                  *, router: Optional[KeyRouter] = None,
@@ -89,9 +94,6 @@ class ShardedCluster:
             raise NotImplementedError(
                 "ShardedCluster(mesh=...): the multi-chip (group, replica) "
                 "engine is not ported (ROADMAP Queue 1, item 14)")
-        if txn:
-            raise NotImplementedError(
-                "txn= clusters are not ported " + ITEM_13)
         if fanout not in ("gather", "psum"):
             raise ValueError(f"unknown fanout {fanout!r}")
         self.device = resolve_device(device)
@@ -106,6 +108,12 @@ class ShardedCluster:
         self._stable_fast_path = stable_fast_path
         self._audit = bool(audit)
         self._telemetry = bool(telemetry)
+        # the transaction lane: per-group prepare watches in the ABSOLUTE
+        # index domain (begin_step subtracts each group's rebased_total),
+        # voted on by the serial steps only
+        self._txn = bool(txn)
+        self._txn_watch = np.full((n_groups,), -1, np.int64)
+        self._txn_wterm = np.zeros((n_groups,), np.int64)
         if audit:
             from rdma_paxos_tpu_torch.obs.audit import (
                 AuditLedger, FlightRecorder)
@@ -118,7 +126,8 @@ class ShardedCluster:
                                 if telemetry else None)
         variants = dict(audit=self._audit, telemetry=self._telemetry)
         self._steps = {e: build_sim_group_step(cfg, self.R, fanout=fanout,
-                                               elections=e, **variants)
+                                               elections=e, txn=self._txn,
+                                               **variants)
                        for e in (True, False)}
         self._burst = build_sim_group_burst(cfg, self.R, fanout=fanout,
                                             **variants)
@@ -163,10 +172,13 @@ class ShardedCluster:
         # every finish()
         self.leases = None
         self.reads = None
+        # cross-group 2PC coordinator (txn/coordinator.py, attached by
+        # txn.attach_coordinator): told of its records' appends after
+        # the stamp loop and observed at the very tail of every finish()
+        self.txn = None
         # not ported (item 13): a dispatch with one set raises
         self.streams = None
         self.governor = None
-        self.txn = None
         self.topology = None
         # repair-held replicas barred from read serving ({(g, r)}); no
         # repair controller fills it in this port yet (item 13)
@@ -195,6 +207,24 @@ class ShardedCluster:
                     ) -> None:
         with self._host_lock:
             self.pending[group][replica].extend(entries)
+
+    def set_txn_watch(self, group: int, index: int, term: int) -> None:
+        """Arm ``group``'s prepare watch: every later serial step reports
+        the group's per-replica vote on whether ABSOLUTE log index
+        ``index`` is committed under ``term`` (txn=True clusters only).
+        Sticky until cleared."""
+        if not self._txn:
+            raise RuntimeError("set_txn_watch requires txn=True")
+        self._txn_watch[group] = int(index)
+        self._txn_wterm[group] = int(term)
+
+    def clear_txn_watch(self, group: Optional[int] = None) -> None:
+        if group is None:
+            self._txn_watch[:] = -1
+            self._txn_wterm[:] = 0
+        else:
+            self._txn_watch[group] = -1
+            self._txn_wterm[group] = 0
 
     def partition(self, group: int,
                   groups_of_replicas: Sequence[Sequence[int]]) -> None:
@@ -382,6 +412,15 @@ class ShardedCluster:
             batch_count=self._dev(count), timeout_fired=self._dev(tmo_arr),
             peer_mask=self._dev(mask), apply_done=self._dev(applied),
             queue_depth=self._dev(qdepth))
+        if self._txn:
+            # the card compares log offsets: each armed ABSOLUTE index
+            # shifted by its group's rollovers, repeated over the replicas
+            watch = np.where(self._txn_watch >= 0,
+                             self._txn_watch - self.rebased_total, -1)
+            inp.txn_watch = self._dev(np.broadcast_to(
+                watch[:, None], (G, R)).astype(np.int32))
+            inp.txn_term = self._dev(np.broadcast_to(
+                self._txn_wterm[:, None], (G, R)).astype(np.int32))
         # no timer fired in ANY group => Phase B is a no-op for every
         # group: the stable step
         fn = self._steps[not (self._stable_fast_path and not tmo)]
@@ -499,6 +538,10 @@ class ShardedCluster:
             res["telemetry"] = obs_device.reduce_steps(tv) if fused else tv
             obs_device.accumulate(self.device_counters, res["telemetry"])
             obs_device.ingest(self.obs, res["telemetry"])
+        if "txn_vote" in var:
+            # serial dispatches only: bursts and scans carry no lane
+            res["txn_vote"] = var["txn_vote"]
+        txn_notes = []
         with self._host_lock:
             for g in range(G):
                 for r in range(R):
@@ -506,7 +549,17 @@ class ShardedCluster:
                     if take and res["role"][g, r] == int(Role.LEADER):
                         acc_gr = int(res["accepted"][g, r])
                         self._stamp_appends(g, r, take, acc_gr, res)
+                        if self.txn is not None and acc_gr > 0:
+                            txn_notes.append(
+                                (g, r, take[:acc_gr],
+                                 int(res["term"][g, r]),
+                                 int(res["end"][g, r])
+                                 + int(self.rebased_total[g])))
                         requeue_shortfall(self.pending[g][r], take, acc_gr)
+        # outside _host_lock (the coordinator's lock comes first: see
+        # SimCluster.finish)
+        for note in txn_notes:
+            self.txn.note_appends(*note)
         if prof is not None:
             prof.start("apply")
         self._replay_committed(
@@ -532,6 +585,8 @@ class ShardedCluster:
             self.leases.observe(self, res)
         if self.reads is not None:
             self.reads.drain(self)
+        if self.txn is not None:
+            self.txn.observe(self, res)
         if fused:
             dirty = [((k, g, r), min(B, len(t) - k * B))
                      for g in range(G) for r in range(R)

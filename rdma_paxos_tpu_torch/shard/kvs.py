@@ -209,11 +209,12 @@ class ShardedKVS:
         return ShardedSession(self, client_id)
 
     def transact(self, writes, reads=()):
-        """Cross-group atomic transactions (the JAX ``txn/api.py``) come
-        with the transaction lane: not ported."""
-        raise NotImplementedError(
-            "ShardedKVS.transact: cross-group transactions are not ported "
-            "(ROADMAP Queue 1, item 13)")
+        """Admit one cross-group atomic transaction (``txn/api.py``):
+        ``writes`` are ``(op_name, key, value)`` triples, op_name in
+        {put, rm, incr, sadd, max}. Requires ``txn.attach_coordinator``
+        on a ``txn=True`` cluster. Returns a ``TxnHandle``."""
+        from rdma_paxos_tpu_torch.txn.api import transact
+        return transact(self, writes, reads)
 
 
 class ShardedSession:

@@ -392,7 +392,7 @@ def test_link_model_is_not_ignored_by_the_engine():
     assert psum._dispatch_clock == clock         # a refused dispatch
 
 
-@pytest.mark.parametrize("name", ["streams", "governor", "txn"])
+@pytest.mark.parametrize("name", ["streams", "governor"])
 def test_engine_refuses_unported_attachments(name):
     t = SimCluster(LogConfig(**GEO), 3, device="cpu")
     t.run_until_elected(0)

@@ -364,7 +364,7 @@ def test_auto_recovery_matches_the_jax_driver(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(txn=True),
+    dict(series_capacity=640),
     dict(scan=True), dict(repair=True), dict(governor=True),
     dict(streams=True), dict(governor_opts={}), dict(metrics_port=0),
     dict(profile_on_page=1.0), dict(alert_rules=[]), dict(streams_opts={}),

@@ -159,3 +159,39 @@ def test_group_step_on_the_card():
     for k in cst:
         assert np.array_equal(cst[k], gst[k]), k
     assert crep == grep
+
+
+def test_vote_lane_on_the_card():
+    """The ``txn=`` lane on the card: G = 4 groups with every group's
+    watch armed on a committed entry (PREPARED), a wrong term
+    (CONFLICT) and a future index (PENDING); every step's ``[G, R]``
+    votes and results and the state equal the CPU run, with one
+    ``commit_window`` launch per step."""
+    _need_card()
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    cfg = LogConfig(n_slots=64, slot_bytes=128, window_slots=16,
+                    batch_slots=8)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        c = ShardedCluster(cfg, 3, 4, txn=True, device=dev)
+        c.place_leaders()
+        term = [int(c.last["term"][g].max()) for g in range(4)]
+        end = [int(c.last["end"][g].max()) for g in range(4)]
+        for g, (idx, t) in enumerate([(end[0] - 1, term[0]),
+                                      (end[1] - 1, term[1] + 1),
+                                      (end[2] + 5, term[2])]):
+            c.set_txn_watch(g, idx, t)
+        before = commit_window.launches
+        out = [c.step(), c.step()]
+        launched = commit_window.launches - before
+        runs[dev] = ([{k: v.tolist() for k, v in r.items()} for r in out],
+                     replica_state_to_numpy(c.state), launched)
+    (cres, cst, _), (gres, gst, launched) = runs["cpu"], runs["cuda"]
+    assert launched == 2
+    assert gres == cres
+    for k in cst:
+        assert np.array_equal(cst[k], gst[k]), k
+    assert gres[-1]["txn_vote"] == [[2] * 3, [3] * 3, [1] * 3, [0] * 3]

@@ -76,7 +76,9 @@ def test_imports_with_jax_and_reference_blocked():
                 "runtime.sim", "runtime.driver", "runtime.reads",
                 "chaos", "chaos.runner", "chaos.faults", "chaos.serialize",
                 "txn.records", "shard", "shard.router", "shard.cluster",
-                "shard.kvs", "shard.chaos", "runtime.sharded_driver"):
+                "shard.kvs", "shard.chaos", "runtime.sharded_driver",
+                "txn", "txn.lane", "txn.merge", "txn.coordinator",
+                "txn.api", "txn.chaos", "topology", "topology.epoch"):
         assert "rdma_paxos_tpu_torch." + mod in names, mod
 
 
@@ -142,11 +144,13 @@ def test_copied_constants_match_the_reference():
     jout = [f.name for f in dataclasses.fields(jstep.StepOutput)
             if f.default is dataclasses.MISSING]
     assert list(tstep.OUTPUT_FIELDS) == jout
-    # the variant fields: the JAX step's optional outputs but the txn
-    # lane's (ROADMAP Queue 1, item 13)
+    # the variant fields: the JAX step's optional outputs, and its
+    # optional inputs (the txn lane's watch)
     assert list(tstep.VARIANT_FIELDS) == [
         f.name for f in dataclasses.fields(jstep.StepOutput)
-        if f.default is None and f.name != "txn_vote"]
+        if f.default is None]
+    assert [f.name for f in dataclasses.fields(tstep.StepInput)] == [
+        f.name for f in dataclasses.fields(jstep.StepInput)]
     # the audit and telemetry layouts
     tcols = [k for k in vars(tstep) if k.startswith("T_")]
     assert tcols == [k for k in vars(jstep) if k.startswith("T_")]
@@ -375,3 +379,73 @@ def test_shard_copies_match_the_reference():
         assert params(getattr(TSC, name)) == params(getattr(JSC, name)), \
             name
     assert TSC.K_TIERS == JSC.K_TIERS
+
+
+def test_txn_copies_match_the_reference():
+    """The transaction slice's copies: the vote constants, the epoch
+    machinery's constants, the mergeable ops, the lazy export map, the
+    coordinator's states, the KVS fold's done-ring bound, and the public
+    signatures (plus the nemesis's ``device``)."""
+    import inspect
+
+    import rdma_paxos_tpu.models.replicated_kvs as jrkvs
+    import rdma_paxos_tpu.shard.cluster as jcluster
+    import rdma_paxos_tpu.topology.epoch as jepoch
+    import rdma_paxos_tpu.txn as jtxn
+    import rdma_paxos_tpu.txn.api as japi
+    import rdma_paxos_tpu.txn.chaos as jtchaos
+    import rdma_paxos_tpu.txn.coordinator as jcoord
+    import rdma_paxos_tpu.txn.lane as jlane
+    import rdma_paxos_tpu.txn.merge as jmerge
+    import rdma_paxos_tpu_torch.models.replicated_kvs as trkvs
+    import rdma_paxos_tpu_torch.shard.cluster as tcluster
+    import rdma_paxos_tpu_torch.topology as ttopo
+    import rdma_paxos_tpu_torch.topology.epoch as tepoch
+    import rdma_paxos_tpu_torch.txn as ttxn
+    import rdma_paxos_tpu_torch.txn.api as tapi
+    import rdma_paxos_tpu_torch.txn.chaos as ttchaos
+    import rdma_paxos_tpu_torch.txn.coordinator as tcoord
+    import rdma_paxos_tpu_torch.txn.lane as tlane
+    import rdma_paxos_tpu_torch.txn.merge as tmerge
+
+    def params(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+    assert _upper_constants(tlane) == _upper_constants(jlane)
+    assert set(_upper_constants(tlane)) == {
+        "TXN_NONE", "TXN_PENDING", "TXN_PREPARED", "TXN_CONFLICT"}
+    assert _upper_constants(tepoch) == _upper_constants(jepoch)
+    assert {"PENDING", "COMPLETE", "INVALIDATED", "RETRY_STEPS"} <= set(
+        _upper_constants(tepoch))
+    assert set(ttopo.__all__) <= set(vars(tepoch))
+    assert _upper_constants(tmerge) == _upper_constants(jmerge)
+    assert {k: v[0] for k, v in tmerge.MERGE_FNS.items()} == {
+        k: v[0] for k, v in jmerge.MERGE_FNS.items()}
+    assert tmerge._MERGE_OPS == jmerge._MERGE_OPS
+    for op in (4, 5, 6):
+        for val in (0, 5, -7, 77, 255, 1 << 30):
+            raw = tmerge.encode_merge_val(op, val)
+            assert raw == jmerge.encode_merge_val(op, val), (op, val)
+            assert tmerge.decode_merge_val(op, raw) == \
+                jmerge.decode_merge_val(op, raw)
+    assert ttxn._LAZY == jtxn._LAZY and ttxn.__all__ == jtxn.__all__
+    assert _upper_constants(tcoord) == _upper_constants(jcoord)
+    assert tcoord.TxnCoordinator.RETRY_STEPS == \
+        jcoord.TxnCoordinator.RETRY_STEPS
+    assert tapi._NAMED_OPS == japi._NAMED_OPS
+    assert trkvs.TXN_DONE_CAP == jrkvs.TXN_DONE_CAP
+    for a, b in ((tcoord.attach_coordinator, jcoord.attach_coordinator),
+                 (tcoord.TxnCoordinator, jcoord.TxnCoordinator),
+                 (tcoord.Txn, jcoord.Txn), (tapi.transact, japi.transact),
+                 (tlane.prepare_vote, jlane.prepare_vote),
+                 (tepoch.placement_status, jepoch.placement_status),
+                 (ttchaos.run_txn_chaos, jtchaos.run_txn_chaos)):
+        assert params(a) == params(b), a
+    tp = params(ttchaos.TxnNemesisRunner)
+    assert tp[-1] == ("device", inspect.Parameter.KEYWORD_ONLY, None)
+    assert tp[:-1] == params(jtchaos.TxnNemesisRunner)
+    for tcls, jcls in ((tsim.SimCluster, jsim.SimCluster),
+                       (tcluster.ShardedCluster, jcluster.ShardedCluster)):
+        for name in ("set_txn_watch", "clear_txn_watch"):
+            assert params(getattr(tcls, name)) == params(
+                getattr(jcls, name)), (tcls, name)

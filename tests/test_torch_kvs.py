@@ -193,10 +193,26 @@ def test_rebuild_refolds_identically():
 
 
 def test_txn_record_raises():
-    c = SimCluster(LogConfig(**GEO), 3, device="cpu")
-    kv = ReplicatedKVS(c, cap=256)
-    c.run_until_elected(0)
-    c.submit(0, bytes(TXN_CMD_W * 4), conn=5, req_id=1)
-    c.step()
-    with pytest.raises(NotImplementedError):
-        kv.get(0, b"k")
+    """A committed transaction record no longer raises: it folds as in
+    the JAX package (here a record of no known txn op, which releases no
+    write), and the tables and counters equal the JAX KVS's. The txn
+    fold's own parity is in tests/test_torch_txn.py."""
+    kvs = []
+    for sim, kvs_cls, kw in ((JSim, JKVS, {}),
+                             (SimCluster, ReplicatedKVS, dict(device="cpu"))):
+        c = sim((JCfg if sim is JSim else LogConfig)(**GEO), 3, **kw)
+        kv = kvs_cls(c, cap=256)
+        c.run_until_elected(0)
+        c.submit(0, bytes(TXN_CMD_W * 4), conn=5, req_id=1)
+        kv.put(0, b"k", b"v", client_id=6, req_id=1)
+        c.step()
+        c.step()
+        assert kv.get(0, b"k") == b"v"
+        kvs.append(kv)
+    (jk, tk) = kvs
+    assert (tk.txn_applied, tk.txn_discarded, tk.deduped) == (
+        jk.txn_applied, jk.txn_discarded, jk.deduped)
+    for r in range(3):
+        jt, tt = (kv_state_to_numpy(k.tables[r]) for k in kvs)
+        for f in jt:
+            np.testing.assert_array_equal(jt[f], tt[f], err_msg=f)

@@ -795,17 +795,17 @@ def test_unported_surfaces_raise():
     cfg = LogConfig(**GEO)
     with pytest.raises(NotImplementedError, match="item 14"):
         ShardedCluster(cfg, 3, 2, mesh=(2, 3), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ShardedCluster(cfg, 3, 2, txn=True, device="cpu")
     sc = ShardedCluster(cfg, 3, 2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         sc.health()
-    for name in ("streams", "governor", "txn", "topology"):
+    for name in ("streams", "governor", "topology"):
         setattr(sc, name, object())
         with pytest.raises(NotImplementedError, match="item 13"):
             sc.step()
         setattr(sc, name, None)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # transactions are ported (tests/test_torch_txn.py): without a
+    # coordinator, transact refuses as the JAX KVS does
+    with pytest.raises(RuntimeError, match="attach_coordinator"):
         ShardedKVS(sc, cap=64).transact([("put", b"k", b"v")])
     with pytest.raises(RuntimeError):
         sc.step_burst()

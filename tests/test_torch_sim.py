@@ -168,8 +168,12 @@ def test_engine_guards():
     c.finish(t)
     assert c.drain() is None
     assert c.leader() == 0
-    with pytest.raises(NotImplementedError):
-        SimCluster(LogConfig(**GEO), 3, txn=True, device="cpu")
+    # the txn lane is ported (tests/test_torch_txn.py): a txn=True engine
+    # builds, and only it takes a watch
+    assert SimCluster(LogConfig(**GEO), 3, txn=True,
+                      device="cpu")._txn_watch == -1
+    with pytest.raises(RuntimeError, match="txn=True"):
+        c.set_txn_watch(0, 1)
     # the audit and telemetry variants build their host consumers
     v = SimCluster(LogConfig(**GEO), 3, audit=True, telemetry=True,
                    flight_capacity=5, device="cpu")

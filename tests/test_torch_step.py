@@ -149,20 +149,20 @@ def test_stable_equals_full_without_timeouts():
 
 
 def test_unported_flags_raise():
-    """The txn= lane is not ported and raises; the audit= and telemetry=
-    variants add their fields (None when off). Their parity with JAX is
-    in tests/test_torch_audit.py and tests/test_torch_telemetry.py."""
+    """No step flag is refused any more: the audit=, telemetry= and txn=
+    variants add their fields (None when off) and change no other
+    output. Their parity with JAX is in tests/test_torch_audit.py,
+    tests/test_torch_telemetry.py and tests/test_torch_txn.py."""
     R = 3
     st = stack_states(CFG, R, R, device="cpu")
     inp = make_step_input(CFG, R, device="cpu")
-    with pytest.raises(NotImplementedError):
-        replica_step(st, inp, cfg=CFG, n_replicas=R, txn=True)
     _, off = replica_step(clone_state(st), inp, cfg=CFG, n_replicas=R)
     _, on = replica_step(clone_state(st), inp, cfg=CFG, n_replicas=R,
-                         audit=True, telemetry=True)
+                         audit=True, telemetry=True, txn=True)
     for k in VARIANT_FIELDS:
         assert getattr(off, k) is None and getattr(on, k) is not None, k
     for k in OUTPUT_FIELDS:
         assert torch.equal(getattr(off, k), getattr(on, k)), k
     assert on.audit_digest.shape == (R, CFG.window_slots)
     assert on.telemetry.shape == (R, 8)
+    assert on.txn_vote.tolist() == [0] * R         # no watch: TXN_NONE
