@@ -133,9 +133,39 @@ exits non-zero without its result line):
     straddling transaction aborted, verdict, history and merge summary
     equal to the CPU run; (11d) ``ShardedClusterDriver(txn=True,
     pipeline=2)`` at geometry (a), G = 2: a put-pair and an INCR-pair
-    transaction through its poll loop, ``status()['txn']``, and
+    transaction through its poll loop, ``health()['txn']``, and
     ``ClusterDriver(txn=True)`` elected and stepped;
-12. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+12. repair and the governor, R = 3, gather, geometry (a), each run on
+    the card and again with ``device="cpu"`` in this process, equal,
+    with one ``commit_window`` launch per protocol step and no
+    ``commit_scan`` launch: (12a) an audited ``SimCluster`` with a
+    ``RepairController``: a follower's committed slot flipped is
+    quarantined, installed from a majority donor, backfilled and
+    re-admitted after probation; the corrupted-donor retry; escalation
+    latched after ``max_attempts`` with ``repair_failed`` firing — every
+    step's outputs, ``repair.status()``, the ledger and the alerts equal
+    to the CPU run; protocol steps from the flip to re-admission, install
+    and ``run_redigest`` ms, wall ms per audited step with a repair in
+    flight against one without; (12b) the repair nemesis
+    (``NemesisRunner(repair=True, pipeline=2)``), seeds 3 and 5: verdict
+    ``ok``, verdict, history and ledger equal to the CPU run; (12c)
+    ``ShardedCluster(G=8, audit=True)``: group 1's replica repaired while
+    every other group's commit frontier advances strictly; (12d) a
+    governed ``SimCluster`` under a seeded trickle/burst/trickle arrival
+    trace, ``ShardedCluster(G=8)``'s per-group rungs, and the SLO shed
+    through ``on_alert`` (serial while the burn-rate pager fires, a
+    fused tier again once it resolves) — decisions and outputs equal to
+    the CPU run; committed entries/s governed, fixed serial and fixed
+    ``max(K_TIERS)`` in alternating rounds on the card; (12e)
+    ``ClusterDriver(audit=True, repair=True)`` with its leader corrupted
+    (deposed, repaired, ``digest_divergence`` fired, the audit artifact
+    written, ``health()`` valid, ``/healthz`` and ``/metrics`` scraped
+    from ``serve_metrics(0)``), ``ClusterDriver(governor=True,
+    pipeline=2)`` serving a queued workload through its live loop with
+    fused ``dispatch_tier`` counters, and ``ShardedClusterDriver(G=2,
+    audit=True, repair=True)`` repairing a group leader while group 0
+    commits;
+13. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
 after, so a failure names its phase.
@@ -3245,7 +3275,7 @@ def drive_txn_driver(dev) -> dict:
                                f"{h.state} {h.abort_reason}")
             hs.append(time.perf_counter() - t1)
         wall = time.perf_counter() - t0
-        st = d.status()
+        st = d.health()
         d.stop()
         check(d.loop_error is None,
               f"(11d) the loop crashed: {d.loop_error!r}")
@@ -3256,7 +3286,7 @@ def drive_txn_driver(dev) -> dict:
               f"(11d) reads after the transactions: {vals}")
         check(st["txn"]["committed_total"] == 2 and st["txn"]["active"] == 0
               and st["txn"]["locks"] == 0 and st["txn"] == coord.health(),
-              f"(11d) status()['txn'] = {st['txn']}")
+              f"(11d) health()['txn'] = {st['txn']}")
         c = d.cluster
         out = dict(steps=c.step_index - s0, launches=commit_window.launches,
                    scans=commit_scan.launches, wall=wall, txn_s=hs,
@@ -3404,13 +3434,762 @@ def phase_txn(dev, card: str) -> list:
           f"pipeline=2) G=2 at geometry (a): a put-pair and an INCR-pair "
           f"transaction through the poll loop committed in "
           + ", ".join(f"{s * 1e3:.1f}" for s in gpu["txn_s"])
-          + f" ms; status()['txn'] {gpu['health']}; "
+          + f" ms; health()['txn'] {gpu['health']}; "
           f"{gpu['steps'] - gpu['single_steps']} protocol steps; "
           f"ClusterDriver(txn=True) elected and stepped "
           f"{gpu['single_steps']} steps; {gpu['launches']} commit_window "
           f"launches in all; values, health and tables equal to the CPU "
           f"run", flush=True)
     return [dict(launches=r["launches"], steps=r["steps"]) for r in runs]
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the alert and health plane, repair and the governor
+# ---------------------------------------------------------------------------
+
+REPAIR_FANOUT = "gather"          # a quarantine is a peer-mask cut
+REPAIR_GROUPS = 8
+GOV_TICKS = 60
+GOV_ROUNDS = 2
+
+
+def repair_payloads(rng, n: int) -> list:
+    """``n`` seeded SEND rows of 16 to 96 bytes."""
+    return [(3, 1 + i % 64, 0,
+             bytes(rng.integers(0, 256, int(k), dtype=np.uint8)))
+            for i, k in enumerate(rng.integers(16, 97, n))]
+
+
+def pump_repair(c, ctl, traffic, limit: int, until, times=None) -> list:
+    """The drivers' repair contract on a bare engine: step, observe every
+    finished step, run a due repair on the drained path. Returns each
+    step's outputs; ``times`` collects (repair in flight, wall ms) per
+    step."""
+    log = []
+    for _ in range(limit):
+        traffic()
+        busy = bool(ctl.states)
+        res, ms = timed(c.device, c.step)
+        ctl.observe()
+        if ctl.needs_drain():
+            ctl.drive()
+        if times is not None:
+            times.append((busy, ms))
+        log.append({k: res[k].tolist() for k in
+                    ("term", "role", "commit", "end", "head", "accepted")})
+        if until():
+            break
+    return log
+
+
+def drive_repair_engine(dev, case: str) -> dict:
+    """(12a) on ``dev``: an audited ``SimCluster`` at geometry (a),
+    gather, with a ``RepairController``. ``loop``: a follower's committed
+    slot flipped and healed (quarantine, install from a majority donor,
+    backfill, probation, re-admission), with the install and
+    ``run_redigest`` timed and the wall ms of each audited step;
+    ``retry``: the first donor corrupted too, at an index aged out of the
+    live window; ``escalate``: every donor corrupted, so the controller
+    escalates after ``max_attempts`` and the ``repair_failed`` page
+    latches."""
+    from rdma_paxos_tpu_torch.chaos.faults import corrupt_slot
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.obs import Observability
+    from rdma_paxos_tpu_torch.obs.alerts import AlertEngine, default_rules
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.repair import RepairController
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, _ = GEOMETRIES["a"]
+    B = geom["batch_slots"]
+    c = SimCluster(LogConfig(**geom), R, fanout=REPAIR_FANOUT, audit=True,
+                   device=dev)
+    obs = Observability()
+    c.obs = obs
+    opts = dict(probation_steps=4)
+    if case == "escalate":
+        opts.update(max_attempts=2, backoff_steps=2)
+    ctl = RepairController(c, obs=obs, **opts)
+    rng = np.random.default_rng(SEED + 12)
+    commit_window.launches = commit_scan.launches = 0
+    s0 = c.step_index
+    c.run_until_elected(0)
+    c.submit_many(0, repair_payloads(rng, B // 2))
+    for _ in range(4):
+        c.step()
+        ctl.observe()
+    if case != "loop":
+        # age the early indices out of the [commit - W, commit) window
+        # the live digests re-report: only install-time verification
+        # can see a donor corrupted there
+        c.submit_many(0, repair_payloads(rng, 2 * B + 64))
+        while c.pending[0]:
+            c.step()
+            ctl.observe()
+        c.step()
+        ctl.observe()
+    check(c.auditor.findings == [], f"(12a {case}) findings before the "
+                                    f"flip: {c.auditor.findings[:1]}")
+    target = int(c.last["commit"].min()) - 1
+    corrupt_slot(c, 2, target)
+    if case in ("retry", "escalate"):
+        corrupt_slot(c, 0, 3)
+    if case == "escalate":
+        corrupt_slot(c, 1, 4)
+    flip = c.step_index
+    installs, redigests = [], []
+    if case == "loop":
+        inner_install, inner_redigest = ctl._install_from, c.redigest
+
+        def install(*a):
+            out, ms = timed(dev, lambda: inner_install(*a))
+            installs.append(ms)
+            return out
+
+        def redigest(*a):
+            out, ms = timed(dev, lambda: inner_redigest(*a))
+            redigests.append(ms)
+            return out
+        ctl._install_from, c.redigest = install, redigest
+    times = []
+    until = ((lambda: ctl.escalations > 0) if case == "escalate"
+             else (lambda: ctl.repairs_done and not ctl.states))
+    log = pump_repair(c, ctl, lambda: c.submit_many(
+        0, repair_payloads(rng, 32)), 48, until, times)
+    done = c.step_index
+    if case == "loop":
+        # the same traffic with nothing to repair, for the step cost
+        pump_repair(c, ctl, lambda: c.submit_many(
+            0, repair_payloads(rng, 32)), 8, lambda: False, times)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    eng = AlertEngine(obs.metrics, rules=default_rules())
+    fired = eng.evaluate()["fired"]
+    st = ctl.status()
+    out = dict(log=log, status=st, fired=fired,
+               ledger=json.dumps(no_anchor(c.auditor.dump()),
+                                 sort_keys=True, default=str),
+               summary=c.auditor.summary(), target=target,
+               mask=c.peer_mask.tolist(), repairs=c.auditor.repairs,
+               steps=c.step_index - s0, launches=commit_window.launches,
+               scans=commit_scan.launches, flip_to_done=done - flip,
+               installs=installs, redigests=redigests, times=times)
+    return out
+
+
+def drive_repair_groups(dev) -> dict:
+    """(12c) on ``dev``: ``ShardedCluster(G=8, audit=True)`` at geometry
+    (a), gather: group 1's replica 1 is flipped and healed while every
+    other group's commit frontier must advance strictly."""
+    from rdma_paxos_tpu_torch.chaos.faults import corrupt_slot
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.repair import RepairController
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    geom, _ = GEOMETRIES["a"]
+    G = REPAIR_GROUPS
+    sc = ShardedCluster(LogConfig(**geom), R, G, fanout=REPAIR_FANOUT,
+                        audit=True, device=dev)
+    ctl = RepairController(sc, probation_steps=3)
+    rng = np.random.default_rng(SEED + 120)
+    commit_window.launches = commit_scan.launches = 0
+    s0 = sc.step_index
+    sc.place_leaders()
+
+    def traffic(n=16):
+        for g in range(G):
+            sc.submit_many(g, sc.leader_hint(g), repair_payloads(rng, n))
+    traffic(64)
+    for _ in range(4):
+        sc.step()
+        ctl.observe()
+    target = int(sc.last["commit"][1].min()) - 1
+    corrupt_slot(sc, 1, target, group=1)
+    fronts = []
+
+    def step_traffic():
+        fronts.append([int(sc.last["commit"][g].max())
+                       + int(sc.rebased_total[g]) for g in range(G)])
+        traffic()
+    log = pump_repair(sc, ctl, step_traffic, 48,
+                      lambda: ctl.repairs_done and not ctl.states)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    fr = np.asarray(fronts)
+    others = [g for g in range(G) if g != 1]
+    return dict(log=log, status=ctl.status(), fronts=fronts,
+                strict=bool((np.diff(fr[:, others], axis=0) > 0).all()),
+                ledger=json.dumps(no_anchor(sc.auditor.dump()),
+                                  sort_keys=True, default=str),
+                summary=sc.auditor.summary(), repairs=sc.auditor.repairs,
+                steps=sc.step_index - s0, launches=commit_window.launches,
+                scans=commit_scan.launches)
+
+
+def gov_trace(seed: int, n: int, B: int) -> list:
+    """A seeded arrival trace in entries per tick: trickle, burst,
+    trickle (the burst offers 1 to 5 batches a tick)."""
+    rng = np.random.default_rng(seed)
+    a, b = n // 3, 2 * n // 3
+    return ([int(v) for v in rng.integers(0, B // 16, a)]
+            + [int(v) for v in rng.integers(B, 5 * B, b - a)]
+            + [int(v) for v in rng.integers(0, B // 16, n - b)])
+
+
+def runs_of(xs: list) -> list:
+    """Run-length pairs ``(value, count)`` of ``xs``."""
+    out = []
+    for x in xs:
+        if out and out[-1][0] == x:
+            out[-1][1] += 1
+        else:
+            out.append([x, 1])
+    return [tuple(p) for p in out]
+
+
+def governed_dispatch(c, gov):
+    """The drivers' governed dispatch rule: a serial decision steps, a
+    fused one bursts at its rung."""
+    d = gov.decision
+    if d.max_k > 1 and max(len(q) for q in c.pending):
+        return c.step_burst(max_k=d.max_k)
+    return c.step()
+
+
+def drive_governor(dev) -> dict:
+    """(12d) on ``dev``: a governed ``SimCluster`` at geometry (a),
+    gather, under :func:`gov_trace`; ``ShardedCluster(G=8)`` with group
+    0 loaded (per-group rungs); and the SLO shed through ``on_alert`` —
+    the burn-rate pager drops the tier to serial, and it climbs again
+    once the pager resolves."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.obs.alerts import AlertEngine, default_rules
+    from rdma_paxos_tpu_torch.obs.metrics import (
+        LATENCY_BUCKETS_S, MetricsRegistry)
+    from rdma_paxos_tpu_torch.obs.series import TimeSeriesStore
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.governor import (
+        SHED_RULE, attach_governor)
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    geom, _ = GEOMETRIES["a"]
+    B = geom["batch_slots"]
+    cfg = LogConfig(**geom)
+    rng = np.random.default_rng(SEED + 1200)
+    commit_window.launches = commit_scan.launches = 0
+    c = SimCluster(cfg, R, fanout=REPAIR_FANOUT, device=dev)
+    s_sim = c.step_index
+    c.run_until_elected(0)
+    reg = MetricsRegistry()
+    store = TimeSeriesStore(capacity=256)
+    eng = AlertEngine(reg, rules=default_rules(), series=store)
+    gov = attach_governor(c, obs=None, alerts=eng)
+    eng.add_hook(gov.on_alert)
+    decisions, log = [], []
+    for n in gov_trace(SEED, GOV_TICKS, B):
+        if n:
+            c.submit_many(0, repair_payloads(rng, n))
+        res = governed_dispatch(c, gov)
+        decisions.append(list(gov.decision))
+        log.append({k: res[k].tolist() for k in ("commit", "end")})
+    while int(c.last["commit"].min()) < int(c.last["end"].max()):
+        governed_dispatch(c, gov)
+    # the SLO shed: a scripted latency regression (injected walls, 5 s
+    # apart) through the default burn-rate pager
+    climbed = gov.decision.max_k
+    w = [1000.0]
+    marks = []
+
+    def burn(n, latency, per, stop):
+        for _ in range(n):
+            for _ in range(per):
+                reg.observe("commit_latency_seconds", latency,
+                            buckets=LATENCY_BUCKETS_S, replica=0)
+            store.sample(reg.snapshot(), step=store.samples, wall=w[0])
+            w[0] += 5.0
+            if SHED_RULE in eng.evaluate()[stop]:
+                marks.append((stop, store.samples))
+                return
+    c.submit_many(0, repair_payloads(rng, 3 * B))
+    governed_dispatch(c, gov)
+    before = list(gov.decision)
+    burn(10, 0.01, 20, "fired")
+    burn(70, 2.0, 20, "fired")
+    shed = list(gov.decision)
+    c.submit_many(0, repair_payloads(rng, 3 * B))
+    governed_dispatch(c, gov)
+    held = list(gov.decision)
+    burn(140, 0.01, 60, "resolved")
+    for _ in range(3):
+        c.submit_many(0, repair_payloads(rng, 3 * B))
+        governed_dispatch(c, gov)
+    after = list(gov.decision)
+    while int(c.last["commit"].min()) < int(c.last["end"].max()):
+        governed_dispatch(c, gov)
+    sim_steps = c.step_index - s_sim
+    # per-group rungs
+    sc = ShardedCluster(cfg, R, REPAIR_GROUPS, fanout=REPAIR_FANOUT,
+                        device=dev)
+    s_sc = sc.step_index
+    sc.place_leaders()
+    sgov = attach_governor(sc, obs=None)
+    rungs = []
+    for _ in range(6):
+        sc.submit_many(0, sc.leader_hint(0), repair_payloads(rng, 3 * B))
+        d = sgov.decision
+        sc.step_burst(max_k=d.max_k) if d.max_k > 1 else sc.step()
+        rungs.append(list(sgov.decision))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(decisions=decisions, log=log, status=gov.status(),
+                climbed=climbed, before=before, shed=shed, held=held,
+                after=after, marks=marks, rungs=rungs,
+                sstatus=sgov.status(),
+                replayed=[len(c.replayed[r]) for r in range(R)],
+                steps=sim_steps + sc.step_index - s_sc,
+                launches=commit_window.launches,
+                scans=commit_scan.launches)
+
+
+def governor_rates(dev, card: str) -> list:
+    """(12d) committed entries/s on the card for one queued workload at
+    geometry (a): governed against fixed serial and fixed max(K_TIERS),
+    in alternating rounds; each round printed. Returns the rounds'
+    protocol steps and launches."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.governor import attach_governor
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, _ = GEOMETRIES["a"]
+    B = geom["batch_slots"]
+    cfg = LogConfig(**geom)
+    rows = repair_payloads(np.random.default_rng(SEED + 7), 5 * B)
+    loads = gov_trace(SEED + 1, 30, B)
+    runs = []
+    modes = ("governed", "serial", "burst16")
+    for rnd in range(GOV_ROUNDS):
+        rates = {}
+        # each round runs the three in the other order than the last
+        for mode in (modes if rnd % 2 == 0 else modes[::-1]):
+            c = SimCluster(cfg, R, fanout=REPAIR_FANOUT, device=dev)
+            c.run_until_elected(0)
+            c.prewarm()
+            gov = attach_governor(c, obs=None) if mode == "governed" \
+                else None
+            commit_window.launches = commit_scan.launches = 0
+            s0 = c.step_index
+            c0 = int(c.last["commit"].min())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total = 0
+            for n in loads:
+                if n:
+                    c.submit_many(0, rows[:n])
+                    total += n
+                if gov is not None:
+                    governed_dispatch(c, gov)
+                elif mode == "burst16" and c.pending[0]:
+                    c.step_burst(max_k=max(c.K_TIERS))
+                else:
+                    c.step()
+            while int(c.last["commit"].min()) - c0 < total:
+                if gov is not None:
+                    governed_dispatch(c, gov)
+                elif mode == "burst16" and c.pending[0]:
+                    c.step_burst(max_k=max(c.K_TIERS))
+                else:
+                    c.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            runs.append(dict(steps=c.step_index - s0,
+                             launches=commit_window.launches,
+                             scans=commit_scan.launches))
+            rates[mode] = (f"{mode} {total / dt:.0f} entries/s "
+                           f"({c.step_index - s0} steps, "
+                           f"{dt * 1e3:.1f} ms)")
+        print(f"governor (12d) round {rnd + 1} on {card}: {len(loads)} "
+              f"ticks of gov_trace, {total} entries, run "
+              f"{'first to last' if rnd % 2 == 0 else 'last to first'}: "
+              + "; ".join(rates[m] for m in modes), flush=True)
+    return runs
+
+
+def drive_repair_driver(dev, wd: str) -> dict:
+    """(12e) on ``dev``: ``ClusterDriver(audit=True, repair=True)`` at
+    geometry (a), gather, serial, with its LEADER corrupted: deposed,
+    repaired through ``_do_recover`` and re-admitted; the
+    ``digest_divergence`` page fires and writes the audit artifact, and
+    ``health()`` passes ``validate_cluster``."""
+    from rdma_paxos_tpu_torch.chaos.faults import corrupt_slot
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.obs.health import validate_cluster
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
+    geom, _ = GEOMETRIES["a"]
+    rng = np.random.default_rng(SEED + 12000)
+    os.makedirs(wd)
+    d = ClusterDriver(LogConfig(**geom), R, fanout=REPAIR_FANOUT,
+                      audit=True, repair=True, pipeline=0, device=dev,
+                      workdir=wd, health_period=0.0,
+                      repair_opts=dict(probation_steps=4),
+                      timeout_cfg=TimeoutConfig(**TIMERS_OFF))
+    try:
+        d._alert_period = 1e9           # evaluated explicitly below
+        commit_window.launches = commit_scan.launches = 0
+        s0 = d.cluster.step_index
+        d.runtimes[0].timer._deadline = 0.0
+        log = [d.step()["role"].tolist()]
+        check(d.leader() == 0, f"(12e) the driver elected {d.leader()}")
+        for _ in range(4):
+            d.cluster.submit_many(0, repair_payloads(rng, 64))
+            d.step()
+        target = int(d.cluster.last["commit"].min()) - 1
+        corrupt_slot(d.cluster, 0, target)
+        leaders, refused = [], []
+        for _ in range(48):
+            lead = d.leader()
+            d.cluster.submit_many(lead if lead >= 0 else 1,
+                                  repair_payloads(rng, 16))
+            res = d.step()
+            log.append({k: res[k].tolist() for k in
+                        ("term", "role", "commit", "end")})
+            leaders.append(d.leader())
+            refused.append(not d._accepts_clients(0))
+            if d.repair.repairs_done and not d.repair.states:
+                break
+        out = d.evaluate_alerts()
+        h = d.health()
+        scrape = None
+        if dev.type == "cuda":
+            import urllib.request
+            exp = d.serve_metrics(0)
+            with urllib.request.urlopen(exp.url + "/healthz",
+                                        timeout=10) as r:
+                hz = json.loads(r.read())
+            with urllib.request.urlopen(exp.url + "/metrics",
+                                        timeout=10) as r:
+                metrics = r.read().decode()
+            scrape = dict(healthz_ok=validate_cluster(hz) == [],
+                          repairs=hz["repair"]["repairs_done"],
+                          lines=len(metrics.splitlines()),
+                          has_repairs="repairs_total" in metrics)
+        return dict(log=log, leaders=leaders, refused=refused,
+                    fired=out["fired"], status=d.repair.status(),
+                    missing=validate_cluster(h),
+                    audit=h["audit"], artifact=d.audit_artifact,
+                    replayed=[list(d.cluster.replayed[r]) for r in range(R)],
+                    scrape=scrape, steps=d.cluster.step_index - s0,
+                    launches=commit_window.launches,
+                    scans=commit_scan.launches)
+    finally:
+        d.stop()
+
+
+def drive_governed_driver(dev) -> dict:
+    """(12e) on ``dev``: ``ClusterDriver(governor=True, pipeline=2)`` at
+    geometry (a), gather: elected, then a queued workload served by its
+    live loop; the committed stream and the ``dispatch_tier``
+    counters."""
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
+    geom, _ = GEOMETRIES["a"]
+    B = geom["batch_slots"]
+    rows = repair_payloads(np.random.default_rng(SEED + 13000), 12 * B)
+    d = ClusterDriver(LogConfig(**geom), R, fanout=REPAIR_FANOUT,
+                      governor=True, pipeline=2, device=dev,
+                      timeout_cfg=TimeoutConfig(**TIMERS_OFF))
+    try:
+        d.prewarm()
+        d.runtimes[0].timer._deadline = 0.0
+        d.step()
+        check(d.leader() == 0, f"(12e) governed driver: leader "
+                               f"{d.leader()}")
+        commit_window.launches = commit_scan.launches = 0
+        s0 = d.cluster.step_index
+        c0 = int(d.cluster.last["commit"].min())
+        t0 = time.perf_counter()
+        d.run(period=0.002)
+        for i in range(0, len(rows), B):
+            d.cluster.submit_many(0, rows[i:i + B])
+            d._wake.set()
+            time.sleep(0.002)
+        while int(d.cluster.last["commit"].min()) - c0 < len(rows):
+            check(time.perf_counter() - t0 < 120,
+                  "(12e) the governed driver never drained its workload")
+            time.sleep(0.005)
+        wall = time.perf_counter() - t0
+        d.stop()
+        check(d.loop_error is None, f"(12e) {d.loop_error!r}")
+        tiers = {k: v for k, v in
+                 d.obs.metrics.snapshot()["counters"].items()
+                 if k.startswith("dispatch_tier")}
+        return dict(tiers=tiers, wall=wall, n=len(rows),
+                    inflight=d.cluster.max_inflight_dispatches,
+                    committed=[list(d.cluster.replayed[r])[-len(rows):]
+                               for r in range(R)],
+                    governor=d.health()["governor"],
+                    steps=d.cluster.step_index - s0,
+                    launches=commit_window.launches,
+                    scans=commit_scan.launches)
+    finally:
+        d.stop()
+
+
+def drive_repair_sharded_driver(dev) -> dict:
+    """(12e) on ``dev``: ``ShardedClusterDriver(G=2, audit=True,
+    repair=True)`` at geometry (a), gather, serial: group 1's leader is
+    corrupted and repaired while group 0 keeps committing."""
+    from rdma_paxos_tpu_torch.chaos.faults import corrupt_slot
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.obs.health import validate_cluster
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.sharded_driver import (
+        ShardedClusterDriver)
+    geom, _ = GEOMETRIES["a"]
+    rng = np.random.default_rng(SEED + 14000)
+    d = ShardedClusterDriver(LogConfig(**geom), R, 2, fanout=REPAIR_FANOUT,
+                             audit=True, repair=True, pipeline=0,
+                             device=dev, group_timer_lo=1,
+                             group_timer_hi=2,
+                             repair_opts=dict(probation_steps=3),
+                             timeout_cfg=TimeoutConfig(**TIMERS_OFF))
+    try:
+        d._alert_period = 1e9
+        commit_window.launches = commit_scan.launches = 0
+        c = d.cluster
+        s0 = c.step_index
+        for _ in range(20):
+            d.step()
+            if all(v >= 0 for v in d.leaders()):
+                break
+        check(all(v >= 0 for v in d.leaders()),
+              f"(12e) sharded driver leaders {d.leaders()}")
+        for g in range(2):
+            c.submit_many(g, d.leaders()[g], repair_payloads(rng, 64))
+        for _ in range(4):
+            d.step()
+        lead1 = d.leaders()[1]
+        target = int(c.last["commit"][1].min()) - 1
+        corrupt_slot(c, lead1, target, group=1)
+        g0, log = [], []
+        for _ in range(60):
+            g0.append(int(c.last["commit"][0].max())
+                      + int(c.rebased_total[0]))
+            lv = d.leaders()
+            for g in range(2):
+                if lv[g] >= 0:
+                    c.submit_many(g, lv[g], repair_payloads(rng, 16))
+            res = d.step()
+            log.append({k: res[k].tolist() for k in
+                        ("term", "role", "commit", "end")})
+            if (d.repair.repairs_done and not d.repair.states
+                    and all(v >= 0 for v in d.leaders())):
+                break
+        h = d.health()
+        return dict(log=log, g0=g0, leaders=d.leaders(), lead1=lead1,
+                    status=d.repair.status(), missing=validate_cluster(h),
+                    summary=c.auditor.summary(),
+                    steps=c.step_index - s0,
+                    launches=commit_window.launches,
+                    scans=commit_scan.launches)
+    finally:
+        d.stop()
+
+
+def phase_repair_governor(dev, card: str) -> list:
+    """Phase 12: repair and the governor on the card, each run against
+    its CPU twin; returns the protocol steps and commit_window launches
+    of its runs."""
+    cpu = torch.device("cpu")
+    runs = []
+
+    def launches_ok(tag, r):
+        check(r["launches"] == r["steps"] > 0 and r["scans"] == 0,
+              f"({tag}) {r['launches']} commit_window and {r['scans']} "
+              f"commit_scan launches in {r['steps']} protocol steps")
+        runs.append(dict(launches=r["launches"], steps=r["steps"]))
+
+    def same(tag, a, b, keys):
+        for k in keys:
+            check(a[k] == b[k], f"({tag}) {k} differs from the CPU run")
+
+    # (12a) the engine's repair loop, the donor retry, the escalation
+    t0 = time.perf_counter()
+    res = {}
+    for case in ("loop", "retry", "escalate"):
+        g = drive_repair_engine(dev, case)
+        ref = drive_repair_engine(cpu, case)
+        same(f"12a {case}", g, ref, ("log", "status", "fired", "ledger",
+                                     "summary", "mask", "repairs"))
+        launches_ok(f"12a {case}", g)
+        res[case] = g
+    lp, rt, es = res["loop"], res["retry"], res["escalate"]
+    core = [e["event"] for e in lp["status"]["timeline"]
+            if e["event"] != "repair_backfill_pending"]
+    check(core == ["replica_quarantined", "repair_installed",
+                   "repair_backfilled", "repair_readmitted"]
+          and lp["status"]["active"] == {}
+          and lp["summary"]["unrepaired"] == 0
+          and lp["repairs"][0]["replica"] == 2
+          and np.asarray(lp["mask"]).all(),
+          f"(12a loop) {lp['status']['timeline']}")
+    rej = [e for e in rt["status"]["timeline"]
+           if e["event"] == "repair_donor_rejected"]
+    check(rt["status"]["repairs_done"] == 1 and rej and rej[0]["donor"] == 0
+          and rej[0]["verify"] and rt["repairs"][0]["donor"] == 1,
+          f"(12a retry) {rt['status']}")
+    check(es["status"]["escalations"] == 1
+          and es["status"]["active"]["0:2"]["state"] == "escalated"
+          and "repair_failed" in es["fired"],
+          f"(12a escalate) {es['status']} {es['fired']}")
+    busy = [ms for b, ms in lp["times"] if b]
+    idle = [ms for b, ms in lp["times"][-8:] if not b]
+    print(f"repair (12a) on {card}: SimCluster(audit=True) at geometry (a) "
+          f"{REPAIR_FANOUT}: replica 2's committed slot {lp['target']} "
+          f"flipped, quarantined, installed from donor "
+          f"{lp['repairs'][0]['donor']}, backfilled over "
+          f"[{lp['repairs'][0]['lo']}, {lp['repairs'][0]['hi']}) and "
+          f"re-admitted {lp['flip_to_done']} protocol steps after the flip;"
+          f" install " + ", ".join(f"{ms:.2f}" for ms in lp["installs"])
+          + " ms, run_redigest " + ", ".join(f"{ms:.2f}" for ms in
+                                             lp["redigests"])
+          + f" ms; wall ms per audited step with a repair in flight "
+          f"{np.mean(busy):.2f} (n={len(busy)}, max {max(busy):.2f}) "
+          f"against {np.mean(idle):.2f} without (n={len(idle)}); "
+          f"corrupted-donor retry: donor 0 refused, repaired from donor "
+          f"{rt['repairs'][0]['donor']}; escalation latched after "
+          f"{es['status']['max_attempts']} attempts, repair_failed "
+          f"fired; every step, status, ledger and alert equal to the CPU "
+          f"run ({time.perf_counter() - t0:.1f} s both)", flush=True)
+
+    # (12b) the repair nemesis, pipelined, two seeds
+    for seed in (3, 5):
+        kw = dict(seed=seed, steps=36, fault_kinds=("drop",), repair=True,
+                  corrupt_step=12, pipeline=2)
+        g = chaos_run(dev, **kw)
+        c_ = chaos_run(cpu, **kw)
+        same(f"12b seed {seed}", g, c_, ("verdict", "history", "ledger",
+                                         "steps"))
+        v = g["verdict"]
+        check(v["ok"] and v["repair"]["active"] == {}
+              and v["audit"]["repairs"] == 1 and g["inflight"] >= 2,
+              f"(12b) seed {seed}: {v}")
+        g["scans"] = g["scan_launches"]
+        launches_ok(f"12b seed {seed}", g)
+        print(f"repair (12b) on {card}: repair nemesis seed {seed} "
+              f"(pipeline=2, drop faults, replica {v['corrupted'][0]} "
+              f"flipped at index {v['corrupted'][1]}): ok, "
+              f"{len(v['repair']['timeline'])} timeline events ending "
+              f"{v['repair']['timeline'][-1]['event']}, "
+              f"{v['linearizability']['ops']} checked ops; verdict, "
+              f"history and ledger equal to the CPU run; {g['steps']} "
+              f"protocol steps, {g['wall']:.2f} s on the card, "
+              f"{c_['wall']:.2f} s on the CPU", flush=True)
+
+    # (12c) groups: one group's replica repaired, the others advancing
+    t0 = time.perf_counter()
+    g = drive_repair_groups(dev)
+    ref = drive_repair_groups(cpu)
+    same("12c", g, ref, ("log", "status", "fronts", "ledger", "summary",
+                         "repairs"))
+    check(g["strict"] and g["status"]["repairs_done"] == 1
+          and g["status"]["active"] == {} and g["repairs"][0]["group"] == 1
+          and g["summary"]["unrepaired"] == 0,
+          f"(12c) {g['status']} strict={g['strict']}")
+    launches_ok("12c", g)
+    print(f"repair (12c) on {card}: ShardedCluster(G={REPAIR_GROUPS}, "
+          f"audit=True) at geometry (a): group 1 replica 1 repaired in "
+          f"{len(g['log'])} steps while the other {REPAIR_GROUPS - 1} "
+          f"groups' commit frontiers advanced every step; every group "
+          f"equal to the CPU run; {g['steps']} protocol steps, "
+          f"{g['launches']} commit_window launches "
+          f"({time.perf_counter() - t0:.1f} s both)", flush=True)
+
+    # (12d) the governor
+    t0 = time.perf_counter()
+    g = drive_governor(dev)
+    ref = drive_governor(cpu)
+    same("12d", g, ref, ("decisions", "log", "status", "before", "shed",
+                         "held", "after", "marks", "rungs", "sstatus",
+                         "replayed"))
+    tiers = [d[1] for d in g["decisions"]]
+    check(max(tiers) > 1 and tiers[-1] < max(tiers), f"(12d) tiers {tiers}")
+    check(g["shed"][4] and g["shed"][1] == 1 and not g["shed"][2]
+          and g["held"][1] == 1 and not g["after"][4]
+          and g["after"][1] > 1
+          and [m for m, _ in g["marks"]] == ["fired", "resolved"],
+          f"(12d) shed {g['shed']} held {g['held']} after {g['after']}")
+    rg = g["rungs"][-1]
+    check(rg[5][0] > 1 and rg[1] == max(rg[5])
+          and all(k <= rg[5][0] for k in rg[5][1:]),
+          f"(12d) per-group rungs {rg}")
+    launches_ok("12d", g)
+    print(f"governor (12d) on {card}: a governed SimCluster at geometry (a) "
+          f"over {GOV_TICKS} ticks of trickle/burst/trickle: max_k by "
+          f"tick " + ", ".join(f"{k}x{n}" for k, n in runs_of(tiers))
+          + f"; the burn-rate pager "
+          f"{g['marks']} shed the tier {g['before'][1]} -> {g['shed'][1]} "
+          f"and it climbed to {g['after'][1]}; G={REPAIR_GROUPS} rungs "
+          f"{rg[5]} (max_k {rg[1]}); decisions, outputs and status equal "
+          f"to the CPU run; {g['steps']} protocol steps "
+          f"({time.perf_counter() - t0:.1f} s both)", flush=True)
+    if dev.type == "cuda":
+        for r in governor_rates(dev, card):
+            launches_ok("12d rates", r)
+
+    # (12e) the drivers
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        g = drive_repair_driver(dev, os.path.join(wd, "card"))
+        ref = drive_repair_driver(cpu, os.path.join(wd, "cpu"))
+        art_ok = g["artifact"] is not None and os.path.exists(g["artifact"])
+    same("12e driver", g, ref, ("log", "leaders", "refused", "fired",
+                                "status", "audit", "replayed"))
+    check(g["status"]["repairs_done"] == 1 and g["status"]["active"] == {}
+          and any(v not in (0, -1) for v in g["leaders"]),
+          f"(12e) driver repair {g['status']} leaders {g['leaders']}")
+    check(g["missing"] == [] and "digest_divergence" in g["fired"]
+          and art_ok and any(g["refused"])
+          and (g["scrape"] is None or (g["scrape"]["healthz_ok"]
+                                       and g["scrape"]["has_repairs"])),
+          f"(12e) driver: missing {g['missing']} fired {g['fired']} "
+          f"artifact {art_ok} scrape {g['scrape']}")
+    launches_ok("12e driver", g)
+    gd = drive_governed_driver(dev)
+    gref = drive_governed_driver(cpu)
+    check(gd["committed"] == gref["committed"],
+          "(12e) the governed driver's committed stream differs from the "
+          "CPU run")
+    check(any("burst" in k or "scan" in k for k in gd["tiers"])
+          and gd["governor"]["ladder"] == [1, 2, 4, 8, 16],
+          f"(12e) governed driver tiers {gd['tiers']}")
+    launches_ok("12e governed", gd)
+    sd = drive_repair_sharded_driver(dev)
+    sref = drive_repair_sharded_driver(cpu)
+    same("12e sharded", sd, sref, ("log", "g0", "leaders", "status",
+                                   "summary"))
+    check(sd["status"]["repairs_done"] == 1 and not sd["status"]["active"]
+          and sd["leaders"][1] >= 0 and sd["g0"][-1] > sd["g0"][0]
+          and sd["missing"] == [] and sd["summary"]["unrepaired"] == 0,
+          f"(12e) sharded driver {sd['status']} leaders {sd['leaders']}")
+    launches_ok("12e sharded", sd)
+    print(f"repair (12e) on {card}: ClusterDriver(audit=True, repair=True) "
+          f"at geometry (a): leader 0 corrupted, deposed (leaders "
+          f"{sorted(set(g['leaders']))}), repaired and re-admitted "
+          f"({g['status']['repairs_done']} repair), alerts fired "
+          f"{g['fired']}, audit artifact written, health() valid, "
+          f"/healthz and /metrics scraped ({g['scrape']}); "
+          f"ClusterDriver(governor=True, pipeline=2) served {gd['n']} "
+          f"queued entries in {gd['wall'] * 1e3:.1f} ms, tiers "
+          f"{gd['tiers']}, max in flight {gd['inflight']}; "
+          f"ShardedClusterDriver(G=2) group 1 leader {sd['lead1']} "
+          f"repaired while group 0 committed {sd['g0'][-1] - sd['g0'][0]} "
+          f"entries; each equal to its CPU run "
+          f"({time.perf_counter() - t0:.1f} s all)", flush=True)
+    print(f"phase 12 on {card}: {sum(r['launches'] for r in runs)} "
+          f"commit_window launches in {sum(r['steps'] for r in runs)} "
+          f"protocol steps, no commit_scan launch", flush=True)
+    return runs
 
 
 class Phase:
@@ -3488,6 +4267,10 @@ def main() -> int:
     with Phase(11, "transactions (11a vote lane, 11b 2PC, 11c txn "
                    "nemesis, 11d live drivers)"):
         main_runs += phase_txn(dev, smi)
+    with Phase(12, "repair and the governor (12a engine repair, 12b "
+                   "repair nemesis, 12c groups, 12d governor, 12e "
+                   "drivers)"):
+        main_runs += phase_repair_governor(dev, smi)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

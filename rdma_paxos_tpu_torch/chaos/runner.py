@@ -4,10 +4,11 @@ The port's copy of the JAX package's ``chaos/runner.py``, over the
 port's engine (``device=None`` means the card; tests pass
 ``device="cpu"``). With the same seed and options it gives the JAX
 runner's verdict, history and audit ledger, bit for bit
-(``tests/test_torch_chaos.py``). The self-healing (``repair=``),
-governor and streams modes raise ``NotImplementedError`` until their
-subsystems are ported (ROADMAP Queue 1, item 13); all three default to
-off, as in the JAX runner.
+(``tests/test_torch_chaos.py``). The self-healing (``repair=``) and
+governor modes run as in the JAX runner (``tests/test_torch_repair.py``,
+``tests/test_torch_governor.py``); the streams mode raises
+``NotImplementedError`` until the streams hub is ported (ROADMAP Queue
+1, item 13). All three default to off, as in the JAX runner.
 
 Composes the whole chaos subsystem against a live ``SimCluster`` +
 ``ReplicatedKVS``: a seeded client workload (sessioned PUT/RM with
@@ -281,14 +282,11 @@ class NemesisRunner:
                  streams: bool = False,
                  cdc_path: Optional[str] = None,
                  device=None):
-        later = [name for name, on in (("repair", repair),
-                                       ("governor", governor),
-                                       ("streams", streams)) if on]
-        if later:
+        if streams:
             raise NotImplementedError(
-                f"NemesisRunner({', '.join(later)}=True) is not ported "
-                "yet (ROADMAP Queue 1, item 13)")
-        del repair_opts, cdc_path      # options of the modes above
+                "NemesisRunner(streams=True) is not ported yet (ROADMAP "
+                "Queue 1, item 13)")
+        del cdc_path                   # an option of the streams mode
         self.cfg = cfg or DEFAULT_KV_CFG
         self.R = int(n_replicas)
         self.seed = int(seed)
@@ -331,11 +329,25 @@ class NemesisRunner:
         self.cluster = SimCluster(self.cfg, self.R, fanout=fanout,
                                   audit=audit, device=device)
         self.cluster.obs = self.obs
-        # a scripted bit corruption at ``corrupt_step`` (victim =
-        # leader + ``corrupt_offset``, target = the min committed index
-        # — both derived from protocol state, so same-seed runs corrupt
-        # the same slot) is detected by the audit; without the repair
-        # pipeline the verdict reports the divergence
+        # self-healing mode (runtime/repair.py): a scripted bit
+        # corruption at ``corrupt_step`` (victim = leader +
+        # ``corrupt_offset``, target = the min committed index — both
+        # derived from protocol state, so same-seed runs corrupt the
+        # same slot) is detected by the audit, quarantined, repaired
+        # from a ledger-majority donor, backfilled, and re-admitted —
+        # and the verdict requires the loop to have CLOSED (zero
+        # unrepaired findings, no replica still held). Without the
+        # repair pipeline the verdict reports the divergence. The
+        # repair timeline (step-domain, deterministic) rides the verdict
+        # and any reproducer artifact.
+        self.repairer = None
+        if repair:
+            if not audit:
+                raise ValueError("repair=True requires audit=True")
+            from rdma_paxos_tpu_torch.runtime.repair import RepairController
+            self.repairer = RepairController(self.cluster,
+                                             obs=self.obs,
+                                             **(repair_opts or {}))
         self.corrupt_step = corrupt_step
         self.corrupt_offset = int(corrupt_offset)
         self.corrupted: Optional[tuple] = None   # (victim, index)
@@ -386,6 +398,19 @@ class NemesisRunner:
                     "runner scan mode and pipelined mode are "
                     "mutually exclusive (bursts are serial-path)")
             self.cluster.scan = True
+        # governor=True: the adaptive dispatch governor rides the run —
+        # observed on every finish (the engine's hook), consulted by the
+        # fused/pipelined drives, and DRAINED TO SERIAL exactly like
+        # elections and repair: any iteration with a fault event due, a
+        # timer firing, or an unknown leader runs the serial single step
+        # regardless of the governor's tier, and a serial governor
+        # decision itself forces the serial path. Decisions are pure
+        # step-domain functions of the observed backlog and arrival
+        # stream, so same-seed verdicts stay bit-reproducible.
+        self.governor = None
+        if governor:
+            from rdma_paxos_tpu_torch.runtime.governor import attach_governor
+            self.governor = attach_governor(self.cluster, obs=self.obs)
 
     # ------------------------------------------------------------------
 
@@ -416,6 +441,8 @@ class NemesisRunner:
                                   **v.as_dict())
         leader = _leader_of(res)
         self.workload.observe(t, leader)
+        if self.repairer is not None:
+            self.repairer.observe()
         return leader
 
     def _finish_one(self, violations: List[dict]) -> int:
@@ -436,6 +463,12 @@ class NemesisRunner:
         would not cover them."""
         if self.pipeline < 2:
             return False
+        # a governor that has disengaged pipelining (or shed to serial)
+        # drains the in-flight window — the same serial-path discipline
+        # elections and repair use
+        if (self.governor is not None
+                and not self.governor.decision.pipeline):
+            return False
         return self._stable_window(t, leader)
 
     def _corrupt_due(self, t: int) -> bool:
@@ -444,9 +477,13 @@ class NemesisRunner:
                 and t >= self.corrupt_step)
 
     def _timer_excluded(self):
-        """Replicas whose election timers must not fire: the crashed
-        ones."""
-        return self.link.down
+        """Replicas whose election timers must not fire: crashed ones
+        and — under repair — quarantined/probation ones (an isolated
+        quarantined replica's futile candidacies would only inflate its
+        local term; a probation replica must not lead)."""
+        if self.repairer is None:
+            return self.link.down
+        return self.link.down | self.repairer.blocked_replicas(0)
 
     def _room_ok(self) -> bool:
         """Ring room for the WHOLE pending backlog (including entries
@@ -466,10 +503,13 @@ class NemesisRunner:
     def _stable_window(self, t: int, leader: int) -> bool:
         """The shared fused-dispatch eligibility predicate (pipelined
         AND scan drives): a known leader, an initialized cluster, no
-        fault event due this step, no corruption pending."""
+        fault event due this step, no corruption pending, no repair
+        needing a drained serial iteration."""
         if leader < 0:
             return False
         if self._corrupt_due(t):
+            return False
+        if self.repairer is not None and self.repairer.needs_drain():
             return False
         return (self.cluster.last is not None
                 and not self.schedule.due(t))
@@ -487,6 +527,10 @@ class NemesisRunner:
             return False
         if self.link.drop or self.link.delay or self.link.dup:
             return False
+        # a serial governor decision drains the scan tier too
+        if (self.governor is not None
+                and self.governor.decision.max_k <= 1):
+            return False
         return self._stable_window(t, leader)
 
     def _one_step(self, t: int, leader: int,
@@ -497,8 +541,11 @@ class NemesisRunner:
             timeouts = self.timers.fire(self._timer_excluded())
             if (not timeouts and self._room_ok()
                     and any(len(q) for q in self.cluster.pending)):
-                # K-window scan dispatch (K sized to the backlog)
-                res = self.cluster.step_burst()
+                # K-window scan dispatch (K sized to the backlog,
+                # capped at the governor's rung when one is attached)
+                res = self.cluster.step_burst(
+                    max_k=(self.governor.decision.max_k
+                           if self.governor is not None else None))
             else:
                 res = self.cluster.step(timeouts=timeouts)
             return self._observe_res(t, res, violations)
@@ -526,6 +573,12 @@ class NemesisRunner:
             target = int(self.cluster.last["commit"].min()) - 1
             corrupt_slot(self.cluster, victim, target)
             self.corrupted = (victim, target)
+        if self.repairer is not None:
+            for (_g, rr) in self.repairer.drive():
+                # a snapshot re-install legitimately rewrites the
+                # repaired replica's offsets — same invariant-baseline
+                # reset as a crash restart
+                self.invariants.reset_replica(rr)
         fired = self.schedule.apply(t, self.cluster, self.link,
                                     timers=self.timers, hard=self.hard,
                                     kvs=self.kv)
@@ -578,10 +631,18 @@ class NemesisRunner:
         linz = check_history(self.history.ops())
         audit_summary = (self.cluster.auditor.summary()
                          if self.cluster.auditor is not None else None)
-        # no repair pipeline: the JAX verdict's repair summary is None
-        repair_summary = None
-        audit_ok = (audit_summary is None
-                    or audit_summary["findings"] == 0)
+        repair_summary = (self.repairer.status()
+                          if self.repairer is not None else None)
+        if self.repairer is not None:
+            # self-healing acceptance: the loop must have CLOSED — every
+            # divergence repaired and backfilled, no replica still
+            # quarantined, on probation or escalated
+            audit_ok = (audit_summary is not None
+                        and audit_summary["unrepaired"] == 0
+                        and not repair_summary["active"])
+        else:
+            audit_ok = (audit_summary is None
+                        or audit_summary["findings"] == 0)
         ok = not violations and linz["ok"] is True and audit_ok
         verdict: Dict = dict(
             ok=ok, seed=self.seed, steps=self.steps,
@@ -606,6 +667,10 @@ class NemesisRunner:
                 read_counts(self.obs),
                 hub=self.cluster.reads.status(),
                 leases=self.cluster.leases.status())
+        if self.governor is not None:
+            # pure step-domain controller state: same seed -> same tier
+            # sequence -> identical summary
+            verdict["governor"] = self.governor.status()
         if not ok:
             # ok=None (state budget exceeded) is NOT a found violation —
             # label it honestly so nobody chases a bug that was never
@@ -635,6 +700,28 @@ class NemesisRunner:
                     "audit": (self.cluster.auditor.dump()
                               if self.cluster.auditor is not None
                               else None),
+                    "repair": repair_summary,
+                    "flight": (self.cluster.flight.dump()
+                               if self.cluster.flight is not None
+                               else None)})
+        elif (self.artifact_path and repair_summary is not None
+                and repair_summary["timeline"]):
+            # a HEALED run still ships its evidence when asked: the
+            # deterministic repair timeline and ledger (with the repair
+            # records closing the findings) — the self-healing loop's
+            # post-incident document
+            verdict["artifact"] = chaos_artifact.write_reproducer(
+                self.artifact_path, seed=self.seed,
+                schedule=self.schedule,
+                reason="divergence repaired (self-healed)",
+                config=self._config_doc(),
+                history=self.history.to_jsonl(),
+                violation=dict(invariants=[], linearizability={},
+                               audit=audit_summary),
+                obs=self.obs, extra={
+                    "verdict": {k: v for k, v in verdict.items()
+                                if k != "artifact"},
+                    "audit": self.cluster.auditor.dump(),
                     "repair": repair_summary,
                     "flight": (self.cluster.flight.dump()
                                if self.cluster.flight is not None

@@ -16,11 +16,23 @@ driver reads, all host-side and stdlib-only:
   recorder, artifacts and first-divergence CLI of the ``audit=`` step
   variant;
 * :mod:`~rdma_paxos_tpu_torch.obs.device` — the counter half of the
-  device telemetry (the ``telemetry=`` step variant's host side).
+  device telemetry (the ``telemetry=`` step variant's host side);
+* :mod:`~rdma_paxos_tpu_torch.obs.alerts` — declarative SLO alert
+  rules (digest mismatch, leaderless, latency burn rates, election
+  storms, repair escalation) evaluated by the drivers' host loops;
+* :mod:`~rdma_paxos_tpu_torch.obs.series` — the registry sampled on
+  the alert cadence into bounded per-series rings (the window-domain
+  rules' substrate), persisted as append-only JSONL;
+* :mod:`~rdma_paxos_tpu_torch.obs.health` — per-replica and cluster
+  health documents and their periodic files;
+* :mod:`~rdma_paxos_tpu_torch.obs.export` — the Prometheus text
+  renderer and the localhost ops exporter (``/metrics`` ``/healthz``
+  ``/series`` ``/alerts``);
+* :mod:`~rdma_paxos_tpu_torch.obs.tracectx` — subsystem traces (the
+  facade's ``tracectx``), the merged timeline and the blame report.
 
-The facade's ``tracectx`` member, the ``alerts``, ``series``,
-``health`` and ``export`` modules and the profiler half of ``device``
-come with ROADMAP Queue 1, item 13.
+The profiler half of ``device``, the console and the span CLI come with
+ROADMAP Queue 1, item 13.
 
 Nothing here runs inside the replica step.
 """
@@ -29,42 +41,59 @@ from __future__ import annotations
 
 from typing import Optional
 
-from rdma_paxos_tpu_torch.obs import clock, metrics, spans, trace
+from rdma_paxos_tpu_torch.obs import (
+    alerts, clock, export, health, metrics, series, spans, trace,
+    tracectx)
+from rdma_paxos_tpu_torch.obs.alerts import AlertEngine
+from rdma_paxos_tpu_torch.obs.export import OpsExporter
+from rdma_paxos_tpu_torch.obs.health import HealthReporter
 from rdma_paxos_tpu_torch.obs.metrics import MetricsRegistry
+from rdma_paxos_tpu_torch.obs.series import TimeSeriesStore
 from rdma_paxos_tpu_torch.obs.spans import SpanRecorder, StepPhaseProfiler
 from rdma_paxos_tpu_torch.obs.trace import TraceRing
+from rdma_paxos_tpu_torch.obs.tracectx import TraceContext
 
 
 class Observability:
     """Facade bundling one registry + one trace ring + one span
-    recorder — the unit the driver threads through every layer. Each
-    :class:`ClusterDriver` gets its own (isolated, test-friendly);
-    module-level code with no driver in scope records against
-    :func:`default`."""
+    recorder + one trace context — the unit the driver threads through
+    every layer. Each :class:`ClusterDriver` gets its own (isolated,
+    test-friendly); module-level code with no driver in scope records
+    against :func:`default`."""
 
     def __init__(self, metrics_registry: Optional[MetricsRegistry] = None,
                  trace_ring: Optional[TraceRing] = None,
-                 span_recorder: Optional[SpanRecorder] = None):
+                 span_recorder: Optional[SpanRecorder] = None,
+                 trace_context: Optional[TraceContext] = None):
         self.metrics = (metrics_registry if metrics_registry is not None
                         else MetricsRegistry())
         self.trace = (trace_ring if trace_ring is not None
                       else TraceRing())
         self.spans = (span_recorder if span_recorder is not None
                       else SpanRecorder())
+        self.tracectx = (trace_context if trace_context is not None
+                         else TraceContext())
 
     def snapshot(self) -> dict:
         """Combined point-in-time export: the metrics snapshot, the
         trace ring's retained events and the span dump, stamped with
-        the shared clock anchor."""
-        return {"anchor": clock.anchor(),
-                "metrics": self.metrics.snapshot(),
-                "trace": self.trace.dump(),
-                "spans": self.spans.dump()}
+        the shared clock anchor. Subsystem traces ride as ``traces``
+        only when some exist, so trace-free snapshots keep the
+        trace-free schema."""
+        out = {"anchor": clock.anchor(),
+               "metrics": self.metrics.snapshot(),
+               "trace": self.trace.dump(),
+               "spans": self.spans.dump()}
+        traces = self.tracectx.dump()
+        if traces["traces"]:
+            out["traces"] = traces
+        return out
 
     def reset(self) -> None:
         self.metrics.reset()
         self.trace.clear()
         self.spans.reset()
+        self.tracectx.reset()
 
 
 _default: Optional[Observability] = None
@@ -81,5 +110,7 @@ def default() -> Observability:
 
 
 __all__ = ["Observability", "MetricsRegistry", "TraceRing",
-           "SpanRecorder", "StepPhaseProfiler", "default", "metrics",
-           "trace", "spans", "clock"]
+           "HealthReporter", "SpanRecorder", "StepPhaseProfiler",
+           "AlertEngine", "TimeSeriesStore", "OpsExporter",
+           "TraceContext", "default", "metrics", "trace", "health",
+           "spans", "clock", "alerts", "series", "export", "tracectx"]

@@ -5,11 +5,12 @@ The port's copy of the first part of the JAX package's
 spans, correlated across replicas by ``(term, index)``),
 :func:`span_trace_id`, :func:`active_recorder` and
 :class:`StepPhaseProfiler` (wall time per hot-loop phase into
-``step_phase_us{phase=...}``). The profiler's opt-in fence waits for
-the CUDA device the step's outputs live on (``torch.cuda.synchronize``)
-where the JAX package blocks on the outputs. The Chrome-trace export,
-the critical-path breakdown and the CLI come with the rest of ``obs``
-(ROADMAP Queue 1, item 12).
+``step_phase_us{phase=...}``), and its Chrome trace-event export
+(:func:`to_chrome_trace`, which ``obs/tracectx.py:merge_timeline``
+builds on). The profiler's opt-in fence waits for the CUDA device the
+step's outputs live on (``torch.cuda.synchronize``) where the JAX
+package blocks on the outputs. The critical-path breakdown and the CLI
+come with the rest of ``obs`` (ROADMAP Queue 1, item 13).
 
 Host-side only: nothing here runs inside the replica step.
 """
@@ -611,3 +612,128 @@ def _device_of(outputs):
         if dev is not None:
             return dev
     return None
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace-event export (Perfetto-loadable)
+# ---------------------------------------------------------------------------
+
+CP_PID = 9999            # the critical-path pseudo-process
+READS_PID = 9998         # the lease/read-index read-span pseudo-process
+
+
+def _span_label(sp: dict) -> str:
+    label = "c%d/r%d" % (sp["conn"], sp["req"])
+    if sp.get("term") is not None:
+        label += " (t%d,i%d)" % (sp["term"], sp["index"])
+    return label
+
+
+def _critical_path(sp: dict, wall) -> List[Tuple[str, float, float]]:
+    """-> ordered (segment, t0_wall, t1_wall) list for one span: the
+    client-visible chain over whichever CP phases were observed."""
+    marks: Dict[str, float] = {}
+    for phase, rep, ts in sp["events"]:
+        if phase not in CP_PHASES:
+            continue
+        if phase == APPLY and rep != sp["origin"] and APPLY in marks:
+            continue                      # prefer the origin's apply
+        if phase in marks and phase != APPLY:
+            continue                      # first mark wins
+        marks[phase] = wall(ts)
+    chain = [(p, marks[p]) for p in CP_PHASES if p in marks]
+    return [(f"{a}->{b}", ta, tb)
+            for (a, ta), (b, tb) in zip(chain, chain[1:])]
+
+
+def to_chrome_trace(dumps, *, max_cp_tracks: int = 512,
+                    t0_wall: Optional[float] = None) -> dict:
+    """Merge one or more span dumps into a Chrome trace-event JSON
+    object (Perfetto-loadable): per-replica tracks carry instant
+    phase marks correlated by ``(term, index)``; each sampled command
+    additionally gets a critical-path track of duration slices.
+    Dumps from different processes are aligned via their stamped
+    clock anchors. ``t0_wall`` overrides the computed timeline epoch —
+    the hook ``obs.tracectx.merge_timeline`` uses to fold subsystem
+    traces onto the SAME axis (and the only caller for which the epoch
+    lands in ``otherData``)."""
+    if isinstance(dumps, dict):
+        dumps = [dumps]
+    walls: List[float] = []
+    prepared = []
+    for d in dumps:
+        a = d["anchor"]
+
+        def wall(ts, _a=a):
+            return _a["wall"] + (ts - _a["monotonic"])
+
+        for sp in d["spans"]:
+            walls.extend(wall(ts) for _, _, ts in sp["events"])
+        for rd in d.get("reads", ()):
+            walls.append(wall(rd["t0"]))
+        prepared.append((d, wall))
+    t0 = (t0_wall if t0_wall is not None
+          else (min(walls) if walls else 0.0))
+
+    def us(w):
+        return round((w - t0) * 1e6, 3)
+
+    events: List[dict] = []
+    replicas_seen = set()
+    cp_tid = 0
+    for d, wall in prepared:
+        for sp in d["spans"]:
+            label = _span_label(sp)
+            args = dict(conn=sp["conn"], req=sp["req"],
+                        origin=sp["origin"], term=sp.get("term"),
+                        index=sp.get("index"), status=sp["status"],
+                        retransmits=sp.get("retransmits", 0))
+            for phase, rep, ts in sp["events"]:
+                pid = rep if rep >= 0 else sp["origin"]
+                replicas_seen.add(pid)
+                events.append(dict(
+                    name=f"{phase} {label}", ph="i", s="p",
+                    ts=us(wall(ts)), pid=pid, tid=0, args=args))
+            if cp_tid < max_cp_tracks:
+                segs = _critical_path(sp, wall)
+                if segs:
+                    cp_tid += 1
+                    events.append(dict(
+                        name="thread_name", ph="M", pid=CP_PID,
+                        tid=cp_tid, args=dict(name=label)))
+                    for seg, ta, tb in segs:
+                        events.append(dict(
+                            name=seg, ph="X", ts=us(ta),
+                            dur=round(max(tb - ta, 0.0) * 1e6, 3),
+                            pid=CP_PID, tid=cp_tid, args=args))
+    n_reads = 0
+    for d, wall in prepared:
+        for rd in d.get("reads", ()):
+            # the read critical path is one slice: enqueue→serve on
+            # the serving replica's reads track
+            n_reads += 1
+            ta, tb = wall(rd["t0"]), wall(rd["t1"])
+            events.append(dict(
+                name=f"read:{rd['path']}", ph="X", ts=us(ta),
+                dur=round(max(tb - ta, 0.0) * 1e6, 3),
+                pid=READS_PID, tid=rd["replica"],
+                args=dict(replica=rd["replica"], path=rd["path"],
+                          group=rd.get("group", -1),
+                          status=rd.get("status"))))
+    meta = [dict(name="process_name", ph="M", pid=r, tid=0,
+                 args=dict(name=f"replica {r}"))
+            for r in sorted(replicas_seen)]
+    meta.append(dict(name="process_name", ph="M", pid=CP_PID, tid=0,
+                     args=dict(name="critical path")))
+    if n_reads:
+        meta.append(dict(name="process_name", ph="M", pid=READS_PID,
+                         tid=0, args=dict(name="reads")))
+    other = dict(tool="rdma_paxos_tpu_torch.obs.spans",
+                 dumps=len(prepared),
+                 spans=sum(len(d["spans"]) for d, _ in prepared))
+    if t0_wall is not None:
+        # only explicit-epoch callers carry it: the default export
+        # keeps the reference's fields
+        other["t0_wall"] = t0
+    return dict(traceEvents=meta + events, displayTimeUnit="ms",
+                otherData=other)

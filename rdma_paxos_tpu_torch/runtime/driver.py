@@ -33,35 +33,46 @@ transaction lane, so a coordinator can be attached
 (``txn.attach_coordinator`` over a ``ShardedKVS`` on the sharded
 driver's cluster); while it has a transaction in flight
 (``wants_serial``) the loop gives way from bursts and pipelining, keeps
-stepping, and :meth:`status` carries its ``health()`` as ``txn``.
+stepping, and :meth:`health` carries its ``health()`` as ``txn``.
+
+The alert and health plane runs as in the JAX driver: the registry is
+sampled into ``series`` and the SLO rules of ``alerts`` are evaluated on
+the ``alert_period`` cadence (:meth:`evaluate_alerts`; a newly firing
+page on an audited cluster writes the audit artifact), the
+``health_period`` cadence writes the health files under a workdir,
+:meth:`health` is the live cluster document and :meth:`serve_metrics`
+the localhost exporter (``/metrics`` ``/healthz`` ``/series``
+``/alerts``). All of it is host work off the dispatch path and touches
+no CUDA tensor. ``repair=True`` (with ``audit=True``) attaches the
+self-healing controller (``runtime/repair.py``): quarantine on a digest
+finding, a digest-verified install through :meth:`_do_recover`, the
+range re-digest, probation and re-admission; its surgery runs on the
+drained serial path, a held leader is deposed and a held replica
+admits no client session. ``governor=True`` attaches the dispatch
+governor (``runtime/governor.py``), whose decision caps the burst tier,
+turns pipelining on and off, and adds a bounded admission wait; both
+hang on the alert engine's hooks. ``scan=True`` runs the engine's scan
+tier on the burst path.
 
 Differences from the JAX driver, each failing loudly:
 
-* ``scan``, ``repair``, ``governor``, ``streams``,
-  ``metrics_port``, ``profile_on_page`` and non-default
-  ``alert_rules`` raise ``NotImplementedError`` when set (ROADMAP
-  Queue 1, item 13), as do non-default settings of those subsystems
-  (``health_period``, ``alert_period``, ``series_capacity``, the
-  ``*_opts`` dicts but ``lease_opts``); so do :meth:`health`,
-  :meth:`evaluate_alerts`, :meth:`serve_metrics` and
-  :meth:`start_profile` (item 13) — :meth:`status` returns the part of
-  the health view the port fills. Until then the wall-cadenced
-  observability pass (:meth:`_cadence_observe`: alerts, series, health
-  files, the alert-triggered audit dump) does nothing.
+* ``streams`` (and ``streams_opts``) and ``profile_on_page`` raise
+  ``NotImplementedError`` when set, and so does :meth:`start_profile`
+  (ROADMAP Queue 1, item 13: the streams hub and the profiler half of
+  ``obs/device.py``).
 * ``audit=True`` and ``telemetry=True`` run as in the JAX driver: the
   engine's ledger and flight ring (dumped by
   :meth:`_dump_audit_artifact` into ``audit_artifact``) and its
-  ``device_*`` counter series, ingested on the readback thread. The
-  repair pipeline that acts on a finding comes with item 13.
+  ``device_*`` counter series, ingested on the readback thread.
 * Snapshot recovery (:meth:`recover_replica`, :meth:`reset_app`,
   :meth:`checkpoint_app` with ``app_snapshot=``, and the automatic
   recovery of a force-pruned replica) runs as in the JAX driver;
-  ``_do_recover(ledger=...)`` is the digest-verified install, with no
-  repair controller behind it. Each install runs under the engine's
-  host lock with no dispatch in flight. Unlike the JAX driver,
-  :meth:`recover_replica` and :meth:`reset_app` return only once the
-  fresh app has consumed its replayed history (the checkpoint's
-  barrier), not as soon as it is delivered.
+  ``_do_recover(ledger=...)`` is the digest-verified install the repair
+  controller calls. Each install runs under the engine's host lock with
+  no dispatch in flight. Unlike the JAX driver, :meth:`recover_replica`
+  and :meth:`reset_app` return only once the fresh app has consumed its
+  replayed history (the checkpoint's barrier), not as soon as it is
+  delivered.
 """
 
 from __future__ import annotations
@@ -85,9 +96,14 @@ from rdma_paxos_tpu_torch.consensus.snapshot import (
     install_snapshot, recover_vote, take_snapshot)
 from rdma_paxos_tpu_torch.consensus.state import ConfigState, Role
 from rdma_paxos_tpu_torch.obs import Observability, trace as obs_trace
+from rdma_paxos_tpu_torch.obs.alerts import AlertEngine, default_rules
+from rdma_paxos_tpu_torch.obs.health import (
+    HealthReporter, make_cluster_snapshot, make_snapshot)
 from rdma_paxos_tpu_torch.obs.metrics import (
-    BATCH_BUCKETS, LATENCY_BUCKETS_S)
+    BATCH_BUCKETS, LATENCY_BUCKETS_S, LATENCY_BUCKETS_US)
+from rdma_paxos_tpu_torch.obs.series import TimeSeriesStore
 from rdma_paxos_tpu_torch.obs.spans import StepPhaseProfiler, span_trace_id
+from rdma_paxos_tpu_torch.obs.tracectx import health_blame as _health_blame
 from rdma_paxos_tpu_torch.proxy.proxy import (
     PendingEvent, ProxyServer, ReplayEngine, replay_store_into,
     spec_send_refused_dirty)
@@ -102,8 +118,8 @@ from rdma_paxos_tpu_torch.utils.codec import fragment
 # the origin replica lives in the conn id's bits 24+ (ProxyServer)
 CONN_ORIGIN_SHIFT = 24
 
-OBS_LATER = ("alerts, health, the metrics exporter and profiler "
-             "captures are not ported yet (ROADMAP Queue 1, item 13)")
+PROFILER_LATER = ("profiler captures (the profiler half of obs/device.py) "
+                  "are not ported yet (ROADMAP Queue 1, item 13)")
 
 
 def conn_origin(conn_id):
@@ -188,23 +204,18 @@ class ClusterDriver:
                  streams_opts: Optional[Dict] = None,
                  device=None):
         later = [name for name, on in (
-            ("scan", scan), ("repair", repair), ("governor", governor),
             ("streams", streams),
-            ("metrics_port", metrics_port is not None),
             ("profile_on_page", profile_on_page > 0),
-            ("alert_rules", alert_rules is not None),
-            # settings of those subsystems: never a silent no-op either
-            ("health_period", health_period != 0.5),
-            ("alert_period", alert_period != 0.25),
-            ("series_capacity", series_capacity != 1280),
-            ("repair_opts", repair_opts is not None),
-            ("governor_opts", governor_opts is not None),
+            # a setting of the streams hub: never a silent no-op either
             ("streams_opts", streams_opts is not None)) if on]
         if later:
             raise NotImplementedError(
                 f"ClusterDriver({', '.join(later)}=...) is not ported yet "
                 "(ROADMAP Queue 1, item 13)")
         self.cfg = cfg
+        # scan=True engages the engine's K-window scan tier on the burst
+        # path (runtime-mutable as driver.cluster.scan)
+        self._scan = bool(scan)
         self.sync_period = sync_period
         self._workdir = workdir
         # observability: one registry + trace ring + span recorder per
@@ -218,6 +229,8 @@ class ClusterDriver:
         # histogram — a profiling mode that serializes the pipeline.
         self._phase_prof = StepPhaseProfiler(metrics=self.obs.metrics,
                                              fence=fence)
+        self._health = (HealthReporter(workdir, period=health_period)
+                        if workdir else None)
         # lost-majority step-down (the reference leader SUICIDES after
         # failing to reach a majority, dare_server.c:1213-1217): a
         # leader whose leadership_verified stays 0 for this many
@@ -259,10 +272,61 @@ class ClusterDriver:
         # the card the engine's state lives on (with its index: a new
         # thread's current device is 0, so each loop thread binds it)
         self._state_device = self.cluster.state.term.device
-        # the repair controller (item 13) is never attached yet
-        self.repair = None
+        # time-series retention (obs/series.py): the registry sampled
+        # into bounded per-series rings on the alert cadence — the
+        # substrate of the window-domain rules (rate_window, burn_rate)
+        # and of /series. With a workdir the samples persist as
+        # append-only JSONL. Capacity must cover the LONGEST rule window
+        # at this cadence (1280 x 0.25 s = 320 s > the 300 s slow burn
+        # window).
+        self.series = TimeSeriesStore(
+            capacity=series_capacity,
+            path=(os.path.join(workdir, "series.jsonl")
+                  if workdir else None),
+            source="driver")
+        # SLO alert rules (obs/alerts.py) evaluated on a cadence from
+        # the poll loop; firing state rides health documents and the
+        # alert_firing{alert=...} gauges
+        self.alerts = AlertEngine(
+            self.obs.metrics,
+            rules=(alert_rules if alert_rules is not None
+                   else default_rules()),
+            trace=self.obs.trace, series=self.series)
+        self._alert_period = alert_period
+        self._alert_last = float("-inf")
+        self.exporter = None
+        self._metrics_port = metrics_port
         # path of the last audit artifact written (_dump_audit_artifact)
         self.audit_artifact: Optional[str] = None
+        # self-healing (runtime/repair.py): DIVERGENCE → quarantine →
+        # digest-verified install from a ledger-majority donor →
+        # range re-digest → probation re-admit. observe() runs per
+        # finished step (readback thread); the state surgery only on
+        # drained serial iterations (_drain_admin → repair.drive;
+        # _pipeline_ready defers while a repair is due)
+        self.repair = None
+        if repair:
+            if not audit:
+                raise ValueError("repair=True requires audit=True "
+                                 "(the ledger drives donor selection "
+                                 "and install verification)")
+            from rdma_paxos_tpu_torch.runtime.repair import RepairController
+            self.repair = RepairController(self.cluster, obs=self.obs,
+                                           **(repair_opts or {}))
+            self._wire_repair()
+            self.alerts.add_hook(self.repair.on_alert)
+        # adaptive dispatch governor (runtime/governor.py): a step-domain
+        # feedback controller on the readback thread that picks the
+        # dispatch tier from the engine's ladder, engages pipelining and
+        # applies a bounded admission wait — and sheds to serial the
+        # moment the commit-latency burn-rate pager fires
+        self.governor = None
+        if governor:
+            from rdma_paxos_tpu_torch.runtime.governor import attach_governor
+            self.governor = attach_governor(
+                self.cluster, obs=self.obs, alerts=self.alerts,
+                **(governor_opts or {}))
+            self.alerts.add_hook(self.governor.on_alert)
         # idle quiescence: when there is no standing backlog, no
         # blocked waiter, no election timer anywhere near due, and no
         # config work, the poll loop SKIPS the device dispatch entirely
@@ -351,6 +415,12 @@ class ClusterDriver:
         self._pl_pending = 0        # dispatched, not yet post-stepped
         self._pl_queue: _queue.Queue = _queue.Queue()
         self._rb_thread: Optional[threading.Thread] = None
+        # opt-in ops exporter (obs/export.py) on a localhost port (0 =
+        # ephemeral), beside the readback thread. Attached LAST: a
+        # scrape may land the instant the socket binds, and health()
+        # touches everything above.
+        if self._metrics_port is not None:
+            self.serve_metrics(self._metrics_port)
 
     def _make_cluster(self, cfg, n_replicas, group_size, mode, fanout,
                       audit, telemetry, device, txn=False):
@@ -358,7 +428,35 @@ class ClusterDriver:
         unless the caller names the CPU)."""
         return SimCluster(cfg, n_replicas, group_size, mode=mode,
                           fanout=fanout, audit=audit, telemetry=telemetry,
-                          txn=txn, device=device)
+                          scan=self._scan, txn=txn, device=device)
+
+    def _wire_repair(self) -> None:
+        """Single-group driver: repair installs ride :meth:`_do_recover`
+        (store transfer and live-app delta replay included) with the
+        ledger passed through, so the install is digest-verified end to
+        end and a corrupted donor raises into the controller's
+        donor-retry loop."""
+        self.repair.install_hook = self._repair_install
+
+    def _repair_install(self, g: int, r: int, donor: int) -> None:
+        self._do_recover(r, donor, app_fresh=False,
+                         ledger=self.repair.led,
+                         min_verified=self.repair.min_verified)
+        # the log and store are healed from a verified donor, but a LIVE
+        # interposed app may already have executed bytes the corruption
+        # reached before detection: quarantine it through the
+        # mis-speculation machinery (the store keeps persisting; the
+        # operator restarts the app and reset_app() rebuilds it)
+        rt = self.runtimes[r]
+        if rt.replay is not None and not rt.app_dirty:
+            rt.app_dirty = True
+            rt.log.info_wtime(
+                "REPAIR: app quarantined pending reset_app (its state "
+                "may derive from corrupted committed bytes)")
+
+    def _repair_blocked(self, r: int, group: int = 0) -> bool:
+        return (self.repair is not None
+                and self.repair.serving_blocked(group, r))
 
     def _txn_live(self) -> bool:
         """A transaction is in flight: its votes and decision records
@@ -461,8 +559,9 @@ class ClusterDriver:
     def _accepts_clients(self, r: int) -> bool:
         """Client-session admission: the single-group driver serves
         replicated sessions on the leader only (non-leaders give stale
-        local reads, the reference's follower semantics)."""
-        return self._leader_view == r
+        local reads, the reference's follower semantics) — and never on
+        a replica the repair pipeline holds in quarantine or probation."""
+        return self._leader_view == r and not self._repair_blocked(r)
 
     # holds-lock: _lock
     def _enqueue_locked(self, r: int, rt: _ReplicaRuntime, etype: int,
@@ -513,6 +612,11 @@ class ClusterDriver:
                 box.append(exc)
             finally:
                 done.set()
+        # self-healing: due repairs run HERE — the serial path, after the
+        # dispatch loop drained every in-flight ticket (drive() itself
+        # defers while anything is in flight)
+        if self.repair is not None:
+            self.repair.drive()
 
     def _pump_submitq(self) -> None:
         """Move intake rows into the engine's pending queues — ONE
@@ -538,15 +642,21 @@ class ClusterDriver:
 
         # a flagged (force-pruned) leader never heals on its own: it
         # acks windows and heartbeats normally, so nothing deposes it.
-        # Actively depose it: fire an election timeout on a healthy
-        # member each step until leadership moves.
+        # The same goes for a leader the repair pipeline holds
+        # (quarantine cuts its links, but it keeps self-claiming;
+        # probation must not lead either). Actively depose it: fire an
+        # election timeout on a healthy member each step until
+        # leadership moves.
         depose = -1
         lead = self._leader_view
-        if lead >= 0 and lead in self.cluster.need_recovery:
+        if (lead >= 0
+                and (lead in self.cluster.need_recovery
+                     or self._repair_blocked(lead))):
             mask = self._mm.current(lead)["bitmask_new"]
             healthy = [r for r in range(self.R)
                        if (mask >> r) & 1 and r != lead
-                       and r not in self.cluster.need_recovery]
+                       and r not in self.cluster.need_recovery
+                       and not self._repair_blocked(r)]
             if healthy:
                 depose = min(healthy)
 
@@ -554,12 +664,18 @@ class ClusterDriver:
         # (one dispatch fuses up to K_TIERS[-1] protocol steps; no
         # election timeouts can fire inside — each burst step carries the
         # heartbeat). The single-step path serves elections, deposes,
-        # and idle heartbeats.
+        # and idle heartbeats. A governor's decision caps the burst at
+        # its ladder rung, or routes the iteration through the serial
+        # step (latency-bound regime, SLO shed).
+        dec = (self.governor.decision if self.governor is not None
+               else None)
         if (depose < 0
                 and self._leader_view >= 0 and self.cluster.last is not None
-                and self._backlog() and not self._txn_live()):
+                and self._backlog() and not self._txn_live()
+                and (dec is None or dec.max_k > 1)):
             self._timer_obs.start("device_step")
-            res = self.cluster.step_burst()
+            res = self.cluster.step_burst(
+                max_k=dec.max_k if dec is not None else None)
             self._timer_obs.stop("device_step")
         else:
             timeouts = []
@@ -640,17 +756,26 @@ class ClusterDriver:
         self._step_down_detector(res)
         self._failure_detector(res)
         self._drive_config_change()
+        # self-healing observation: consume new DIVERGENCE findings
+        # (quarantine is host bookkeeping — safe on this, the readback,
+        # thread) and advance probation; the surgery itself waits for a
+        # drained serial iteration (_drain_admin)
+        if self.repair is not None:
+            self.repair.observe()
         # a replica force-pruned past its apply cursor (wedged app now
         # unwedged, or long stall) stopped replaying; heal it with a
         # donor snapshot, one per iteration. The donor is the leader,
         # which must itself be healthy (a flagged leader's store is
         # frozen: its snapshot would drop acked writes), and the leader
-        # is never the recoveree (it recovers once deposed). No repair
-        # controller owns a replica in this port yet (item 13).
+        # is never the recoveree (it recovers once deposed). Replicas
+        # the repair controller owns are ITS to heal (ledger-verified
+        # donor), not this default path's.
         lead = self._leader_view
-        if (self.cluster.need_recovery and lead >= 0
+        owned = self.repair.owned() if self.repair is not None else set()
+        cands = self.cluster.need_recovery - {lead} - owned
+        if (cands and lead >= 0
                 and lead not in self.cluster.need_recovery):
-            r = min(self.cluster.need_recovery)
+            r = min(cands)
             # the host lock brackets every dispatch: holding it with no
             # ticket in flight proves the install races none (the
             # dispatch loop sees need_recovery and drains, so a deferred
@@ -715,11 +840,74 @@ class ClusterDriver:
         self._cadence_observe()
 
     def _cadence_observe(self) -> None:
-        """The wall-cadenced observability work, shared by the per-step
-        observe pass and the idle-quiescence branch. The JAX driver
-        evaluates alerts, samples its series, expires profiler captures
-        and writes health files here; those come with ROADMAP Queue 1,
-        item 13, and until then this hook does nothing."""
+        """The wall-cadenced observability work (alert evaluation and
+        series sampling, health files), shared by the per-step observe
+        pass and the idle-quiescence branch, so a parked poll loop keeps
+        its alerts and health files fresh while skipping dispatches."""
+        now = time.monotonic()
+        if now - self._alert_last >= self._alert_period:
+            self._alert_last = now
+            self.evaluate_alerts()
+        if self._health is not None and self._health.due():
+            try:
+                # ONE health() pass feeds both files: the per-replica
+                # snapshots and the cluster-level document
+                h = self.health()
+                self._health.write({rep["replica"]: rep
+                                    for rep in h["replicas"]})
+                self._health.write_cluster(h)
+            except OSError:
+                # observability I/O must never kill the data path: a
+                # vanished workdir or a full disk costs the snapshot,
+                # not the poll loop
+                pass
+
+    def _health_snapshots(self, res) -> Dict[int, Dict]:
+        """Per-replica health dicts (the obs.health schema plus store /
+        rebase extras) — written to ``replica<r>.health.json`` on the
+        reporter cadence and aggregated live by :meth:`health`."""
+        snaps = {}
+        for r in range(self.R):
+            rt = self.runtimes[r]
+            snaps[r] = make_snapshot(
+                replica=r,
+                role=int(res["role"][r]),
+                term=int(res["term"][r]),
+                leader_id=int(res["leader_id"][r]),
+                commit=int(res["commit"][r]),
+                apply=int(res["apply"][r]),
+                end=int(res["end"][r]),
+                head=int(res["head"][r]),
+                log_headroom=(self.cfg.rebase_threshold
+                              - int(res["end"][r])),
+                inflight=len(rt.inflight),
+                app_dirty=rt.app_dirty,
+                stepped_down=r in self.stepped_down,
+                need_recovery=r in self.cluster.need_recovery,
+                rebases=self.cluster.rebases,
+                rebase_stalled=self.cluster.rebase_stalled,
+                store=(rt.store.stats() if rt.store is not None
+                       else None),
+            )
+        return snaps
+
+    def evaluate_alerts(self) -> Dict:
+        """One SLO-rule evaluation pass (also called on a cadence from
+        the poll loop). A newly firing ``page``-severity alert on an
+        audited cluster dumps the audit artifact (ledger, flight ring
+        and obs dumps) for post-mortem. The series store samples FIRST,
+        from the same registry snapshot the rules then evaluate, so the
+        window-domain rules always see the freshest point."""
+        snap = self.obs.metrics.snapshot()
+        if self.series is not None:
+            self.series.sample(snap, step=int(self.cluster.step_index))
+        out = self.alerts.evaluate(snap=snap)
+        pages = [n for n in out["fired"]
+                 if self.alerts.severity(n) == "page"]
+        if pages and (self.cluster.auditor is not None
+                      or self.cluster.flight is not None):
+            self._dump_audit_artifact("alert: " + ",".join(pages))
+        return out
 
     def _dump_audit_artifact(self, reason: str) -> Optional[str]:
         """Write the audit artifact (ledger dump, flight ring, trace and
@@ -744,18 +932,60 @@ class ClusterDriver:
                               path=self.audit_artifact)
         return self.audit_artifact
 
-    def evaluate_alerts(self) -> Dict:
-        raise NotImplementedError("evaluate_alerts: " + OBS_LATER)
-
     def health(self) -> Dict:
-        raise NotImplementedError("health: " + OBS_LATER)
+        """Aggregated cluster health (live — not from the files): the
+        per-replica snapshots plus the cluster-level view, conforming to
+        ``obs.health.CLUSTER_HEALTH_FIELDS`` (validate with
+        ``obs.health.validate_cluster``). Safe to call from any thread;
+        uses the last completed step's outputs."""
+        res = self.cluster.last
+        replicas = (self._health_snapshots(res) if res is not None
+                    else {})
+        return make_cluster_snapshot(
+            leader=self.leader(),
+            n_replicas=self.R,
+            replicas=[replicas[r] for r in sorted(replicas)],
+            rebases=self.cluster.rebases,
+            rebase_stalled=self.cluster.rebase_stalled,
+            loop_error=(repr(self.loop_error)
+                        if self.loop_error else None),
+            audit=(self.cluster.auditor.summary()
+                   if self.cluster.auditor is not None else None),
+            alerts=self.alerts.state(),
+            audit_artifact=self.audit_artifact,
+            repair=(self.repair.status()
+                    if self.repair is not None else None),
+            leases=(self.cluster.leases.status()
+                    if self.cluster.leases is not None else None),
+            reads=(self.cluster.reads.status()
+                   if self.cluster.reads is not None else None),
+            streams=None,
+            governor=(self.governor.status()
+                      if self.governor is not None else None),
+            txn=(self.cluster.txn.health()
+                 if self.cluster.txn is not None else None),
+            blame=_health_blame(self.obs),
+        )
 
     def serve_metrics(self, port: int = 0):
-        raise NotImplementedError("serve_metrics: " + OBS_LATER)
+        """Start (or return) the opt-in localhost ops exporter:
+        ``/metrics`` (Prometheus text), ``/metrics.json``, ``/healthz``
+        (503 on a dead poll loop), ``/series``, ``/alerts``. ``port=0``
+        binds an ephemeral port — read it back from
+        ``driver.exporter.port``. Its serving threads read host state
+        only (the registry, health(), the series rings), never a CUDA
+        tensor."""
+        if self.exporter is None:
+            from rdma_paxos_tpu_torch.obs.export import OpsExporter
+            self.exporter = OpsExporter(
+                registry=self.obs.metrics, health_fn=self.health,
+                alerts=self.alerts, series=self.series,
+                port=port).start()
+        return self.exporter
 
     def start_profile(self, seconds: float = 5.0,
                       log_dir: Optional[str] = None):
-        raise NotImplementedError("start_profile: " + OBS_LATER)
+        raise NotImplementedError("start_profile: " + PROFILER_LATER)
 
     # ------------------------------------------------------------------
     # failure detection + eviction (push-detection analog: WC failures
@@ -1342,12 +1572,23 @@ class ClusterDriver:
         # every step — drive it through drained serial steps
         if self._config_phase is not None:
             return False
+        # a due repair action needs the drained serial path (snapshot
+        # install and redigest are state surgery); pipelining re-engages
+        # the iteration after the repair completes
+        if self.repair is not None and self.repair.needs_drain():
+            return False
         # stop dispatching once the i32-rollover threshold is crossed:
         # the rebase is deferred until the pipeline drains, and the
         # headroom margin covers only boundedly many in-flight bursts
         if int(c.last["end"].max()) >= self.cfg.rebase_threshold:
             return False
         if self._txn_live():
+            return False
+        # the governor engages/disengages depth-D pipelining: until
+        # backlog has STOOD for engage_evals (or while shedding), the
+        # serial path acks a commit one dispatch sooner
+        if (self.governor is not None
+                and not self.governor.decision.pipeline):
             return False
         # pipelining pays off only while APPEND BATCHES flow (encode
         # k+1 while k runs); with just blocked waiters and an empty
@@ -1372,9 +1613,18 @@ class ClusterDriver:
     # ------------------------------------------------------------------
 
     def _repair_idle(self) -> bool:
-        """True iff the repair pipeline has nothing in flight; no repair
-        controller is attached in this port yet (item 13)."""
-        return self.repair is None
+        """True iff the repair pipeline has nothing in flight: no due
+        drain, no owned recoveries, no replica held in quarantine or
+        probation (held replicas need steps to advance their
+        hysteresis)."""
+        if self.repair is None:
+            return True
+        if self.repair.needs_drain() or self.repair.owned():
+            return False
+        return not self._repair_held_any()
+
+    def _repair_held_any(self) -> bool:
+        return bool(self.repair.blocked_replicas(0))
 
     def _idle_margin(self) -> float:
         """Seconds until the earliest follower election timer would
@@ -1507,10 +1757,27 @@ class ClusterDriver:
                     self._pl_cv.wait(timeout=0.05)
                     continue
             self._pump_submitq()
+            dec = (self.governor.decision if self.governor is not None
+                   else None)
+            if (dec is not None and dec.coalesce_us > 0
+                    and self._backlog()):
+                # bounded admission-coalescing wait (governor): at a high
+                # arrival rate with a window still filling, a beat of
+                # patience ships fuller windows — never while shedding
+                time.sleep(dec.coalesce_us / 1e6)
+                self.obs.metrics.observe(
+                    "governor_coalesce_us", dec.coalesce_us,
+                    buckets=LATENCY_BUCKETS_US)
+                self._pump_submitq()
             try:
                 self._timer_obs.start("device_step")
-                if self._backlog():
-                    ticket = self.cluster.begin_burst()
+                # dec.max_k can flip to 1 (SLO shed) between
+                # _pipeline_ready and here: honor it with a no-take
+                # heartbeat dispatch, never a burst; the next iteration
+                # sees pipelining disengaged and drains to the serial path
+                if self._backlog() and (dec is None or dec.max_k > 1):
+                    ticket = self.cluster.begin_burst(
+                        max_k=dec.max_k if dec is not None else None)
                 else:
                     # waiters with empty queues: quorum/commit trails
                     # the last append by a step — advance it (no batch
@@ -1570,6 +1837,13 @@ class ClusterDriver:
             return
         self._stop.set()
         self._wake.set()
+        # the ops exporter and series log are independent of the poll
+        # thread — close them first so a wedged loop still leaves a
+        # flushed series.jsonl and a closed port behind
+        if self.exporter is not None:
+            self.exporter.close()
+        if self.series is not None:
+            self.series.close()
         with self._pl_cv:
             self._pl_cv.notify_all()
         if self._thread is not None:
@@ -1668,25 +1942,6 @@ class ClusterDriver:
         self._wake.set()
         t.wait(timeout)
         return t
-
-    def status(self) -> Dict:
-        """The part of the JAX driver's :meth:`health` view this port
-        fills (live, from the last finished step): the leader, rebases,
-        the loop error, the audit summary and artifact, the read path's
-        lease and hub state, and the transaction coordinator's
-        ``health()``."""
-        c = self.cluster
-        return dict(
-            leader=self.leader(), n_replicas=self.R,
-            rebases=c.rebases, rebase_stalled=c.rebase_stalled,
-            loop_error=(repr(self.loop_error)
-                        if self.loop_error else None),
-            audit=(c.auditor.summary()
-                   if c.auditor is not None else None),
-            audit_artifact=self.audit_artifact,
-            leases=(c.leases.status() if c.leases is not None else None),
-            reads=(c.reads.status() if c.reads is not None else None),
-            txn=(c.txn.health() if c.txn is not None else None))
 
     def can_serve_read(self, r: int) -> bool:
         """Read-index check: True iff replica ``r`` verified its

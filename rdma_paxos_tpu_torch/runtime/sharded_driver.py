@@ -25,13 +25,20 @@ ShardedCluster` on the card (``device="cpu"`` in the tests):
     ``driver.cluster`` decides off the loop's serial steps: while one
     is in flight the loop gives way from bursts and pipelining.
 
+  * **Self-healing and the governor.** ``repair=True`` (with
+    ``audit=True``) repairs per group through the controller's
+    engine-level digest-verified install (one group's repair never
+    stalls the others); a front-end held in any group admits no new
+    session, its held group's waiters fail at quarantine, and a held
+    replica is never an election candidate. ``governor=True`` caps the
+    all-groups burst at the highest per-group rung. :meth:`health` is
+    the engine's per-group document with the driver's view.
+
 Differences from the JAX driver, each failing loudly: the surfaces that
 are single-group by design raise as in the JAX driver (membership,
-``recover_replica``, ``reset_app``, ``checkpoint_app``); the repair
-wiring, the elastic-topology cutover and :meth:`health` raise naming
-ROADMAP Queue 1, item 13 — :meth:`status` gives the part of the health
-view the port fills; the multi-chip engine (``mesh=``) raises naming
-item 14.
+``recover_replica``, ``reset_app``, ``checkpoint_app``); the
+elastic-topology cutover raises naming ROADMAP Queue 1, item 13; the
+multi-chip engine (``mesh=``) raises naming item 14.
 """
 
 from __future__ import annotations
@@ -45,10 +52,12 @@ from rdma_paxos_tpu_torch.consensus.log import EntryType
 from rdma_paxos_tpu_torch.consensus.state import Role
 from rdma_paxos_tpu_torch.obs import trace as obs_trace
 from rdma_paxos_tpu_torch.obs.metrics import LATENCY_BUCKETS_S
+from rdma_paxos_tpu_torch.obs.health import (
+    make_cluster_snapshot, make_snapshot)
 from rdma_paxos_tpu_torch.obs.spans import span_trace_id
+from rdma_paxos_tpu_torch.obs.tracectx import health_blame as _health_blame
 from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
-from rdma_paxos_tpu_torch.runtime.driver import (
-    OBS_LATER, ClusterDriver, conn_origin)
+from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver, conn_origin
 from rdma_paxos_tpu_torch.runtime.hostpath import plan_segment
 from rdma_paxos_tpu_torch.runtime.timers import GroupStepTimer
 from rdma_paxos_tpu_torch.shard.cluster import ShardedCluster
@@ -130,12 +139,43 @@ class ShardedClusterDriver(ClusterDriver):
         return ShardedCluster(cfg, n_replicas, self.G, router=self._router,
                               fanout=fanout, group_size=group_size,
                               audit=audit, mesh=self._mesh,
-                              telemetry=telemetry, txn=txn, device=device)
+                              telemetry=telemetry, scan=self._scan,
+                              txn=txn, device=device)
 
     def _wire_repair(self) -> None:
-        raise NotImplementedError(
-            "sharded driver repair wiring: the repair controller is not "
-            "ported " + ITEM_13)
+        """Sharded driver: repair uses the controller's ENGINE-level
+        digest-verified install (per-group snapshot and backfill — one
+        group's repair never stalls the others); the driver only
+        resyncs its per-(replica, group) replay cursor and fails the
+        held front-end's waiters at quarantine."""
+        self.repair.post_install = self._repair_post_install
+        self.repair.on_quarantine = self._repair_on_quarantine
+
+    def _repair_post_install(self, g: int, r: int, donor: int) -> None:
+        with self._lock:
+            self._replay_cursor[r][g] = len(self.cluster.replayed[g][r])
+
+    def _repair_on_quarantine(self, g: int, r: int) -> None:
+        """A front-end just entered quarantine for group ``g``: its
+        replay for that group is frozen, so its blocked commit waiters
+        can never be ack-released — fail them now so clients retry
+        against a healthy front-end (invoked by the controller OUTSIDE
+        its lock)."""
+        releases = []
+        with self._lock:
+            dq = self._inflight_g[r][g]
+            while dq:
+                ev, _ = dq.popleft()
+                releases.append(ev)
+        for ev in releases:
+            ev.release(-1)
+        if releases:
+            self.obs.metrics.inc("inflight_failed_total", len(releases),
+                                 replica=r)
+            self.obs.trace.record(obs_trace.INFLIGHT_FAILED,
+                                  replica=r, group=g, count=len(releases),
+                                  site="repair quarantine")
+            self.obs.spans.fail_open(self._span_rep(g, r))
 
     def _on_topology_cutover(self, donors, targets) -> None:
         raise NotImplementedError(
@@ -160,7 +200,13 @@ class ShardedClusterDriver(ClusterDriver):
 
     def _accepts_clients(self, r: int) -> bool:
         # every replica fronts the cluster while any group is led (the
-        # per-group availability check happens at SEND routing time)
+        # per-group availability check happens at SEND routing time) —
+        # EXCEPT a replica the repair pipeline holds in any group: its
+        # replay for the held group is frozen, so sessions it admits
+        # could stall forever on ack release
+        if (self.repair is not None
+                and self.repair.serving_blocked_any(r)):
+            return False
         return any(v >= 0 for v in self._group_views)
 
     # holds-lock: _lock
@@ -267,17 +313,35 @@ class ShardedClusterDriver(ClusterDriver):
                     continue
                 # a leaderless group ticks its step-domain timer once per
                 # iteration; a firing targets the rotation's next
-                # candidate, starting at g % R
+                # candidate, starting at g % R. Replicas the repair
+                # pipeline holds are skipped: a quarantined candidate is
+                # cut off and can never win, and a probation replica
+                # must not lead while its hysteresis runs.
                 if self._gtimers[g].tick():
-                    timeouts[g] = [(g + self._elect_round[g]) % self.R]
-                    self._elect_round[g] += 1
+                    cand = -1
+                    for _ in range(self.R):
+                        cc = (g + self._elect_round[g]) % self.R
+                        self._elect_round[g] += 1
+                        if not self._repair_blocked(cc, g):
+                            cand = cc
+                            break
+                    if cand < 0:
+                        continue        # every replica held — escalated
+                    timeouts[g] = [cand]
                     self.obs.metrics.inc("election_timeouts_total",
                                          group=g)
+        # governed tier: per-GROUP rung decisions share one dispatch, so
+        # the cap is the max rung (dec.max_k); a serial decision routes
+        # through the all-groups single step
+        dec = (self.governor.decision if self.governor is not None
+               else None)
         if (not timeouts and c.last is not None
                 and all(v >= 0 for v in self._group_views)
-                and self._backlog() and not self._txn_live()):
+                and self._backlog() and not self._txn_live()
+                and (dec is None or dec.max_k > 1)):
             self._timer_obs.start("device_step")
-            res = c.step_burst()
+            res = c.step_burst(max_k=dec.max_k if dec is not None
+                               else None)
             self._timer_obs.stop("device_step")
         else:
             self._timer_obs.start("device_step")
@@ -293,9 +357,18 @@ class ShardedClusterDriver(ClusterDriver):
             return False
         if c.need_recovery:
             return False
+        # a due repair needs one drained serial iteration (per-group
+        # surgery); pipelining re-engages right after
+        if self.repair is not None and self.repair.needs_drain():
+            return False
         if int(c.last["end"].max()) >= self.cfg.rebase_threshold:
             return False
         if self._txn_live():
+            return False
+        # the governor engages/disengages pipelining (see
+        # ClusterDriver._pipeline_ready)
+        if (self.governor is not None
+                and not self.governor.decision.pipeline):
             return False
         # append batches only (see ClusterDriver._pipeline_ready)
         with self._lock:
@@ -307,12 +380,21 @@ class ShardedClusterDriver(ClusterDriver):
         timer can fire while parked."""
         return float("inf")
 
+    def _repair_held_any(self) -> bool:
+        return any(self.repair.blocked_replicas(g)
+                   for g in range(self.G))
+
     def _update_leader_view(self, res) -> None:
         views = []
         for g in range(self.G):
+            # a repair-held replica's self-claim is not a serving
+            # leadership: treating its group as leaderless fails the
+            # waiters (clients retry) and lets the group timer elect a
+            # healthy replacement
             claims = [(int(res["term"][g, r]), r)
                       for r in range(self.R)
-                      if int(res["role"][g, r]) == int(Role.LEADER)]
+                      if int(res["role"][g, r]) == int(Role.LEADER)
+                      and not self._repair_blocked(r, g)]
             views.append(max(claims)[1] if claims else -1)
         with self._lock:
             prev = self._group_views
@@ -378,6 +460,10 @@ class ShardedClusterDriver(ClusterDriver):
                 self._gtimers[g].beat()
         for r, rt in enumerate(self.runtimes):
             self._apply_new_entries(r, rt)
+        # self-healing observation (the base driver's contract): the
+        # surgery waits for a drained serial iteration
+        if self.repair is not None:
+            self.repair.observe()
         self._observe_step(res)
         return res
 
@@ -463,32 +549,46 @@ class ShardedClusterDriver(ClusterDriver):
         m.set("cluster_leader", self._leader_view)
         self._cadence_observe()
 
-    def health(self) -> Dict:
-        raise NotImplementedError("health: " + OBS_LATER)
+    def _health_snapshots(self, res) -> Dict[int, Dict]:
+        snaps = {}
+        for r in range(self.R):
+            rt = self.runtimes[r]
+            snaps[r] = make_snapshot(
+                replica=r,
+                groups_led=[g for g in range(self.G)
+                            if self._group_views[g] == r],
+                inflight=sum(len(dq) for dq in self._inflight_g[r]),
+                app_dirty=rt.app_dirty,
+                store=(rt.store.stats() if rt.store is not None
+                       else None))
+        return snaps
 
-    def status(self) -> Dict:
-        """The part of the JAX driver's :meth:`health` view this port
-        fills, per group (live, from the last finished step)."""
-        c = self.cluster
-        with self._lock:
-            inflight = [sum(len(dq) for dq in row)
-                        for row in self._inflight_g]
-        return dict(
-            leaders=self.leaders(), all_groups_led=self.leader() >= 0,
-            n_replicas=self.R, n_groups=self.G,
-            rebases=[int(x) for x in c.rebases],
-            rebased_total=[int(x) for x in c.rebased_total],
-            rebase_stalled=[int(x) for x in c.rebase_stalled],
-            inflight=inflight,
-            loop_error=(repr(self.loop_error)
-                        if self.loop_error else None),
-            router=c.router.to_dict(),
-            audit=(c.auditor.summary()
-                   if c.auditor is not None else None),
+    def health(self) -> Dict:
+        """Sharded cluster health, conforming to the same
+        ``obs.health.CLUSTER_HEALTH_FIELDS`` schema as the single-group
+        driver's (``leaders`` stands in for ``leader``)."""
+        h = self.cluster.health()
+        h.pop("schema", None)     # the wrapper stamps the schema
+        h.update(
+            leaders=self.leaders(),
+            all_groups_led=self.leader() >= 0,
+            replicas=[snap for _, snap in
+                      sorted(self._health_snapshots(None).items())],
+            loop_error=(repr(self.loop_error) if self.loop_error
+                        else None),
+            alerts=self.alerts.state(),
             audit_artifact=self.audit_artifact,
-            leases=(c.leases.status() if c.leases is not None else None),
-            reads=(c.reads.status() if c.reads is not None else None),
-            txn=(c.txn.health() if c.txn is not None else None))
+            repair=(self.repair.status()
+                    if self.repair is not None else None),
+            reads=(self.cluster.reads.status()
+                   if self.cluster.reads is not None else None),
+            streams=None,
+            governor=(self.governor.status()
+                      if self.governor is not None else None),
+            txn=(self.cluster.txn.health()
+                 if self.cluster.txn is not None else None),
+            blame=_health_blame(self.obs))
+        return make_cluster_snapshot(**h)
 
     def read(self, fn=None, *, key=None, group: Optional[int] = None,
              replica: Optional[int] = None, timeout: float = 30.0):

@@ -27,9 +27,12 @@ effective mask; the read path (``runtime/reads.py``, attached by
 ``reads.attach``) observes leases and drains queued reads at the tail
 of every ``finish``; a transaction coordinator (``txn``) is told of its
 records' appends after the stamp loop and observes every ``finish``
-last. ``streams`` and ``governor`` are not ported (ROADMAP Queue 1,
-item 13): a dispatch with one of them set raises
-``NotImplementedError`` rather than run without it.
+last, right after an adaptive dispatch governor
+(``runtime/governor.py:attach_governor``). A repair controller
+(``runtime/repair.py``) bars replicas from read serving through
+``read_blocked``. ``streams`` is not ported (ROADMAP Queue 1, item 13):
+a dispatch with it set raises ``NotImplementedError`` rather than run
+without it.
 
 ``txn=True`` runs the serial steps with the cross-group transaction
 lane (``txn/lane.py``): the watch armed by :meth:`SimCluster.
@@ -342,10 +345,20 @@ class SimCluster:
         # txn.attach_coordinator): told of its records' appends after
         # the stamp loop and observed at the very tail of every finish()
         self.txn = None
-        # attachments not ported (ROADMAP Queue 1, item 13): a dispatch
-        # with one set raises instead of running without it
-        self.streams = None
+        # adaptive dispatch governor (runtime/governor.py, attached by
+        # governor.attach_governor): observed at the tail of every
+        # finish(), before the coordinator; the tier it picks is always
+        # one of K_TIERS, so it builds no function the ungoverned engine
+        # would not
         self.governor = None
+        # replicas barred from SERVING reads by the repair pipeline
+        # (digest quarantine and the storm policy, whose holds leave
+        # replay running and so never enter need_recovery) — consulted
+        # by the KVS serving gate and the read hub
+        self.read_blocked: set = set()
+        # not ported (ROADMAP Queue 1, item 13): a dispatch with it set
+        # raises instead of running without it
+        self.streams = None
         # dispatch-side logical clock: advances at begin_* (step_index
         # advances at finish) so an in-flight pipeline never feeds the
         # link model the same per-step randomness twice; serial callers
@@ -413,7 +426,7 @@ class SimCluster:
             self.device, copy=True)
 
     # attachments whose subsystems are not ported: a dispatch refuses
-    UNPORTED_ATTACHMENTS = ("streams", "governor")
+    UNPORTED_ATTACHMENTS = ("streams",)
 
     def _effective_mask(self) -> np.ndarray:
         """The step's hear-matrix: the base ``peer_mask``, refined by
@@ -746,6 +759,8 @@ class SimCluster:
             self.leases.observe(self, res)
         if self.reads is not None:
             self.reads.drain(self)
+        if self.governor is not None:
+            self.governor.observe(self, res)
         if self.txn is not None:
             self.txn.observe(self, res)
         B = self.cfg.batch_slots

@@ -28,13 +28,14 @@ records' appends and observing every ``finish``.
 Single-group is the G = 1 case of this machinery: its results equal
 ``SimCluster``'s bit for bit on the same inputs.
 
+An adaptive dispatch governor (``runtime/governor.py:attach_governor``)
+is observed at the tail of every ``finish``, with one ladder rung per
+group (the dispatch runs the highest), and :meth:`ShardedCluster.health`
+is the per-group health document with the serialized router.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-Queue 1 item): the multi-chip mesh engine (``mesh=``, item 14), the
-``streams``/``governor``/``topology`` attachments (item 13, at
-dispatch), and :meth:`health` (item 13); the per-group fields it would
-report are attributes
-(``rebases``, ``rebased_total``, ``applied``, ``router``, ``auditor``,
-``leases``).
+Queue 1 item): the multi-chip mesh engine (``mesh=``, item 14) and the
+``streams``/``topology`` attachments (item 13, at dispatch).
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ class ShardedCluster:
     RES_KEYS = SimCluster.RES_KEYS
     REBASE_STALL_STEPS = REBASE_STALL_STEPS
     # attachments whose subsystems are not ported: a dispatch refuses
-    UNPORTED_ATTACHMENTS = ("streams", "governor", "topology")
+    UNPORTED_ATTACHMENTS = ("streams", "topology")
 
     def __init__(self, cfg: LogConfig, n_replicas: int, n_groups: int,
                  *, router: Optional[KeyRouter] = None,
@@ -176,12 +177,16 @@ class ShardedCluster:
         # txn.attach_coordinator): told of its records' appends after
         # the stamp loop and observed at the very tail of every finish()
         self.txn = None
+        # adaptive dispatch governor (runtime/governor.py) — observed at
+        # the tail of every finish(), per-GROUP tier decisions over the
+        # shared ladder (the dispatch uses the max rung; the per-group
+        # rungs ride the trace events), before the coordinator
+        self.governor = None
         # not ported (item 13): a dispatch with one set raises
         self.streams = None
-        self.governor = None
         self.topology = None
-        # repair-held replicas barred from read serving ({(g, r)}); no
-        # repair controller fills it in this port yet (item 13)
+        # repair-held replicas barred from read serving ({(g, r)} — see
+        # SimCluster.read_blocked)
         self.read_blocked: set = set()
         self.step_index = 0
         self.obs = None
@@ -585,6 +590,8 @@ class ShardedCluster:
             self.leases.observe(self, res)
         if self.reads is not None:
             self.reads.drain(self)
+        if self.governor is not None:
+            self.governor.observe(self, res)
         if self.txn is not None:
             self.txn.observe(self, res)
         if fused:
@@ -872,10 +879,41 @@ class ShardedCluster:
             self._prev_commit_max[g] = cmax
 
     def health(self) -> dict:
-        raise NotImplementedError(
-            "ShardedCluster.health: the health documents are not ported "
-            "yet " + ITEM_13 + "; read rebases, rebased_total, applied, "
-            "router.to_dict(), auditor and leases directly")
+        """Aggregated sharded-cluster health: one snapshot per group
+        (per-replica offsets/roles, rebase counters, recovery flags)
+        plus the serialized ROUTER — the full routing table rides the
+        health document so any observer reconstructs the exact
+        key→group mapping without code."""
+        from rdma_paxos_tpu_torch.obs.health import make_snapshot
+        res = self.last
+        groups = []
+        for g in range(self.G):
+            fields = dict(
+                group=g,
+                leader=self.leader_hint(g),
+                rebases=int(self.rebases[g]),
+                rebased_total=int(self.rebased_total[g]),
+                rebase_stalled=int(self.rebase_stalled[g]),
+                need_recovery=sorted(r for (gg, r) in self.need_recovery
+                                     if gg == g),
+                applied=[int(a) for a in self.applied[g]],
+            )
+            if res is not None:
+                for k in ("role", "term", "commit", "apply", "end",
+                          "head"):
+                    fields[k] = [int(v) for v in res[k][g]]
+                fields["log_headroom"] = int(
+                    self.cfg.rebase_threshold - res["end"][g].max())
+            groups.append(make_snapshot(**fields))
+        return dict(schema=1, n_groups=self.G, n_replicas=self.R,
+                    dispatches=self.dispatches,
+                    engine="sim", mesh=None,
+                    router=self.router.to_dict(), groups=groups,
+                    audit=(self.auditor.summary()
+                           if self.auditor is not None else None),
+                    leases=(self.leases.status()
+                            if self.leases is not None else None),
+                    topology=None)
 
     # ---------------- leadership ----------------
 

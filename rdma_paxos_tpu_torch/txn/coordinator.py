@@ -1,10 +1,9 @@
 """Host 2PC coordinator over the in-dispatch commit lane.
 
 The port's copy of the JAX package's ``txn/coordinator.py`` (host-only),
-over the port's ``ShardedCluster``/``ShardedKVS``. Its trace-plane calls
-find no trace context on the port's ``obs`` facade (``tracectx`` is
-ROADMAP Queue 1, item 13) and record nothing until it exists; spans and
-the ``txn_*`` counters are recorded as in the reference.
+over the port's ``ShardedCluster``/``ShardedKVS``. Its traces, spans and
+``txn_*`` counters are recorded as in the reference (the traces on the
+``obs`` facade's ``tracectx``, through ``obs/tracectx.py:active_tracer``).
 
 The classic coordinator pays a network round-trip per 2PC phase. Here
 every group advances in ONE compiled dispatch, so the phases collapse
@@ -46,6 +45,7 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from rdma_paxos_tpu_torch.obs.spans import active_recorder
+from rdma_paxos_tpu_torch.obs.tracectx import active_tracer
 from rdma_paxos_tpu_torch.topology import epoch as _epoch
 from rdma_paxos_tpu_torch.txn import merge as _merge
 from rdma_paxos_tpu_torch.txn import records as _records
@@ -180,18 +180,13 @@ class TxnCoordinator:
     # ---------------- trace plane ----------------
 
     def _tracer(self):
-        """The cluster's TraceContext iff its ``obs`` facade has one and
-        tracing is enabled (the reference's ``active_tracer`` rule), else
-        None. Safe to call (and to use) under ``_lock``: the trace store
-        is leaf-locked and this coordinator NEVER takes the topology
+        """The cluster's TraceContext iff tracing is enabled. Safe to
+        call (and to use) under ``_lock``: the trace store is
+        leaf-locked and this coordinator NEVER takes the topology
         controller's lock (drive() holds that lock while calling our
         ``wants_serial`` — the reverse order would deadlock ABBA; the
         window-trace handoff below is a lock-free attribute read)."""
-        obs = getattr(self.cluster, "obs", None)
-        tc = getattr(obs, "tracectx", None)
-        if tc is None or active_recorder(obs) is None:
-            return None
-        return tc
+        return active_tracer(getattr(self.cluster, "obs", None))
 
     # holds-lock: _lock
     def _close_record_spans(self, txn: Txn, keys, *, ok: bool,

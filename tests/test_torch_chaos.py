@@ -394,8 +394,19 @@ def test_link_model_is_not_ignored_by_the_engine():
 
 @pytest.mark.parametrize("name", ["streams", "governor"])
 def test_engine_refuses_unported_attachments(name):
+    """An attachment whose subsystem is not ported (``streams``) makes
+    a dispatch raise; the governor is ported, and an attached one is
+    observed by every finish instead."""
     t = SimCluster(LogConfig(**GEO), 3, device="cpu")
     t.run_until_elected(0)
+    if name == "governor":
+        from rdma_paxos_tpu_torch.runtime.governor import attach_governor
+        gov = attach_governor(t)
+        t.submit(0, b"x")
+        t.step()
+        t.finish(t.begin_burst())
+        assert gov.evals == 2 and not t._tickets
+        return
     setattr(t, name, object())                   # a stand-in subsystem
     with pytest.raises(NotImplementedError, match="item 13"):
         t.begin_step()
@@ -577,8 +588,17 @@ def test_dedup_bug_caught_and_replayed_like_reference(tmp_path,
 
 @pytest.mark.parametrize("mode", ["repair", "governor", "streams"])
 def test_runner_refuses_unported_modes(mode):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        NemesisRunner(seed=0, steps=10, device="cpu", **{mode: True})
+    """The streams mode still raises naming its ROADMAP item; the
+    repair and governor modes are ported (``tests/test_torch_repair.py``,
+    ``tests/test_torch_governor.py``) and run clean."""
+    if mode == "streams":
+        with pytest.raises(NotImplementedError, match="item 13"):
+            NemesisRunner(seed=0, steps=10, device="cpu", streams=True)
+        return
+    v = NemesisRunner(seed=0, steps=10, device="cpu", **{mode: True}).run()
+    assert v["ok"], v
+    assert (v["repair"] is not None) == (mode == "repair")
+    assert ("governor" in v) == (mode == "governor")
 
 
 @pytest.mark.chaos

@@ -371,8 +371,28 @@ def test_auto_recovery_matches_the_jax_driver(tmp_path):
     dict(repair_opts={}), dict(mode="spmd"),
     dict(health_period=1.0), dict(alert_period=1.0)])
 def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError):
-        ClusterDriver(LogConfig(**GEO), 3, device="cpu", **kw)
+    """What waits for later slices (streams, profiler captures, the
+    spmd mode) raises; the alert and health plane, repair, the governor
+    and the scan tier are ported and take their settings (``repair=``
+    alone is refused for want of ``audit=True``, as in JAX)."""
+    if set(kw) & {"streams", "streams_opts", "profile_on_page", "mode"}:
+        with pytest.raises(NotImplementedError):
+            ClusterDriver(LogConfig(**GEO), 3, device="cpu", **kw)
+        return
+    if kw == dict(repair=True):
+        with pytest.raises(ValueError, match="audit=True"):
+            ClusterDriver(LogConfig(**GEO), 3, device="cpu", **kw)
+        return
+    d = ClusterDriver(LogConfig(**GEO), 3, device="cpu", **kw)
+    try:
+        d.step(), d.step()
+        assert (d.governor is not None) == ("governor" in kw)
+        assert d.cluster.scan == bool(kw.get("scan"))
+        assert (d.exporter is not None) == ("metrics_port" in kw)
+        if "alert_rules" in kw:
+            assert d.alerts.state() == {}
+    finally:
+        d.stop()
 
 
 @pytest.mark.parametrize("variant", ["audit", "telemetry"])
@@ -495,8 +515,10 @@ def test_digest_verified_recovery_matches_jax(part, tmp_path):
 
 
 def _attach_governor_and_step(d):
-    d.cluster.governor = object()
+    from rdma_paxos_tpu_torch.runtime.governor import attach_governor
+    gov = attach_governor(d.cluster)
     d.step()
+    assert gov.evals == 1
 
 
 @pytest.mark.parametrize("call", [
@@ -505,14 +527,26 @@ def _attach_governor_and_step(d):
     lambda d: d.serve_metrics(0), lambda d: d.start_profile()])
 def test_later_methods_raise(call):
     """What waits for later slices raises and names its ROADMAP item
-    (13: the governor and the other host subsystems, host
-    observability)."""
+    (13: the profiler half of ``obs/device.py``); the governor, health,
+    alerts and the metrics exporter are ported and answer."""
+    from rdma_paxos_tpu_torch.obs.health import validate_cluster
     d = ClusterDriver(LogConfig(**GEO), 3, device="cpu", leases=False)
-    with pytest.raises(NotImplementedError, match=r"item"):
-        call(d)
-    with pytest.raises(RuntimeError, match="leases=False"):
-        d.read(lambda: None)
-    d.stop()
+    try:
+        if "start_profile" in call.__code__.co_names:
+            with pytest.raises(NotImplementedError, match=r"item 13"):
+                call(d)
+        else:
+            out = call(d)
+            if "health" in call.__code__.co_names:
+                assert validate_cluster(out) == []
+            elif "evaluate_alerts" in call.__code__.co_names:
+                assert set(out) == {"fired", "resolved"}
+            elif "serve_metrics" in call.__code__.co_names:
+                assert out.port > 0 and d.exporter is out
+        with pytest.raises(RuntimeError, match="leases=False"):
+            d.read(lambda: None)
+    finally:
+        d.stop()
 
 
 def test_driver_needs_a_card_or_an_explicit_cpu():

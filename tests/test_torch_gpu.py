@@ -195,3 +195,93 @@ def test_vote_lane_on_the_card():
     for k in cst:
         assert np.array_equal(cst[k], gst[k]), k
     assert gres[-1]["txn_vote"] == [[2] * 3, [3] * 3, [1] * 3, [0] * 3]
+
+
+def _repair_drill(dev):
+    """An audited ``SimCluster`` with a repair controller: a follower's
+    committed slot flipped, then stepped (observe, drive) until it is
+    healed; returns the step outputs, the controller's status, the
+    ledger dump and the launches per step."""
+    import json
+    from rdma_paxos_tpu_torch.chaos.faults import corrupt_slot
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.repair import RepairController
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    cfg = LogConfig(n_slots=64, slot_bytes=32, window_slots=16,
+                    batch_slots=8)
+    c = SimCluster(cfg, 3, audit=True, device=dev)
+    ctl = RepairController(c, probation_steps=3)
+    before = commit_window.launches
+    c.run_until_elected(0)
+    for i in range(8):
+        c.submit(0, b"v%d" % i)
+    out = []
+    for i in range(40):
+        if i == 4:
+            corrupt_slot(c, 2, int(c.last["commit"].min()) - 1)
+        c.submit(0, b"w%d" % i)
+        res = c.step()
+        ctl.observe()
+        if ctl.needs_drain():
+            ctl.drive()
+        out.append({k: v.tolist() for k, v in res.items()})
+        if ctl.repairs_done and not ctl.states:
+            break
+    dump = {k: v for k, v in c.auditor.dump().items() if k != "anchor"}
+    return (out, ctl.status(), json.dumps(dump, sort_keys=True,
+                                          default=str),
+            commit_window.launches - before, c.step_index)
+
+
+def test_repair_drill_on_the_card():
+    """The repair loop on the card equals its CPU twin: every step's
+    outputs, the controller's status (quarantine, install, backfill,
+    re-admission) and the ledger, with one ``commit_window`` launch per
+    protocol step."""
+    _need_card()
+    cres, cst, cled, _, _ = _repair_drill("cpu")
+    gres, gst, gled, launched, steps = _repair_drill("cuda")
+    assert launched == steps
+    assert gres == cres and gst == cst and gled == cled
+    assert gst["repairs_done"] == 1 and gst["active"] == {}
+
+
+def test_governed_run_on_the_card():
+    """A governed ``SimCluster`` on the card under a seeded bursty
+    arrival trace equals its CPU twin: decisions, outputs and status,
+    with one ``commit_window`` launch per protocol step."""
+    _need_card()
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.governor import attach_governor
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    cfg = LogConfig(n_slots=512, slot_bytes=128, window_slots=64,
+                    batch_slots=16)
+    rng = np.random.default_rng(21)
+    loads = ([int(v) for v in rng.integers(0, 4, 10)]
+             + [int(v) for v in rng.integers(40, 96, 10)]
+             + [int(v) for v in rng.integers(0, 4, 10)])
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        c = SimCluster(cfg, 3, device=dev)
+        c.run_until_elected(0)
+        gov = attach_governor(c, obs=None)
+        before, s0 = commit_window.launches, c.step_index
+        log = []
+        for n in loads:
+            if n:
+                c.submit_many(0, [(3, 1, 0, b"g" * 24)] * n)
+            d = gov.decision
+            res = (c.step_burst(max_k=d.max_k)
+                   if d.max_k > 1 and max(len(q) for q in c.pending)
+                   else c.step())
+            log.append((tuple(gov.decision),
+                        {k: v.tolist() for k, v in res.items()}))
+        runs[dev] = (log, gov.status(), commit_window.launches - before,
+                     c.step_index - s0)
+    (clog, cst, _, _), (glog, gst, launched, steps) = (runs["cpu"],
+                                                       runs["cuda"])
+    assert launched == steps
+    assert glog == clog and gst == cst
+    assert max(d[1] for d, _ in glog) > 1

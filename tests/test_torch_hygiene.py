@@ -78,7 +78,9 @@ def test_imports_with_jax_and_reference_blocked():
                 "txn.records", "shard", "shard.router", "shard.cluster",
                 "shard.kvs", "shard.chaos", "runtime.sharded_driver",
                 "txn", "txn.lane", "txn.merge", "txn.coordinator",
-                "txn.api", "txn.chaos", "topology", "topology.epoch"):
+                "txn.api", "txn.chaos", "topology", "topology.epoch",
+                "obs.alerts", "obs.series", "obs.health", "obs.export",
+                "obs.tracectx", "runtime.repair", "runtime.governor"):
         assert "rdma_paxos_tpu_torch." + mod in names, mod
 
 
@@ -449,3 +451,67 @@ def test_txn_copies_match_the_reference():
         for name in ("set_txn_watch", "clear_txn_watch"):
             assert params(getattr(tcls, name)) == params(
                 getattr(jcls, name)), (tcls, name)
+
+
+def test_alert_repair_governor_copies_match_the_reference():
+    """The alert and health plane, the repair controller and the
+    governor: the constants, rule set and public names copied from the
+    JAX package equal the originals."""
+    import rdma_paxos_tpu.obs as jobs
+    import rdma_paxos_tpu.obs.alerts as jalerts
+    import rdma_paxos_tpu.obs.export as jexport
+    import rdma_paxos_tpu.obs.health as jhealth
+    import rdma_paxos_tpu.obs.series as jseries
+    import rdma_paxos_tpu.obs.tracectx as jtracectx
+    import rdma_paxos_tpu.runtime.governor as jgov
+    import rdma_paxos_tpu.runtime.repair as jrepair
+    import rdma_paxos_tpu_torch.obs as tobs
+    import rdma_paxos_tpu_torch.obs.alerts as talerts
+    import rdma_paxos_tpu_torch.obs.export as texport
+    import rdma_paxos_tpu_torch.obs.health as thealth
+    import rdma_paxos_tpu_torch.obs.series as tseries
+    import rdma_paxos_tpu_torch.obs.tracectx as ttracectx
+    import rdma_paxos_tpu_torch.runtime.governor as tgov
+    import rdma_paxos_tpu_torch.runtime.repair as trepair
+    for k in ("QUARANTINED", "PROBATION", "ESCALATED"):
+        assert getattr(trepair, k) == getattr(jrepair, k), k
+    assert [r["name"] for r in talerts.default_rules()] == [
+        r["name"] for r in jalerts.default_rules()]
+    assert talerts.default_rules() == jalerts.default_rules()
+    for k in ("PAGE", "WARN", "KINDS"):
+        assert getattr(talerts, k) == getattr(jalerts, k), k
+    for k in ("HEALTH_FIELDS", "CLUSTER_HEALTH_FIELDS"):
+        assert getattr(thealth, k) == getattr(jhealth, k), k
+    for k in ("DEFAULT_CAPACITY", "SUBSYS_PIDS", "OTHER_SUBSYS_PID",
+              "BLAME_PHASES"):
+        assert getattr(ttracectx, k) == getattr(jtracectx, k), k
+    assert tgov.SHED_RULE == jgov.SHED_RULE
+    assert tuple(tgov.SERIAL) == tuple(jgov.SERIAL)
+    assert tgov.Decision._fields == jgov.Decision._fields
+    assert tspans.CP_PID == jspans.CP_PID
+    assert tspans.READS_PID == jspans.READS_PID
+    # public signatures of the copied entry points
+    import inspect
+    for a, b in ((trepair.RepairController.__init__,
+                  jrepair.RepairController.__init__),
+                 (tgov.DispatchGovernor.__init__,
+                  jgov.DispatchGovernor.__init__),
+                 (tgov.attach_governor, jgov.attach_governor),
+                 (tgov.HintGovernor.__init__, jgov.HintGovernor.__init__),
+                 (talerts.AlertEngine.__init__, jalerts.AlertEngine.__init__),
+                 (tseries.TimeSeriesStore.__init__,
+                  jseries.TimeSeriesStore.__init__),
+                 (texport.OpsExporter.__init__, jexport.OpsExporter.__init__),
+                 (ttracectx.TraceContext.__init__,
+                  jtracectx.TraceContext.__init__)):
+        assert str(inspect.signature(a)) == str(inspect.signature(b)), a
+    # the facade exports what the JAX one does, but the modules not
+    # ported yet (audit and device are imported by name)
+    assert set(tobs.__all__) == set(jobs.__all__) - {
+        "audit", "device", "AuditLedger", "FlightRecorder",
+        "ProfilerSession", "console"}
+    # the drivers take the JAX drivers' arguments
+    for a, b in ((tdriver.ClusterDriver.__init__,
+                  jdriver.ClusterDriver.__init__),):
+        ta = set(inspect.signature(a).parameters) - {"device"}
+        assert ta == set(inspect.signature(b).parameters)

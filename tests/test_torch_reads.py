@@ -358,7 +358,7 @@ def test_driver_read_path_defaults_match_reference():
     d = tdriver.ClusterDriver(LogConfig(**GEO), 3, device="cpu",
                               lease_opts=dict(lease_steps=3))
     assert d.cluster.leases.lease_steps == 3
-    assert d.status()["leases"]["holders"] == [-1]
+    assert d.health()["leases"]["holders"] == [-1]
     d.stop()
     d = tdriver.ClusterDriver(LogConfig(**GEO), 3, device="cpu",
                               leases=False)
@@ -392,7 +392,7 @@ def test_driver_read_serves_without_ring_slots():
         assert all(t.value >= 8 for t in results)
         # zero ring slots: the append frontier is where the writes left it
         assert int(d.cluster.last["end"].max()) == end_before
-        st = d.status()
+        st = d.health()
         assert st["reads"]["served"]["lease"] >= 1
         assert st["leases"]["holders"] == [lead]
         assert d.read_replica() == lead

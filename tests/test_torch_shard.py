@@ -796,9 +796,17 @@ def test_unported_surfaces_raise():
     with pytest.raises(NotImplementedError, match="item 14"):
         ShardedCluster(cfg, 3, 2, mesh=(2, 3), device="cpu")
     sc = ShardedCluster(cfg, 3, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sc.health()
+    # ported since: the health document and the governor
+    assert [g["group"] for g in sc.health()["groups"]] == [0, 1]
     for name in ("streams", "governor", "topology"):
+        if name == "governor":
+            from rdma_paxos_tpu_torch.runtime.governor import (
+                attach_governor)
+            gsc = ShardedCluster(cfg, 3, 2, device="cpu")
+            gov = attach_governor(gsc)
+            gsc.step()
+            assert gov.evals == 1
+            continue
         setattr(sc, name, object())
         with pytest.raises(NotImplementedError, match="item 13"):
             sc.step()

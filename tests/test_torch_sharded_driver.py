@@ -134,7 +134,7 @@ def test_step_locked_parity_with_the_jax_sharded_driver():
             for conn, sends in seen.items():
                 idx = [int(p.split(b"-")[1].split(b" ")[0]) for p in sends]
                 assert idx == list(range(5)), (g, conn, idx)
-        st = td.status()
+        st = td.health()
         assert st["n_groups"] == G and st["leaders"] == td.leaders()
         assert st["router"] == td.router.to_dict()
     finally:
@@ -216,13 +216,14 @@ def test_sharded_driver_unsupported_surfaces_raise():
                      lambda: td.checkpoint_app(1)):
             with pytest.raises(NotImplementedError):
                 call()
-        for call in (td.health, td._wire_repair,
-                     lambda: td._on_topology_cutover([0], [1])):
-            with pytest.raises(NotImplementedError, match="item 13"):
-                call()
+        # ported since: health() and the repair wiring
+        # (tests/test_torch_alerts.py, tests/test_torch_repair.py)
+        assert td.health()["leaders"] == td.leaders()
+        with pytest.raises(NotImplementedError, match="item 13"):
+            td._on_topology_cutover([0], [1])
     finally:
         td.stop()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="audit=True"):
         ShardedClusterDriver(LogConfig(**GEO), 3, 2, device="cpu",
                              repair=True)
     with pytest.raises(NotImplementedError, match="item 14"):

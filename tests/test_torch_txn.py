@@ -653,7 +653,7 @@ def test_txn_under_live_sharded_driver():
             time.sleep(0.005)
         assert h2.committed
         assert decode_merge_val(OP_INCR, kv.get(keys[0][2])) == 7
-        st = d.status()
+        st = d.health()
         assert st["txn"] == coord.health()
         assert st["txn"]["committed_total"] == 2
         assert st["txn"]["active"] == 0 and st["txn"]["locks"] == 0
@@ -670,6 +670,6 @@ def test_txn_under_live_sharded_driver():
         sd.step()
         assert sd.leader() == 0
         assert sd.cluster.last["txn_vote"].tolist() == [TXN_NONE] * R
-        assert sd.status()["txn"] is None
+        assert sd.health()["txn"] is None
     finally:
         sd.stop()
