@@ -165,7 +165,32 @@ exits non-zero without its result line):
     fused ``dispatch_tier`` counters, and ``ShardedClusterDriver(G=2,
     audit=True, repair=True)`` repairing a group leader while group 0
     commits;
-13. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+13. streams and elastic topology, R = 3, each run on the card and again
+    with ``device="cpu"`` in this process, equal, with one
+    ``commit_window`` launch per protocol step and no ``commit_scan``
+    launch: (13a) a streams hub on an audited ``SimCluster`` at geometry
+    (a), gather, with the read path and ``ReplicatedKVS(cap=4096)``: 16
+    session clients write 2048 keys under a whole-range watch that
+    resumes twice from its token (every put delivered once), a paged
+    scan whose leader is cut off between two pages (every item the
+    cut's value), the CDC export verified against the ledger and a
+    flipped byte named; step outputs and ops per ``step()`` equal to a
+    twin without the hub; the pump's lag, ms per scan page, the table
+    walk, CDC records/s, and committed entries/s attached and detached
+    in alternating rounds; (13b) ``ClusterDriver(streams=True,
+    pipeline=2)`` on (6a)'s record (health valid, the watcher closed at
+    stop) and ``NemesisRunner(streams=True)`` seeds 0 and 1 (0 dups, 0
+    gaps); (13c) ``ShardedKVS`` at G = 4, geometry (a), 2048 keys: the
+    upper half of group 0's keys split into group 1 while puts continue
+    and merged back — router, epoch, ``health()['topology']``, each
+    group's table and the trace's phases equal to the CPU run, ops per
+    ``step()`` equal to a twin without the controller, steps and ms per
+    window; (13d) ``run_topology_chaos`` seeds 0 and 1, and a pipelined
+    ``ShardedClusterDriver`` at G = 2 that cuts a split over with load in
+    flight (the donor's waiters failed and sent again, every event acked
+    once with status 0); (13e) the console's fleet table over (13c)'s
+    health document with its ``TOPO`` column;
+14. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
 after, so a failure names its phase.
@@ -176,6 +201,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import functools
 import json
 import os
@@ -872,6 +898,8 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
         d.runtimes[0].timer._deadline = 0.0
         d.step()
         check(d.leader() == 0, "replica 0 was not elected")
+        hub = d.cluster.streams
+        sub = hub.subscribe(0) if hub is not None else None
         bursts = []
         begin_burst = d.cluster.begin_burst
 
@@ -935,8 +963,17 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
             prof_wall = time.perf_counter() - t0
             prof.__exit__(None, None, None)
         time.sleep(0.2)          # let the follower frontiers settle
+        if hub is not None:
+            check(hub.watch.wait_caught_up({0: hub.tails[0].length()}),
+                  "the watch pump never caught up")
+            h = d.health()
+            from rdma_paxos_tpu_torch.obs.health import validate_cluster
+            out.update(health=h, missing=validate_cluster(h))
         d.stop()
         check(d.loop_error is None, f"the loop crashed: {d.loop_error!r}")
+        if sub is not None:
+            out.update(sub_closed=(sub.closed, sub.fail_reason),
+                       hub=hub.status())
         out.update(
             launches=commit_window.launches,
             steps=d.cluster.step_index - steps0, bursts=len(bursts),
@@ -4192,6 +4229,739 @@ def phase_repair_governor(dev, card: str) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 13: streams, elastic topology and the console
+# ---------------------------------------------------------------------------
+
+STREAM_KEYS = 2048         # distinct keys written in (13a), seeded in (13c)
+STREAM_CLIENTS = 16        # session clients of (13a)
+STREAM_PAGE = 64           # scan page size of (13a)
+STREAM_CAP = 4096          # ReplicatedKVS capacity per replica (per group)
+STREAM_FANOUT = "gather"   # a leader crash is a peer-mask cut
+STREAM_ROUNDS = 3          # attached/detached rate rounds of (13a)
+TOPO_G = 4                 # groups of (13c)
+TOPO_PUTS = 16             # puts per protocol step while a window is open
+TOPO_DRIVER_CONNS = 12     # connections of the (13d) live driver
+TOPO_DRIVER_EVENTS = 1024  # SENDs per connection and load of (13d)
+RES13 = ("term", "role", "commit", "end", "apply", "head", "accepted")
+
+
+def spread_key(tag: bytes, i: int) -> bytes:
+    """Key ``i`` (< 4096) of a family under the 4-byte ``tag``. The KVS
+    table hash keeps only the low bits of each key word, so the index
+    sits in the low bytes of the second and third words: keys that
+    differed only in a word's high bytes would share one probe chain."""
+    return tag + bytes([0x30 + (i & 63), 0x30 + ((i >> 6) & 15), 0x2D,
+                        0x2D, 0x30 + (i >> 10)])
+
+
+def serve_stepping(clusters, fn, max_steps: int = 400):
+    """Run a blocking client call (a scan page) on a thread while the
+    calling thread steps ``clusters``, so the read hub confirms and
+    serves it; returns its result and the wall seconds it took."""
+    box = {}
+
+    def work():
+        try:
+            box["out"] = fn()
+        except BaseException as exc:  # noqa: BLE001 — reraised below
+            box["err"] = exc
+    t0 = time.perf_counter()
+    th = threading.Thread(target=work)
+    th.start()
+    for _ in range(max_steps):
+        for c in clusters:
+            c.step()
+        if not th.is_alive():
+            break
+    th.join(30)
+    check(not th.is_alive(), "a scan page never completed")
+    if "err" in box:
+        raise box["err"]
+    return box["out"], time.perf_counter() - t0
+
+
+def outs13(res) -> dict:
+    return {k: np.asarray(res[k]).tolist() for k in RES13}
+
+
+def drive_streams_engine(dev, wd: str) -> dict:
+    """(13a) on ``dev``: a streams hub on an audited ``SimCluster`` at
+    geometry (a) with the read path and ``ReplicatedKVS(cap=4096)``, in
+    lockstep with a twin without the hub: 16 session clients write 2048
+    distinct keys in four rounds under a whole-range watch that resumes
+    twice from its token; then a paged scan of the range whose leader is
+    cut off between two pages (the new leader overwrites one key and
+    deletes another, and the token holds); the CDC export verified
+    against the ledger and a flipped byte named."""
+    from rdma_paxos_tpu_torch import streams
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.models.replicated_kvs import ReplicatedKVS
+    from rdma_paxos_tpu_torch.obs import Observability
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime import reads
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    from rdma_paxos_tpu_torch.streams.cdc import CDCWriter, verify_export
+    geom, _ = GEOMETRIES["a"]
+    cfg = LogConfig(**geom)
+    os.makedirs(wd)
+    cdc_path = os.path.join(wd, "cdc.jsonl")
+    c = SimCluster(cfg, R, fanout=STREAM_FANOUT, audit=True, device=dev)
+    c.obs = Observability()
+    reads.attach(c)
+    kv = ReplicatedKVS(c, cap=STREAM_CAP)
+    hub = streams.attach(c, kvs=kv, cdc_path=cdc_path, auditor=c.auditor)
+    twin = SimCluster(cfg, R, fanout=STREAM_FANOUT, audit=True, device=dev)
+    reads.attach(twin)
+    kv_twin = ReplicatedKVS(twin, cap=STREAM_CAP)
+    commit_window.launches = commit_scan.launches = 0
+    log = []
+
+    def step_both(timeouts=()):
+        a, b = outs13(c.step(timeouts)), outs13(twin.step(timeouts))
+        check(a == b, "(13a) a step's outputs differ with the hub attached")
+        log.append(a)
+    for cl in (c, twin):
+        cl.run_until_elected(0)
+    keys = [spread_key(b"s/k-", i) for i in range(STREAM_KEYS)]
+    sub = hub.subscribe(0, prefix=b"s/", cap=4 * STREAM_KEYS)
+    events, tokens = [], []
+    per = STREAM_KEYS // 4
+    lag_ms = None
+    for rnd in range(4):
+        for i in range(rnd * per, (rnd + 1) * per):
+            cid, req = 1 + i % STREAM_CLIENTS, 1 + i // STREAM_CLIENTS
+            for k_ in (kv, kv_twin):
+                k_.put(0, keys[i], b"v0-%d" % i, client_id=cid, req_id=req)
+        if rnd == 3:
+            # the ops (and so the kernels) of one step that appends a
+            # full batch, with the hub attached and without it
+            ops = (op_count(lambda: log.append(outs13(c.step()))),
+                   op_count(lambda: twin.step()))
+            check(log[-1] == outs13(twin.last),
+                  "(13a) a step's outputs differ with the hub attached")
+        else:
+            step_both()
+        step_both()
+        if rnd == 3:
+            t0 = time.perf_counter()
+            check(hub.watch.wait_caught_up({0: hub.tails[0].length()}),
+                  "(13a) the watch pump never caught up")
+            lag_ms = (time.perf_counter() - t0) * 1e3
+        if rnd in (1, 2):
+            # consume part of what was delivered, then reconnect from the
+            # last consumed event's token: the rest replays from retention
+            check(hub.watch.wait_caught_up({0: hub.tails[0].length()}),
+                  "(13a) the watch pump never caught up")
+            events += sub.poll(max_n=per // 3)
+            tokens.append(sub.token())
+            sub.close()
+            sub = hub.subscribe(0, prefix=b"s/", token=tokens[-1],
+                                cap=4 * STREAM_KEYS)
+    events += sub.poll(max_n=1 << 16)
+    ident = [(e.conn, e.req) for e in events]
+    check(len(ident) == len(set(ident)) == STREAM_KEYS,
+          f"(13a) the watch delivered {len(ident)} events, "
+          f"{len(set(ident))} distinct, for {STREAM_KEYS} puts")
+    lock_steps = c.step_index
+    # the scan, its leader cut off between two pages
+    pages, page_s = [], []
+    page, s = serve_stepping([c], lambda: hub.scan(prefix=b"s/",
+                                                   limit=STREAM_PAGE))
+    pages.append(page)
+    page_s.append(s)
+    c.partition([[0], [1, 2]])
+    c.run_until_elected(1)
+    kv.put(1, keys[5], b"v1-5", client_id=STREAM_CLIENTS + 1, req_id=1)
+    kv.remove(1, keys[7], client_id=STREAM_CLIENTS + 1, req_id=2)
+    for _ in range(3):
+        c.step()
+    while page["token"] is not None:
+        tok = page["token"]
+        page, s = serve_stepping([c], lambda t=tok: hub.scan(token=t))
+        pages.append(page)
+        page_s.append(s)
+    items = [kv_ for p in pages for kv_ in p["items"]]
+    want = sorted((keys[i], b"v0-%d" % i) for i in range(STREAM_KEYS))
+    check(items == want, f"(13a) the scan across the crash returned "
+                         f"{len(items)} items, not the cut's {len(want)}")
+    fresh, _ = serve_stepping([c], lambda: hub.scan_all(
+        prefix=b"s/", limit=4 * STREAM_PAGE))
+    fresh = dict(fresh)
+    check(fresh[keys[5]] == b"v1-5" and keys[7] not in fresh
+          and len(fresh) == STREAM_KEYS - 1,
+          "(13a) a fresh scan does not see the new leader's writes")
+    check(hub.scans.pin_count() == 0, "(13a) a scan pin was left behind")
+    t0 = time.perf_counter()
+    walk = kv.items_in_range(1, b"", None)
+    walk_ms = [(time.perf_counter() - t0) * 1e3]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        check(kv.items_in_range(1, b"", None) == walk,
+              "(13a) two table walks differ")
+        walk_ms.append((time.perf_counter() - t0) * 1e3)
+    check(walk == sorted(fresh.items()),
+          "(13a) the table walk differs from the scan")
+    # the CDC export: verified against the ledger, a flipped byte named
+    check(hub.watch.wait_caught_up({0: hub.tails[0].length()}),
+          "(13a) the watch pump never caught up")
+    hub.fail_all("13a done")
+    dump = c.auditor.dump()
+    verdict = verify_export(cdc_path, [dump])
+    with open(cdc_path) as f:
+        text = f.read()
+    lines = text.splitlines()
+    rec = json.loads(lines[len(lines) // 2])
+    p = rec["payload"]
+    rec["payload"] = p[:-1] + ("0" if p[-1] != "0" else "1")
+    bad_path = os.path.join(wd, "cdc_flipped.jsonl")
+    with open(bad_path, "w") as f:
+        f.write("\n".join(lines[:len(lines) // 2] + [json.dumps(rec)]
+                          + lines[len(lines) // 2 + 1:]) + "\n")
+    bad = verify_export(bad_path, [dump])
+    recs = hub.tails[0].records(0)
+    t0 = time.perf_counter()
+    w = CDCWriter(os.path.join(wd, "cdc_timed.jsonl"), auditor=c.auditor)
+    w.write_records(0, recs)
+    w.close()
+    cdc_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(log=log, ops=ops, lag_ms=lag_ms, tokens=tokens,
+                events=[(e.conn, e.req, e.term, e.index) for e in events],
+                items=items, fresh=sorted(fresh.items()), cdc=text,
+                verdict=verdict, bad=bad, flipped=(rec["term"],
+                                                   rec["index"]),
+                page_ms=[s_ * 1e3 for s_ in page_s], walk_ms=walk_ms,
+                cdc_rate=len(recs) / cdc_s, n_records=len(recs),
+                lock_steps=lock_steps,
+                steps=c.step_index + twin.step_index,
+                launches=commit_window.launches,
+                scans=commit_scan.launches)
+
+
+def streams_rates(dev, card: str) -> dict:
+    """(13a) committed entries/s at geometry (a) with a hub attached (a
+    whole-range watcher and a CDC sink), with a hub and its watcher but
+    no sink, and without a hub, in alternating rounds of eight full
+    batches of KVS puts; each round printed."""
+    from rdma_paxos_tpu_torch import streams
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.models.kvs import OP_PUT, encode_cmd
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, _ = GEOMETRIES["a"]
+    B = geom["batch_slots"]
+    cfg = LogConfig(**geom)
+    modes = ("watch+cdc", "watch", "detached")
+    with tempfile.TemporaryDirectory() as wd:
+        clusters, subs = {}, {}
+        for mode in modes:
+            c = SimCluster(cfg, R, fanout=STREAM_FANOUT, device=dev)
+            c.run_until_elected(0)
+            c.prewarm()
+            clusters[mode] = c
+            if mode != "detached":
+                hub = streams.attach(c, cdc_path=(
+                    os.path.join(wd, "cdc.jsonl") if "cdc" in mode
+                    else None))
+                subs[mode] = (hub, hub.subscribe(0, cap=1 << 22))
+        commit_window.launches = commit_scan.launches = 0
+        s0 = sum(c.step_index for c in clusters.values())
+        rates = {m: [] for m in modes}
+        delivered = {m: 0 for m in subs}
+        for rnd in range(STREAM_ROUNDS):
+            for mode in (modes if rnd % 2 == 0 else modes[::-1]):
+                c = clusters[mode]
+                rows = [(3, 1 + i % STREAM_CLIENTS,
+                         1 + rnd * 8 * B // STREAM_CLIENTS
+                         + i // STREAM_CLIENTS,
+                         encode_cmd(OP_PUT, spread_key(b"r/k-", i % 4096),
+                                    b"r%d" % rnd).tobytes())
+                        for i in range(8 * B)]
+                c0 = int(c.last["commit"].min())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                c.submit_many(0, rows)
+                while int(c.last["commit"].min()) - c0 < len(rows):
+                    c.step()
+                torch.cuda.synchronize()
+                rates[mode].append(len(rows) / (time.perf_counter() - t0))
+                if mode in subs:
+                    hub, sub = subs[mode]
+                    check(hub.watch.wait_caught_up(
+                        {0: hub.tails[0].length()}),
+                        "(13a) the pump fell behind")
+                    delivered[mode] += len(sub.poll(max_n=1 << 22))
+        steps = sum(c.step_index for c in clusters.values()) - s0
+        for hub, _ in subs.values():
+            hub.fail_all("rates done")
+        launches, scans = commit_window.launches, commit_scan.launches
+    check(all(n == STREAM_ROUNDS * 8 * B for n in delivered.values()),
+          f"(13a) the rate rounds' watchers got {delivered} events")
+    for rnd in range(STREAM_ROUNDS):
+        print(f"streams (13a) rate round {rnd + 1} on {card}: geometry (a) "
+              f"{STREAM_FANOUT}, {8 * B} KVS puts, committed entries/s: "
+              + ", ".join(f"{m} {rates[m][rnd]:.0f}" for m in modes)
+              + f" (run {'in that order' if rnd % 2 == 0 else 'reversed'})",
+              flush=True)
+    return dict(steps=steps, launches=launches, scans=scans, rates=rates)
+
+
+def drive_topology(dev) -> dict:
+    """(13c) on ``dev``: ``ShardedKVS`` at G = 4, geometry (a),
+    ``cap=4096`` per group, leases attached and an elastic-topology
+    controller, in lockstep with a twin without one while 2048 keys are
+    seeded; then the upper half of group 0's keys is split into group 1
+    while puts continue (writes to the frozen range deferred), and
+    merged back after the cooldown."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.obs import Observability
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime import reads
+    from rdma_paxos_tpu_torch.shard.cluster import ShardedCluster
+    from rdma_paxos_tpu_torch.shard.kvs import ShardedKVS
+    from rdma_paxos_tpu_torch.shard.router import RangeRule
+    from rdma_paxos_tpu_torch.topology import attach_topology
+    geom, _ = GEOMETRIES["a"]
+    cfg = LogConfig(**geom)
+    sides = []
+    for attach in (True, False):
+        sc = ShardedCluster(cfg, R, TOPO_G, fanout=GROUP_FANOUT, device=dev)
+        sc.obs = Observability()
+        kv = ShardedKVS(sc, cap=STREAM_CAP)
+        reads.attach(sc)
+        ctl = attach_topology(kv, obs=sc.obs, cooldown_steps=8) \
+            if attach else None
+        sc.place_leaders()
+        sides.append((sc, kv, ctl))
+    (sc, kv, ctl), (twin, kv_twin, _) = sides
+    commit_window.launches = commit_scan.launches = 0
+    s0 = sc.step_index + twin.step_index
+    owned = [[] for _ in range(TOPO_G)]
+    for i in range(4096):
+        k = spread_key(b"t/k-", i)
+        if len(owned[kv.group_of(k)]) < STREAM_KEYS // TOPO_G:
+            owned[kv.group_of(k)].append(k)
+    check(all(len(o) == STREAM_KEYS // TOPO_G for o in owned),
+          f"(13c) keys per group {[len(o) for o in owned]}")
+    keys = sorted(k for o in owned for k in o)
+    log, ops = [], None
+    for k in keys:
+        for kv_ in (kv, kv_twin):
+            kv_.put(k, b"v0:" + k)
+    ops = (op_count(lambda: log.append(outs13(sc.step()))),
+           op_count(lambda: twin.step()))
+    check(log[-1] == outs13(twin.last),
+          "(13c) a step's outputs differ with topology attached")
+    for _ in range(3):
+        a, b = outs13(sc.step()), outs13(twin.step())
+        check(a == b, "(13c) a step's outputs differ with topology attached")
+        log.append(a)
+    hot = sorted(owned[0])
+    rule = RangeRule(hot[len(hot) // 2], hot[-1] + b"\x00", 1)
+    values = {k: b"v0:" + k for k in keys}
+    windows, n = [], 0
+    for direction in ("split", "merge"):
+        while ctl.cooling():
+            sc.step()
+        t0 = time.perf_counter()
+        w0 = sc.step_index
+        check(ctl.propose_split(rule.lo, rule.hi, rule.group)
+              if direction == "split" else ctl.propose_merge(rule),
+              f"(13c) the {direction} was refused")
+        deferred = 0
+        while ctl.in_window():
+            check(sc.step_index - w0 < 400, f"(13c) the {direction} "
+                                            f"window never closed")
+            for _ in range(TOPO_PUTS):
+                k = keys[n % len(keys)]
+                n += 1
+                if ctl.would_block(k):
+                    deferred += 1
+                    continue
+                values[k] = b"v%d:" % n + k
+                kv.put(k, values[k])
+            sc.step()
+            ctl.drive()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        windows.append(dict(direction=direction,
+                            steps=sc.step_index - w0,
+                            ms=(time.perf_counter() - t0) * 1e3,
+                            deferred=deferred,
+                            router=kv.router.to_dict(),
+                            status=ctl.status()))
+    for _ in range(4):
+        sc.step()
+    # each group's table at its leader; a key's value is its owner's
+    # (a split leaves unreachable copies on the donor)
+    tables = [kv.groups[g].items_in_range(sc.leader_hint(g), b"", None)
+              for g in range(TOPO_G)]
+    got = {k: v for g, tab in enumerate(tables) for k, v in tab
+           if kv.group_of(k) == g}
+    check(got == values, "(13c) a key's value was lost in the windows")
+    health = sc.health()
+    phases = [e.kind for e in sc.obs.trace.events()
+              if e.kind.startswith("topology_")]
+    fence = [(e.kind, e.fields.get("group"), e.fields.get("reason"))
+             for e in sc.obs.trace.events()
+             if e.kind in ("lease_revoked", "topology_cutover")]
+    return dict(log=log, ops=ops, windows=windows, tables=tables,
+                router=health["router"], topology=health["topology"],
+                health=health, phases=phases, fence=fence,
+                moved=sum(1 for k in keys if rule.lo <= k < rule.hi),
+                steps=sc.step_index + twin.step_index - s0,
+                launches=commit_window.launches,
+                scans=commit_scan.launches)
+
+
+def topology_nemesis(dev, seed: int) -> dict:
+    """(13d) one ``run_topology_chaos`` run on ``dev``."""
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.topology.chaos import TopologyNemesisRunner
+    l0 = commit_window.launches, commit_scan.launches
+    t0 = time.perf_counter()
+    runner = TopologyNemesisRunner(seed=seed, device=dev)
+    v = runner.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(verdict=v, wall=time.perf_counter() - t0,
+                history=runner.history.to_jsonl(),
+                steps=runner.shard.step_index,
+                launches=commit_window.launches - l0[0],
+                scans=commit_scan.launches - l0[1])
+
+
+def drive_topology_driver(dev) -> dict:
+    """(13d) on ``dev``: ``ShardedClusterDriver`` at G = 2, geometry
+    (a), ``pipeline=2``, with a controller over ``ShardedKVS(d.cluster)``
+    and 64 KVS keys put in the range ``[b"k", b"l")``. Twelve
+    connections (keys ``k<n>-<j>``, eight in the range, spread over both
+    groups) queue SENDs through the three replicas' shim handlers; a
+    split of the range into group 1 is proposed, the loop is stepped
+    until the window freezes, a second load is queued, and the next
+    iteration cuts over with that load in flight: the donor's waiters
+    fail. The live loop then serves the rest, the failed events are
+    sent again on their connections (which re-route under the new map),
+    and every event ends acked once with status 0."""
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
+    from rdma_paxos_tpu_torch.runtime.sharded_driver import (
+        ShardedClusterDriver)
+    from rdma_paxos_tpu_torch.shard.kvs import ShardedKVS
+    from rdma_paxos_tpu_torch.topology import attach_topology
+    geom, _ = GEOMETRIES["a"]
+    d = ShardedClusterDriver(LogConfig(**geom), R, 2, fanout=GROUP_FANOUT,
+                             pipeline=2, device=dev,
+                             timeout_cfg=TimeoutConfig(**TIMERS_OFF),
+                             group_timer_lo=1, group_timer_hi=2)
+    try:
+        d.prewarm()
+        kv = ShardedKVS(d.cluster, cap=STREAM_CAP)
+        ctl = attach_topology(kv, obs=d.obs, cooldown_steps=8)
+        for _ in range(20):
+            if d.leader() >= 0:
+                break
+            d.step()
+        check(d.leader() >= 0, f"(13d) the group timers elected "
+                               f"{d.leaders()}")
+        for i in range(64):
+            kv.put(b"k%d-kv" % i, b"v%d" % i)
+        for _ in range(3):
+            d.step()
+        handlers = [d._make_handler(r) for r in range(R)]
+        conns = []
+        for t in range(TOPO_DRIVER_CONNS):
+            r = t % R
+            conn = (r << 24) | (500 + t)
+            check(handlers[r](2, conn, b"") == 0,
+                  "(13d) a CONNECT was not held")
+            conns.append((r, conn, b"k%d" % t if t < 8 else b"m%d" % t))
+        owner0 = [d.router.group_of(tag) for _r, _c, tag in conns]
+        logical = []                # per event: (replica, conn, payload)
+        evs = []
+        fired = collections.Counter()
+        fired_lock = threading.Lock()
+
+        def mark(ev, _status):
+            with fired_lock:
+                fired[id(ev)] += 1
+
+        def send(i):
+            r, conn, p = logical[i]
+            ev = handlers[r](3, conn, p)
+            check(isinstance(ev, PendingEvent), "(13d) a SEND was refused")
+            ev.attach(functools.partial(mark, ev))
+            evs[i].append(ev)
+
+        def load(part):
+            for r, conn, tag in conns:
+                for j in range(TOPO_DRIVER_EVENTS):
+                    logical.append((r, conn, (tag + b"-%d-%d " % (
+                        part, j)).ljust(FRONT_BYTES, b"v")))
+                    evs.append([])
+                    send(len(logical) - 1)
+        load(0)
+        commit_window.launches = commit_scan.launches = 0
+        steps0 = d.cluster.step_index
+        t0 = time.perf_counter()
+        check(ctl.propose_split(b"k", b"l", 1), "(13d) split refused")
+        while not ctl.frozen():
+            check(d.cluster.step_index - steps0 < 200,
+                  "(13d) the window never froze")
+            d.step()
+        load(1)
+        d.step()
+        check(ctl.transitions_total == 1 and not ctl.in_window(),
+              f"(13d) no cutover: {ctl.status()}")
+        failed0 = sum(1 for e in evs if e[-1].done.is_set()
+                      and e[-1].status != 0)
+        d.run(period=0.001)
+        retried = 0
+        while True:
+            check(time.perf_counter() - t0 < 300, "(13d) events stalled")
+            todo = [i for i, e in enumerate(evs) if not e[-1].done.is_set()]
+            failed = [i for i, e in enumerate(evs)
+                      if e[-1].done.is_set() and e[-1].status != 0]
+            if not todo and not failed:
+                break
+            # resend in order: the donor's conn pins were dropped, so
+            # these SENDs route under the new map
+            for i in failed:
+                send(i)
+            retried += len(failed)
+            time.sleep(0.005)
+        wall = time.perf_counter() - t0
+        d.stop()
+        check(d.loop_error is None, f"(13d) the loop crashed: "
+                                    f"{d.loop_error!r}")
+        status = ctl.status()
+        return dict(router=d.cluster.router.to_dict(),
+                    transitions=status["transitions_total"],
+                    abandoned=status["abandoned_total"],
+                    epoch=status["epoch"],
+                    once=all(fired[id(ev)] == 1 for e in evs for ev in e),
+                    final=[e[-1].status for e in evs], failed0=failed0,
+                    retried=retried, events=len(logical), wall=wall,
+                    owner0=owner0,
+                    owner1=[d.router.group_of(tag) for _r, _c, tag in conns],
+                    max_inflight=d.cluster.max_inflight_dispatches,
+                    steps=d.cluster.step_index - steps0,
+                    launches=commit_window.launches,
+                    scans=commit_scan.launches)
+    finally:
+        d.stop()
+
+
+def phase_streams_topology(dev, card: str) -> list:
+    """Phase 13: streams, elastic topology and the console on the card,
+    each run against its CPU twin; returns the protocol steps and
+    commit_window launches of its runs."""
+    from rdma_paxos_tpu_torch.obs import console
+    cpu = torch.device("cpu")
+    runs = []
+
+    def launches_ok(tag, r):
+        check(r["launches"] == r["steps"] > 0 and r["scans"] == 0,
+              f"({tag}) {r['launches']} commit_window and {r['scans']} "
+              f"commit_scan launches in {r['steps']} protocol steps")
+        runs.append(dict(launches=r["launches"], steps=r["steps"]))
+
+    def same(tag, a, b, keys):
+        for k in keys:
+            check(a[k] == b[k], f"({tag}) {k} differs from the CPU run")
+
+    # (13a) streams on the engine
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        g = drive_streams_engine(dev, os.path.join(wd, "card"))
+        t_card = time.perf_counter() - t0
+        ref = drive_streams_engine(cpu, os.path.join(wd, "cpu"))
+    same("13a", g, ref, ("log", "tokens", "events", "items", "fresh",
+                         "cdc", "verdict", "bad", "flipped"))
+    # the card's step launches one kernel where the CPU runs its plain
+    # version's ops: ops compare within a device, never across
+    check(g["ops"][0] == g["ops"][1] and ref["ops"][0] == ref["ops"][1],
+          f"(13a) ops per step() attached / detached: card {g['ops']}, "
+          f"CPU {ref['ops']}")
+    check(g["verdict"]["ok"] and g["verdict"]["checked_digests"] > 0
+          and not g["bad"]["ok"] and tuple(g["bad"]["bad"]) == g["flipped"],
+          f"(13a) CDC verify {g['verdict']} flipped {g['bad']}")
+    launches_ok("13a", g)
+    step_ms = t_card * 1e3 / g["steps"]
+    print(f"streams (13a) on {card}: SimCluster(audit=True) at geometry (a) "
+          f"{STREAM_FANOUT} with a hub, leases and ReplicatedKVS(cap="
+          f"{STREAM_CAP}): {STREAM_CLIENTS} clients wrote {STREAM_KEYS} "
+          f"keys, the whole-range watch delivered {len(g['events'])} events "
+          f"exactly once across 2 token resumes (tokens "
+          f"{[(t['term'], t['index'], t['pos']) for t in g['tokens']]}); "
+          f"the pump caught up {g['lag_ms']:.2f} ms after the last commit's "
+          f"step returned (0 further protocol steps; "
+          f"{g['lag_ms'] / step_ms:.3f} of a step at {step_ms:.2f} ms per "
+          f"step of the run); scan of {len(g['items'])} keys in "
+          f"{len(g['page_ms'])} pages of {STREAM_PAGE} with the leader cut "
+          f"off after page 1: ms per page median "
+          f"{np.median(g['page_ms']):.2f} (min {min(g['page_ms']):.2f}, "
+          f"max {max(g['page_ms']):.2f}), every item the cut's value; "
+          f"items_in_range over the {STREAM_CAP}-slot table "
+          + ", ".join(f"{x:.2f}" for x in g["walk_ms"]) + " ms; CDC "
+          f"{g['n_records']} records, {g['cdc_rate']:.0f} records/s written,"
+          f" verified ({g['verdict']['checked_digests']} ledger digests), "
+          f"the flipped byte named at {g['flipped']}; ops per step() "
+          f"{g['ops'][0]} with the hub, {g['ops'][1]} without; steps, watch "
+          f"events, scan pages, tables and the CDC file equal to the CPU run"
+          f" ({time.perf_counter() - t0:.1f} s both)", flush=True)
+    rt = streams_rates(dev, card)
+    launches_ok("13a rates", rt)
+
+    # (13b) streams through the driver and the nemesis runner
+    t0 = time.perf_counter()
+    geom, fanout = GEOMETRIES["a"]
+    payloads = front_record(FRONT_EVENTS, FRONT_BYTES)
+    fd = drive_front_door(dev, geom, fanout, payloads, FRONT_CONNS, 2,
+                          streams=True)
+    fref = drive_front_door(cpu, geom, fanout, payloads, FRONT_CONNS, 0,
+                            streams=True)
+    check(fd["statuses"] == [0] * FRONT_EVENTS and (fd["fired"] == 1).all()
+          and fd["streams"][0] == fref["streams"][0],
+          "(13b) the streams driver's events or committed stream")
+    w, wr = fd["health"]["streams"]["watch"], fref["health"]["streams"][
+        "watch"]
+    check(fd["missing"] == [] and w["cursors"] == wr["cursors"]
+          == {0: len(fd["streams"][0])} and w["events_total"] == 0
+          and fd["sub_closed"] == (True, "stop")
+          and fd["hub"]["stopped"] and fd["max_inflight"] >= 2,
+          f"(13b) driver health {fd['health']['streams']} sub "
+          f"{fd['sub_closed']}")
+    fd["scans"] = 0
+    launches_ok("13b driver", fd)
+    for seed in (0, 1):
+        kw = dict(seed=seed, steps=100, streams=True)
+        gv = chaos_run(dev, **kw)
+        cv = chaos_run(cpu, **kw)
+        same(f"13b seed {seed}", gv, cv, ("verdict", "history", "ledger",
+                                          "steps"))
+        s = gv["verdict"]["streams"]
+        check(gv["verdict"]["ok"] and s["dups"] == 0 and s["gaps"] == 0
+              and s["ordered"] and s["resumes"] == 2,
+              f"(13b) seed {seed} streams {s}")
+        gv["scans"] = gv["scan_launches"]
+        launches_ok(f"13b seed {seed}", gv)
+        print(f"streams (13b) on {card}: NemesisRunner(streams=True) seed "
+              f"{seed} at DEFAULT_KV_CFG: ok, {s['events']} watch events "
+              f"exactly once across {s['resumes']} resumes, "
+              f"{gv['verdict']['linearizability']['ops']} checked ops; "
+              f"verdict, history and ledger equal to the CPU run; "
+              f"{gv['steps']} protocol steps, {gv['wall']:.2f} s on the "
+              f"card, {cv['wall']:.2f} s on the CPU", flush=True)
+    print(f"streams (13b) on {card}: ClusterDriver(streams=True, pipeline=2)"
+          f" at geometry (a): {FRONT_EVENTS} SENDs acked once with status 0"
+          f" in {fd['wall'] * 1e3:.1f} ms, health()['streams'] valid (pump "
+          f"cursor {w['cursors'][0]}), the watcher closed at stop; committed"
+          f" stream equal to the CPU serial run "
+          f"({time.perf_counter() - t0:.1f} s all)", flush=True)
+
+    # (13c) topology on ShardedKVS
+    t0 = time.perf_counter()
+    g = drive_topology(dev)
+    ref = drive_topology(cpu)
+    same("13c", g, ref, ("log", "tables", "router", "topology", "phases",
+                         "fence", "moved"))
+    check(ref["ops"][0] == ref["ops"][1],
+          f"(13c) CPU ops per step() attached / detached {ref['ops']}")
+    for a, b in zip(g["windows"], ref["windows"]):
+        same("13c window", a, b, ("steps", "deferred", "router", "status"))
+    check(g["ops"][0] == g["ops"][1]
+          and g["topology"]["transitions_total"] == 2
+          and g["topology"]["abandoned_total"] == 0
+          and g["topology"]["epoch"] == 2 and not g["router"]["overrides"],
+          f"(13c) ops {g['ops']} topology {g['topology']}")
+    launches_ok("13c", g)
+    sp, mg = g["windows"]
+    print(f"topology (13c) on {card}: ShardedKVS G={TOPO_G} at geometry (a) "
+          f"{GROUP_FANOUT}, cap={STREAM_CAP} per group, {STREAM_KEYS} keys "
+          f"seeded: the upper half of group 0's keys (a range holding "
+          f"{g['moved']} keys of all groups) split into group 1 in "
+          f"{sp['steps']} protocol steps, {sp['ms']:.1f} ms from proposal to "
+          f"the window's end ({sp['deferred']} puts to the frozen range "
+          f"deferred), merged back in {mg['steps']} steps, {mg['ms']:.1f} ms"
+          f"; {TOPO_PUTS} puts a step throughout, every value read back; "
+          f"ops per step() {g['ops'][0]} with the controller, "
+          f"{g['ops'][1]} without; router, epoch, health()['topology'], "
+          f"every replica's table and the trace's phases equal to the CPU "
+          f"run ({time.perf_counter() - t0:.1f} s both)", flush=True)
+
+    # (13e) the console over (13c)'s health document
+    docs = []
+    for h in (g["health"], ref["health"]):
+        view = console.fleet_view([dict(src="13c", health=dict(h, ts=0.0))])
+        view["ts"] = 0.0
+        for hst in view["hosts"]:
+            hst.pop("age_s", None)
+        docs.append((view, console.render_table(view)))
+    check(docs[0] == docs[1], "(13e) the console view differs")
+    view, table = docs[0]
+    check("TOPO" in table and [r["topo"] for r in view["groups"]]
+          == ["e2/2t"] + ["-"] * (TOPO_G - 1),
+          f"(13e) console rows {[r['topo'] for r in view['groups']]}")
+    print(f"console (13e): fleet_view/render_table over (13c)'s health "
+          f"document show TOPO {view['groups'][0]['topo']!r} in group 0's "
+          f"row, equal to the CPU run's\n" + table.split("\n\n")[0],
+          flush=True)
+
+    # (13d) the topology nemesis and the live sharded driver
+    for seed in (0, 1):
+        gv = topology_nemesis(dev, seed)
+        cv = topology_nemesis(cpu, seed)
+        same(f"13d seed {seed}", gv, cv, ("verdict", "history", "steps"))
+        v = gv["verdict"]
+        check(v["ok"] and v["lease_fence"]["ok"]
+              and v["topology"]["transitions"] == 2
+              and v["topology"]["abandoned"] == 0,
+              f"(13d) seed {seed}: {v}")
+        launches_ok(f"13d seed {seed}", gv)
+        print(f"topology (13d) on {card}: run_topology_chaos seed {seed} "
+              f"(G=3, leader {v['crashed_leader']} of group "
+              f"{v['target_group']} crashed mid-split): ok, "
+              f"{v['linearizability']['ops']} checked ops, "
+              f"{v['lease_fence']['cutovers']} lease-fenced cutovers; verdict"
+              f" and history equal to the CPU run; {gv['steps']} protocol "
+              f"steps, {gv['wall']:.2f} s on the card, {cv['wall']:.2f} s on "
+              f"the CPU", flush=True)
+    t0 = time.perf_counter()
+    dd = drive_topology_driver(dev)
+    dref = drive_topology_driver(cpu)
+    same("13d driver", dd, dref, ("router", "transitions", "abandoned",
+                                  "epoch", "final", "once", "failed0",
+                                  "owner0", "owner1"))
+    check(dd["final"] == [0] * dd["events"] and dd["once"]
+          and dd["transitions"] == 1 and dd["abandoned"] == 0
+          and dd["failed0"] > 0 and dd["retried"] >= dd["failed0"]
+          and dd["max_inflight"] >= 2 and 0 in dd["owner0"][:8]
+          and dd["owner1"][:8] == [1] * 8,
+          f"(13d) driver: transitions {dd['transitions']} failed at the "
+          f"cutover {dd['failed0']} retried {dd['retried']} once "
+          f"{dd['once']} inflight {dd['max_inflight']} owners "
+          f"{dd['owner0']} -> {dd['owner1']}")
+    launches_ok("13d driver", dd)
+    print(f"topology (13d) on {card}: ShardedClusterDriver G=2 at geometry "
+          f"(a), pipeline=2: {dd['events']} SENDs on "
+          f"{TOPO_DRIVER_CONNS} connections; the split of [k, l) into "
+          f"group 1 cut over under the queued load: {dd['failed0']} donor "
+          f"waiters failed at the cutover, {dd['retried']} SENDs sent again"
+          f" (CPU twin: {dref['retried']}), every event acked once with "
+          f"status 0 in "
+          f"{dd['wall'] * 1e3:.1f} ms; max_inflight_dispatches "
+          f"{dd['max_inflight']}; router and topology equal to the CPU run "
+          f"({time.perf_counter() - t0:.1f} s both)", flush=True)
+    print(f"phase 13 on {card}: {sum(r['launches'] for r in runs)} "
+          f"commit_window launches in {sum(r['steps'] for r in runs)} "
+          f"protocol steps, no commit_scan launch", flush=True)
+    return runs
+
+
 class Phase:
     """Prints ``phase N start`` (flushed) on entry and the phase's wall
     time on exit, so a failure names its phase."""
@@ -4271,6 +5041,10 @@ def main() -> int:
                    "repair nemesis, 12c groups, 12d governor, 12e "
                    "drivers)"):
         main_runs += phase_repair_governor(dev, smi)
+    with Phase(13, "streams and elastic topology (13a engine, 13b "
+                   "driver and nemesis, 13c split and merge, 13d "
+                   "topology nemesis and live driver, 13e console)"):
+        main_runs += phase_streams_topology(dev, smi)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

@@ -4,11 +4,11 @@ The port's copy of the JAX package's ``chaos/runner.py``, over the
 port's engine (``device=None`` means the card; tests pass
 ``device="cpu"``). With the same seed and options it gives the JAX
 runner's verdict, history and audit ledger, bit for bit
-(``tests/test_torch_chaos.py``). The self-healing (``repair=``) and
-governor modes run as in the JAX runner (``tests/test_torch_repair.py``,
-``tests/test_torch_governor.py``); the streams mode raises
-``NotImplementedError`` until the streams hub is ported (ROADMAP Queue
-1, item 13). All three default to off, as in the JAX runner.
+(``tests/test_torch_chaos.py``). The self-healing (``repair=``),
+governor and streams (``streams=``, ``cdc_path=``) modes run as in the
+JAX runner (``tests/test_torch_repair.py``,
+``tests/test_torch_governor.py``, ``tests/test_torch_streams.py``). All
+three default to off, as in the JAX runner.
 
 Composes the whole chaos subsystem against a live ``SimCluster`` +
 ``ReplicatedKVS``: a seeded client workload (sessioned PUT/RM with
@@ -282,11 +282,6 @@ class NemesisRunner:
                  streams: bool = False,
                  cdc_path: Optional[str] = None,
                  device=None):
-        if streams:
-            raise NotImplementedError(
-                "NemesisRunner(streams=True) is not ported yet (ROADMAP "
-                "Queue 1, item 13)")
-        del cdc_path                   # an option of the streams mode
         self.cfg = cfg or DEFAULT_KV_CFG
         self.R = int(n_replicas)
         self.seed = int(seed)
@@ -364,6 +359,30 @@ class NemesisRunner:
         self.link.obs = self.obs
         self.cluster.link_model = self.link
         self.kv = ReplicatedKVS(self.cluster, cap=kvs_cap)
+        # streams=True: an all-keys watch subscription rides the whole
+        # run and the verdict proves EXACTLY-ONCE delivery against an
+        # independent fold of the committed stream — including across
+        # two scripted close-and-resume-with-token reconnects at
+        # seeded mid-run steps (leader crashes land in between under
+        # any crash-bearing schedule). Its rng is separate, so pinned
+        # seeds' workload/schedule sequences are unchanged. cdc_path
+        # additionally exports every pumped record for
+        # ``streams verify`` against the run's audit ledger.
+        self.streams_hub = None
+        self._watch_sub = None
+        self._watch_events: List = []
+        self._watch_resumes = 0
+        if streams:
+            from rdma_paxos_tpu_torch import streams as streams_mod
+            rng_s = random.Random(f"streams:{seed}")
+            self.streams_hub = streams_mod.attach(
+                self.cluster, kvs=self.kv, obs=self.obs,
+                cdc_path=cdc_path, auditor=self.cluster.auditor)
+            self._watch_sub = self.streams_hub.subscribe(0)
+            lo, hi = max(2, steps // 4), max(3, steps // 2)
+            self._watch_resume_at = {
+                rng_s.randrange(lo, hi),
+                rng_s.randrange(hi, max(hi + 1, (3 * steps) // 4))}
         self.history = HistoryRecorder()
         self.kv.history = self.history
         self.hard = HardStateTracker(self.R)
@@ -441,6 +460,20 @@ class NemesisRunner:
                                   **v.as_dict())
         leader = _leader_of(res)
         self.workload.observe(t, leader)
+        if self._watch_sub is not None:
+            self._watch_events.extend(self._watch_sub.poll(
+                max_n=1 << 16))
+            if t in self._watch_resume_at:
+                # scripted reconnect: resume from the last CONSUMED
+                # event's token — the exactly-once contract says the
+                # concatenated event sequence must stay gapless and
+                # duplicate-free across it
+                tok = (self._watch_events[-1].token()
+                       if self._watch_events else None)
+                self._watch_sub.close()
+                self._watch_sub = self.streams_hub.subscribe(
+                    0, token=tok)
+                self._watch_resumes += 1
         if self.repairer is not None:
             self.repairer.observe()
         return leader
@@ -643,7 +676,13 @@ class NemesisRunner:
         else:
             audit_ok = (audit_summary is None
                         or audit_summary["findings"] == 0)
-        ok = not violations and linz["ok"] is True and audit_ok
+        streams_summary = (self._streams_summary()
+                           if self.streams_hub is not None else None)
+        streams_ok = (streams_summary is None
+                      or (streams_summary["dups"] == 0
+                          and streams_summary["gaps"] == 0))
+        ok = (not violations and linz["ok"] is True and audit_ok
+              and streams_ok)
         verdict: Dict = dict(
             ok=ok, seed=self.seed, steps=self.steps,
             schedule_events=len(self.schedule),
@@ -671,6 +710,8 @@ class NemesisRunner:
             # pure step-domain controller state: same seed -> same tier
             # sequence -> identical summary
             verdict["governor"] = self.governor.status()
+        if streams_summary is not None:
+            verdict["streams"] = streams_summary
         if not ok:
             # ok=None (state budget exceeded) is NOT a found violation —
             # label it honestly so nobody chases a bug that was never
@@ -679,6 +720,8 @@ class NemesisRunner:
                       else "linearizability violation"
                       if linz["violations"]
                       else "audit divergence" if not audit_ok
+                      else "watch delivery violated exactly-once"
+                      if not streams_ok
                       else "linearizability undecided "
                            "(checker state budget exceeded)")
             verdict["artifact"] = chaos_artifact.write_reproducer(
@@ -727,6 +770,45 @@ class NemesisRunner:
                                if self.cluster.flight is not None
                                else None)})
         return verdict
+
+    def _streams_summary(self) -> Dict:
+        """Flush the watch pump to the final committed frontier, drain
+        the subscription, and verdict exactly-once delivery against an
+        INDEPENDENT fold of the committed stream. Identity is the
+        ``(conn, req)`` pair — the dedup registry's own key, stable
+        whether or not log coordinates survived restarts — so the
+        check is: zero duplicates, zero gaps, and in committed order,
+        across every scripted token resume. Deterministic for a seed:
+        the committed stream and the event set are; only the
+        resume split points move within it."""
+        from rdma_paxos_tpu_torch.streams.tail import (
+            DedupFold, OP_PUT, OP_RM, decode_kvs)
+        hub = self.streams_hub
+        tail = hub.tails[0]
+        hub.watch.wait_caught_up({0: tail.length()})
+        self._watch_events.extend(self._watch_sub.poll(max_n=1 << 20))
+        fold = DedupFold()
+        expect = []
+        for rec in tail.records(0):
+            if not fold.accept(rec):
+                continue
+            cmd = decode_kvs(rec.payload)
+            if cmd is not None and cmd[0] in (OP_PUT, OP_RM):
+                expect.append((rec.conn, rec.req))
+        got = [(e.conn, e.req) for e in self._watch_events]
+        seen = set()
+        dups = 0
+        for ident in got:
+            if ident in seen:
+                dups += 1
+            seen.add(ident)
+        gaps = sum(1 for ident in expect if ident not in seen)
+        hub.fail_all("run end")
+        return dict(events=len(got), expected=len(expect), dups=dups,
+                    gaps=gaps, ordered=(got == expect),
+                    resumes=self._watch_resumes,
+                    cdc=(hub.cdc.exported(0) if hub.cdc is not None
+                         else None))
 
     # ------------------------------------------------------------------
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import collections
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -304,6 +304,30 @@ class ReplicatedKVS:
         vals = lookup(self.tables[r],
                       torch.from_numpy(kw).to(self.device)).cpu().numpy()
         return [decode_val(v) or None for v in vals]
+
+    def items_in_range(self, r: int, lo: bytes,
+                       hi: Optional[bytes]) -> List[Tuple[bytes, bytes]]:
+        """Every live ``(key, value)`` pair in ``[lo, hi)`` (byte-
+        lexicographic; ``hi=None`` = unbounded) from replica ``r``'s
+        folded table, sorted by key — the topology transition's
+        donor-side enumeration primitive and the input to its range
+        digest. One readback of the table's three tensors, then a host
+        walk; keys come back canonicalized modulo trailing NULs, as in
+        the JAX package. Words are encoded ``<i4``, the JAX table's
+        width, so the range digests agree."""
+        self._fold(r)
+        kv = self.tables[r]
+        used = kv.used.cpu().numpy()
+        keys = kv.keys.cpu().numpy().astype("<i4")
+        vals = kv.vals.cpu().numpy().astype("<i4")
+        out: List[Tuple[bytes, bytes]] = []
+        for slot in np.nonzero(used)[0]:
+            kb = keys[slot].tobytes().rstrip(b"\x00")
+            if kb < lo or (hi is not None and kb >= hi):
+                continue
+            out.append((kb, vals[slot].tobytes().rstrip(b"\x00")))
+        out.sort()
+        return out
 
     def submit_get(self, leader: int, key: bytes, *, client_id: int,
                    req_id: int) -> None:

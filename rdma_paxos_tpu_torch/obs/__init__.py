@@ -29,9 +29,12 @@ driver reads, all host-side and stdlib-only:
   renderer and the localhost ops exporter (``/metrics`` ``/healthz``
   ``/series`` ``/alerts``);
 * :mod:`~rdma_paxos_tpu_torch.obs.tracectx` — subsystem traces (the
-  facade's ``tracectx``), the merged timeline and the blame report.
+  facade's ``tracectx``), the merged timeline and the blame report;
+* :mod:`~rdma_paxos_tpu_torch.obs.console` — the fleet table and the
+  postmortem bundles (``python -m rdma_paxos_tpu_torch.obs.console``),
+  and ``python -m rdma_paxos_tpu_torch.obs`` (``merge``, ``blame``).
 
-The profiler half of ``device``, the console and the span CLI come with
+The profiler half of ``device`` and the span breakdown CLI come with
 ROADMAP Queue 1, item 13.
 
 Nothing here runs inside the replica step.

@@ -52,14 +52,19 @@ admits no client session. ``governor=True`` attaches the dispatch
 governor (``runtime/governor.py``), whose decision caps the burst tier,
 turns pipelining on and off, and adds a bounded admission wait; both
 hang on the alert engine's hooks. ``scan=True`` runs the engine's scan
-tier on the burst path.
+tier on the burst path. ``streams=True`` attaches the streams hub
+(``streams/``: range scans, watch, and CDC export to
+``<workdir>/cdc.jsonl`` unless ``streams_opts`` names a path); stop
+fails its subscriptions and flushes its sink. An elastic-topology
+controller on the engine (``topology.attach_topology``) runs its
+passes on the drained serial path and holds pipelining while its
+window is open.
 
 Differences from the JAX driver, each failing loudly:
 
-* ``streams`` (and ``streams_opts``) and ``profile_on_page`` raise
-  ``NotImplementedError`` when set, and so does :meth:`start_profile`
-  (ROADMAP Queue 1, item 13: the streams hub and the profiler half of
-  ``obs/device.py``).
+* ``profile_on_page`` raises ``NotImplementedError`` when set, and so
+  does :meth:`start_profile` (ROADMAP Queue 1, item 13: the profiler
+  half of ``obs/device.py``).
 * ``audit=True`` and ``telemetry=True`` run as in the JAX driver: the
   engine's ledger and flight ring (dumped by
   :meth:`_dump_audit_artifact` into ``audit_artifact``) and its
@@ -203,15 +208,9 @@ class ClusterDriver:
                  streams: bool = False,
                  streams_opts: Optional[Dict] = None,
                  device=None):
-        later = [name for name, on in (
-            ("streams", streams),
-            ("profile_on_page", profile_on_page > 0),
-            # a setting of the streams hub: never a silent no-op either
-            ("streams_opts", streams_opts is not None)) if on]
-        if later:
+        if profile_on_page > 0:
             raise NotImplementedError(
-                f"ClusterDriver({', '.join(later)}=...) is not ported yet "
-                "(ROADMAP Queue 1, item 13)")
+                "ClusterDriver(profile_on_page=...): " + PROFILER_LATER)
         self.cfg = cfg
         # scan=True engages the engine's K-window scan tier on the burst
         # path (runtime-mutable as driver.cluster.scan)
@@ -262,6 +261,22 @@ class ClusterDriver:
         if leases:
             from rdma_paxos_tpu_torch.runtime import reads as _reads
             _reads.attach(self.cluster, **(lease_opts or {}))
+        # log-as-product streams (streams/): ordered range scans,
+        # watch/subscribe with exactly-once resume, CDC export — one
+        # tail-follower over the committed replay streams, observed at
+        # the finish() tail. Host-side only. A workdir defaults the CDC
+        # sink to <workdir>/cdc.jsonl when streams_opts doesn't name one.
+        self.streams = None
+        if streams:
+            from rdma_paxos_tpu_torch import streams as _streams
+            sopts = dict(streams_opts or {})
+            if workdir and "cdc_path" not in sopts:
+                sopts["cdc_path"] = os.path.join(workdir, "cdc.jsonl")
+            if audit and "auditor" not in sopts:
+                sopts["auditor"] = getattr(self.cluster, "auditor",
+                                           None)
+            self.streams = _streams.attach(self.cluster, obs=self.obs,
+                                           **sopts)
         # chaos hook: a per-link fault model (chaos.faults.LinkModel)
         # driven from outside the poll loop — fault drills against a
         # live driver. With fanout="psum" any non-full mask is refused
@@ -617,6 +632,12 @@ class ClusterDriver:
         # defers while anything is in flight)
         if self.repair is not None:
             self.repair.drive()
+        # elastic topology: transition passes (seed/freeze/cutover) run
+        # on the same drained serial path, after repair (repair gets
+        # priority; the window defers or abandons around it)
+        topo = getattr(self.cluster, "topology", None)
+        if topo is not None:
+            topo.drive()
 
     def _pump_submitq(self) -> None:
         """Move intake rows into the engine's pending queues — ONE
@@ -959,7 +980,8 @@ class ClusterDriver:
                     if self.cluster.leases is not None else None),
             reads=(self.cluster.reads.status()
                    if self.cluster.reads is not None else None),
-            streams=None,
+            streams=(self.cluster.streams.status()
+                     if self.cluster.streams is not None else None),
             governor=(self.governor.status()
                       if self.governor is not None else None),
             txn=(self.cluster.txn.health()
@@ -1584,6 +1606,12 @@ class ClusterDriver:
             return False
         if self._txn_live():
             return False
+        # an open topology transition window runs its passes on the
+        # drained serial path every iteration (seed -> freeze ->
+        # cutover): hold pipelining for the whole window
+        topo = getattr(c, "topology", None)
+        if topo is not None and topo.needs_drain():
+            return False
         # the governor engages/disengages depth-D pipelining: until
         # backlog has STOOD for engage_evals (or while shedding), the
         # serial path acks a commit one dispatch sooner
@@ -1859,6 +1887,9 @@ class ClusterDriver:
                 if self.cluster.reads is not None:
                     self.cluster.reads.fail_all(
                         "stop (wedged poll thread)")
+                if self.cluster.streams is not None:
+                    self.cluster.streams.fail_all(
+                        "stop (wedged poll thread)")
                 with self._lock:
                     n = sum(len(rt.inflight) for rt in self.runtimes)
                     for rt in self.runtimes:
@@ -1887,6 +1918,11 @@ class ClusterDriver:
         # (queued reads the same: no step will ever confirm them)
         if self.cluster.reads is not None:
             self.cluster.reads.fail_all("stop")
+        # watchers and scans the same: the pump quiesces and every
+        # blocked subscriber poll fails fast (clients resume elsewhere
+        # with their tokens); flushes the CDC sink
+        if self.cluster.streams is not None:
+            self.cluster.streams.fail_all("stop")
         with self._lock:
             for rt in self.runtimes:
                 self._fail_inflight_locked(rt, "stop")

@@ -34,11 +34,17 @@ ShardedCluster` on the card (``device="cpu"`` in the tests):
     all-groups burst at the highest per-group rung. :meth:`health` is
     the engine's per-group document with the driver's view.
 
+  * **Elastic topology.** With a controller attached
+    (``topology.attach_topology`` over ``ShardedKVS(driver.cluster)``)
+    the loop runs its passes on drained serial iterations, keeps
+    stepping through an open window and its cooldown, and at each
+    cutover fails the donor groups' in-flight waiters and unpins their
+    connections so retries re-route under the new map.
+
 Differences from the JAX driver, each failing loudly: the surfaces that
 are single-group by design raise as in the JAX driver (membership,
-``recover_replica``, ``reset_app``, ``checkpoint_app``); the
-elastic-topology cutover raises naming ROADMAP Queue 1, item 13; the
-multi-chip engine (``mesh=``) raises naming item 14.
+``recover_replica``, ``reset_app``, ``checkpoint_app``); the multi-chip
+engine (``mesh=``) raises naming ROADMAP Queue 1, item 14.
 """
 
 from __future__ import annotations
@@ -65,8 +71,6 @@ from rdma_paxos_tpu_torch.shard.router import KeyRouter
 from rdma_paxos_tpu_torch.utils.codec import fragment
 
 PREFIX_DELIMS = (b"-", b":", b".")
-
-ITEM_13 = "(ROADMAP Queue 1, item 13)"
 
 
 def key_prefix_of(payload: bytes) -> bytes:
@@ -133,6 +137,9 @@ class ShardedClusterDriver(ClusterDriver):
                                         hi=group_timer_hi)
                          for g in range(self.G)]
         self._elect_round = [0] * self.G
+        # elastic-topology cutover hook: the controller calls this on
+        # the driver thread right after the atomic router swap
+        self.cluster._on_topology_cutover = self._on_topology_cutover
 
     def _make_cluster(self, cfg, n_replicas, group_size, mode, fanout,
                       audit, telemetry, device, txn=False):
@@ -178,9 +185,24 @@ class ShardedClusterDriver(ClusterDriver):
             self.obs.spans.fail_open(self._span_rep(g, r))
 
     def _on_topology_cutover(self, donors, targets) -> None:
-        raise NotImplementedError(
-            "sharded driver topology cutover: elastic topology is not "
-            "ported " + ITEM_13)
+        """An elastic cutover just swapped the live router: some keys
+        moved OFF every group in ``donors``. Their blocked commit
+        waiters are failed (clients retry and re-resolve the owner —
+        same contract as a leadership change) and proxy conn->group
+        pins on donor groups are dropped so the next SEND re-routes
+        under the new map. Held CONNECTs stay held: they carry no key
+        and route with their first SEND. Invoked by the topology
+        controller (its lock held) on the driver thread — we take
+        self._lock here, fixing the topology._lock -> driver._lock
+        order the _busy/_pipeline_ready gates respect by checking
+        ``needs_drain()`` OUTSIDE self._lock."""
+        for g in donors:
+            self._fail_group_inflight(g, "topology cutover")
+        with self._lock:
+            stale = [c for c, g in self._conn_group.items()
+                     if g in donors]
+            for c in stale:
+                del self._conn_group[c]
 
     def _span_rep(self, g: int, r: int) -> int:
         """Span-track replica id in the engine's group namespace."""
@@ -292,6 +314,14 @@ class ShardedClusterDriver(ClusterDriver):
         return sum(len(dq) for row in self._inflight_g for dq in row)
 
     def _busy(self) -> bool:
+        # checked OUTSIDE self._lock: the topology cutover hook runs
+        # with the controller's lock held and takes self._lock
+        # (topology._lock -> driver._lock); nesting the reverse order
+        # here would deadlock
+        topo = getattr(self.cluster, "topology", None)
+        if topo is not None and (topo.needs_drain() or topo.cooling()):
+            return True     # keep stepping so the window's records
+            # land and the bounded post-window cooldown expires
         with self._lock:
             return bool(any(self._submitq) or self._backlog()
                         or self._waiter_count()
@@ -364,6 +394,11 @@ class ShardedClusterDriver(ClusterDriver):
         if int(c.last["end"].max()) >= self.cfg.rebase_threshold:
             return False
         if self._txn_live():
+            return False
+        # an open topology transition window holds the serial path
+        # (checked before self._lock — see _busy's lock-order note)
+        topo = getattr(c, "topology", None)
+        if topo is not None and topo.needs_drain():
             return False
         # the governor engages/disengages pipelining (see
         # ClusterDriver._pipeline_ready)
@@ -582,7 +617,8 @@ class ShardedClusterDriver(ClusterDriver):
                     if self.repair is not None else None),
             reads=(self.cluster.reads.status()
                    if self.cluster.reads is not None else None),
-            streams=None,
+            streams=(self.cluster.streams.status()
+                     if self.cluster.streams is not None else None),
             governor=(self.governor.status()
                       if self.governor is not None else None),
             txn=(self.cluster.txn.health()

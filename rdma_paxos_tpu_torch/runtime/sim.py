@@ -30,9 +30,10 @@ records' appends after the stamp loop and observes every ``finish``
 last, right after an adaptive dispatch governor
 (``runtime/governor.py:attach_governor``). A repair controller
 (``runtime/repair.py``) bars replicas from read serving through
-``read_blocked``. ``streams`` is not ported (ROADMAP Queue 1, item 13):
-a dispatch with it set raises ``NotImplementedError`` rather than run
-without it.
+``read_blocked``. A streams hub (``streams/``, attached by
+``streams.attach``) observes every ``finish`` after the read drain and
+before the governor: it notes the committed frontiers and kicks its
+watch pump, all host-side.
 
 ``txn=True`` runs the serial steps with the cross-group transaction
 lane (``txn/lane.py``): the watch armed by :meth:`SimCluster.
@@ -356,8 +357,10 @@ class SimCluster:
         # replay running and so never enter need_recovery) — consulted
         # by the KVS serving gate and the read hub
         self.read_blocked: set = set()
-        # not ported (ROADMAP Queue 1, item 13): a dispatch with it set
-        # raises instead of running without it
+        # log-as-product streams (streams/, attached by streams.attach):
+        # observed at the finish() tail after the read drain and before
+        # the governor (a deep watch backlog is demand the governor
+        # counts); host bookkeeping only
         self.streams = None
         # dispatch-side logical clock: advances at begin_* (step_index
         # advances at finish) so an in-flight pipeline never feeds the
@@ -425,9 +428,6 @@ class SimCluster:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, copy=True)
 
-    # attachments whose subsystems are not ported: a dispatch refuses
-    UNPORTED_ATTACHMENTS = ("streams",)
-
     def _effective_mask(self) -> np.ndarray:
         """The step's hear-matrix: the base ``peer_mask``, refined by
         the attached link model at the dispatch clock."""
@@ -437,13 +437,7 @@ class SimCluster:
                                               self._dispatch_clock)
 
     def _check_dispatch(self, mask: np.ndarray) -> None:
-        """Refuse a dispatch with an attachment this port does not run,
-        and a non-full effective mask under the psum fan-out."""
-        for name in self.UNPORTED_ATTACHMENTS:
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"SimCluster.{name} is attached, but the {name} "
-                    "subsystem is not ported (ROADMAP Queue 1, item 13)")
+        """Refuse a non-full effective mask under the psum fan-out."""
         if self._fanout == "psum" and not mask.all():
             raise ValueError(
                 "psum fan-out requires full connectivity; use "
@@ -759,6 +753,8 @@ class SimCluster:
             self.leases.observe(self, res)
         if self.reads is not None:
             self.reads.drain(self)
+        if self.streams is not None:
+            self.streams.observe(self, res)
         if self.governor is not None:
             self.governor.observe(self, res)
         if self.txn is not None:

@@ -31,11 +31,17 @@ Single-group is the G = 1 case of this machinery: its results equal
 An adaptive dispatch governor (``runtime/governor.py:attach_governor``)
 is observed at the tail of every ``finish``, with one ladder rung per
 group (the dispatch runs the highest), and :meth:`ShardedCluster.health`
-is the per-group health document with the serialized router.
+is the per-group health document with the serialized router and the
+topology controller's status.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-Queue 1 item): the multi-chip mesh engine (``mesh=``, item 14) and the
-``streams``/``topology`` attachments (item 13, at dispatch).
+A streams hub (``streams.attach``) observes every ``finish`` after the
+read drain, and an elastic-topology controller
+(``topology.attach_topology``) is told of its seed records' appends
+with the coordinator and observes every ``finish`` last. Both are host
+work over the unchanged step.
+
+Not ported: the multi-chip mesh engine (``mesh=``), which raises
+``NotImplementedError`` naming ROADMAP Queue 1, item 14.
 """
 
 from __future__ import annotations
@@ -67,8 +73,6 @@ from rdma_paxos_tpu_torch.shard.router import KeyRouter
 TimeoutsLike = Union[None, Dict[int, Sequence[int]],
                      Sequence[Tuple[int, int]]]
 
-ITEM_13 = "(ROADMAP Queue 1, item 13)"
-
 
 class ShardedCluster:
     """G-group × R-replica protocol engine on one device.
@@ -79,8 +83,6 @@ class ShardedCluster:
     K_TIERS = SimCluster.K_TIERS
     RES_KEYS = SimCluster.RES_KEYS
     REBASE_STALL_STEPS = REBASE_STALL_STEPS
-    # attachments whose subsystems are not ported: a dispatch refuses
-    UNPORTED_ATTACHMENTS = ("streams", "topology")
 
     def __init__(self, cfg: LogConfig, n_replicas: int, n_groups: int,
                  *, router: Optional[KeyRouter] = None,
@@ -182,8 +184,12 @@ class ShardedCluster:
         # shared ladder (the dispatch uses the max rung; the per-group
         # rungs ride the trace events), before the coordinator
         self.governor = None
-        # not ported (item 13): a dispatch with one set raises
+        # log-as-product streams (streams/): observed at the finish()
+        # tail after the read drain, before the governor
         self.streams = None
+        # elastic-topology controller (topology/transition.py, attached
+        # by attach_topology): told of its seed records' appends after
+        # the stamp loop and observed at the very tail of every finish()
         self.topology = None
         # repair-held replicas barred from read serving ({(g, r)} — see
         # SimCluster.read_blocked)
@@ -283,11 +289,6 @@ class ShardedCluster:
         return mask
 
     def _check_dispatch(self, mask: np.ndarray) -> None:
-        for name in self.UNPORTED_ATTACHMENTS:
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"ShardedCluster.{name} is attached, but the {name} "
-                    "subsystem is not ported " + ITEM_13)
         if self._fanout == "psum" and not mask.all():
             raise ValueError(
                 "psum fan-out requires full connectivity; use "
@@ -554,17 +555,22 @@ class ShardedCluster:
                     if take and res["role"][g, r] == int(Role.LEADER):
                         acc_gr = int(res["accepted"][g, r])
                         self._stamp_appends(g, r, take, acc_gr, res)
-                        if self.txn is not None and acc_gr > 0:
+                        if ((self.txn is not None
+                             or self.topology is not None)
+                                and acc_gr > 0):
                             txn_notes.append(
                                 (g, r, take[:acc_gr],
                                  int(res["term"][g, r]),
                                  int(res["end"][g, r])
                                  + int(self.rebased_total[g])))
                         requeue_shortfall(self.pending[g][r], take, acc_gr)
-        # outside _host_lock (the coordinator's lock comes first: see
-        # SimCluster.finish)
+        # outside _host_lock (the coordinator's and the topology
+        # controller's locks come first: see SimCluster.finish)
         for note in txn_notes:
-            self.txn.note_appends(*note)
+            if self.txn is not None:
+                self.txn.note_appends(*note)
+            if self.topology is not None:
+                self.topology.note_appends(*note)
         if prof is not None:
             prof.start("apply")
         self._replay_committed(
@@ -590,10 +596,14 @@ class ShardedCluster:
             self.leases.observe(self, res)
         if self.reads is not None:
             self.reads.drain(self)
+        if self.streams is not None:
+            self.streams.observe(self, res)
         if self.governor is not None:
             self.governor.observe(self, res)
         if self.txn is not None:
             self.txn.observe(self, res)
+        if self.topology is not None:
+            self.topology.observe(self, res)
         if fused:
             dirty = [((k, g, r), min(B, len(t) - k * B))
                      for g in range(G) for r in range(R)
@@ -913,7 +923,8 @@ class ShardedCluster:
                            if self.auditor is not None else None),
                     leases=(self.leases.status()
                             if self.leases is not None else None),
-                    topology=None)
+                    topology=(self.topology.status()
+                              if self.topology is not None else None))
 
     # ---------------- leadership ----------------
 

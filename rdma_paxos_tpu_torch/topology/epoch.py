@@ -9,9 +9,9 @@ append and proof can silently overwrite the suffix the record sat on
 module holds those rules: deposition detection via per-group last-seen
 terms, record-term completion proofs, forget-and-retry under the same
 exactly-once stamp, and the epoch counter topology fences its cutovers
-with. The transaction coordinator (``txn/coordinator.py``) uses them;
-the topology controller that shares them in the reference is not ported
-yet (ROADMAP Queue 1, item 13).
+with. Two users share them: the transaction coordinator
+(``txn/coordinator.py``) and the topology controller
+(``topology/transition.py``).
 """
 
 from __future__ import annotations

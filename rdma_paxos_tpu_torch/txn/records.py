@@ -2,9 +2,9 @@
 
 The port's copy of the JAX package's ``txn/records.py`` (numpy only;
 ``tests/test_torch_hygiene.py`` pins its constants against the
-reference). The coordinator and the commit lane that write these
-records are not ported (ROADMAP Queue 1, item 13); the chaos
-serializability checker and the KVS fold read them.
+reference). The coordinator (``txn/coordinator.py``) writes these
+records; the KVS fold, the commit lane's vote and the chaos
+serializability checker read them.
 
 Transaction records ride SEND entries through the SAME replicated log
 as KVS commands, but at a DISTINCT payload width — the state-machine

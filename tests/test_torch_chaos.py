@@ -394,9 +394,9 @@ def test_link_model_is_not_ignored_by_the_engine():
 
 @pytest.mark.parametrize("name", ["streams", "governor"])
 def test_engine_refuses_unported_attachments(name):
-    """An attachment whose subsystem is not ported (``streams``) makes
-    a dispatch raise; the governor is ported, and an attached one is
-    observed by every finish instead."""
+    """Every attachment is ported now: an attached streams hub or
+    governor is observed by every finish, serial and fused, and no
+    dispatch raises."""
     t = SimCluster(LogConfig(**GEO), 3, device="cpu")
     t.run_until_elected(0)
     if name == "governor":
@@ -407,12 +407,15 @@ def test_engine_refuses_unported_attachments(name):
         t.finish(t.begin_burst())
         assert gov.evals == 2 and not t._tickets
         return
-    setattr(t, name, object())                   # a stand-in subsystem
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t.begin_step()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t.begin_burst()
-    assert not t._tickets
+    from rdma_paxos_tpu_torch import streams
+    hub = streams.attach(t)
+    t.submit(0, b"x")
+    t.step()
+    t.finish(t.begin_burst())
+    assert hub.status()["steps"] == 2 and not t._tickets
+    assert hub.watch.wait_caught_up({0: hub.tails[0].length()})
+    assert hub.watch.cursors() == {0: len(t.replayed[0])}
+    hub.fail_all("test done")
 
 
 def test_crash_restart_dedup_matches_reference():
@@ -588,17 +591,17 @@ def test_dedup_bug_caught_and_replayed_like_reference(tmp_path,
 
 @pytest.mark.parametrize("mode", ["repair", "governor", "streams"])
 def test_runner_refuses_unported_modes(mode):
-    """The streams mode still raises naming its ROADMAP item; the
-    repair and governor modes are ported (``tests/test_torch_repair.py``,
-    ``tests/test_torch_governor.py``) and run clean."""
-    if mode == "streams":
-        with pytest.raises(NotImplementedError, match="item 13"):
-            NemesisRunner(seed=0, steps=10, device="cpu", streams=True)
-        return
+    """Every mode is ported now (``tests/test_torch_repair.py``,
+    ``tests/test_torch_governor.py``, ``tests/test_torch_streams.py``)
+    and runs clean; each adds its own summary to the verdict."""
     v = NemesisRunner(seed=0, steps=10, device="cpu", **{mode: True}).run()
     assert v["ok"], v
     assert (v["repair"] is not None) == (mode == "repair")
     assert ("governor" in v) == (mode == "governor")
+    assert ("streams" in v) == (mode == "streams")
+    if mode == "streams":
+        s = v["streams"]
+        assert s["dups"] == s["gaps"] == 0 and s["ordered"]
 
 
 @pytest.mark.chaos

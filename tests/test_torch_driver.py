@@ -371,11 +371,12 @@ def test_auto_recovery_matches_the_jax_driver(tmp_path):
     dict(repair_opts={}), dict(mode="spmd"),
     dict(health_period=1.0), dict(alert_period=1.0)])
 def test_later_slices_raise(kw):
-    """What waits for later slices (streams, profiler captures, the
-    spmd mode) raises; the alert and health plane, repair, the governor
-    and the scan tier are ported and take their settings (``repair=``
-    alone is refused for want of ``audit=True``, as in JAX)."""
-    if set(kw) & {"streams", "streams_opts", "profile_on_page", "mode"}:
+    """What waits for later slices (profiler captures, the spmd mode)
+    raises; the alert and health plane, repair, the governor, the scan
+    tier and the streams hub are ported and take their settings
+    (``repair=`` alone is refused for want of ``audit=True``, as in
+    JAX)."""
+    if set(kw) & {"profile_on_page", "mode"}:
         with pytest.raises(NotImplementedError):
             ClusterDriver(LogConfig(**GEO), 3, device="cpu", **kw)
         return
@@ -389,6 +390,9 @@ def test_later_slices_raise(kw):
         assert (d.governor is not None) == ("governor" in kw)
         assert d.cluster.scan == bool(kw.get("scan"))
         assert (d.exporter is not None) == ("metrics_port" in kw)
+        assert (d.cluster.streams is not None) == bool(kw.get("streams"))
+        assert (d.health()["streams"] is not None) == bool(
+            kw.get("streams"))
         if "alert_rules" in kw:
             assert d.alerts.state() == {}
     finally:

@@ -285,3 +285,110 @@ def test_governed_run_on_the_card():
     assert launched == steps
     assert glog == clog and gst == cst
     assert max(d[1] for d, _ in glog) > 1
+
+
+def _streams_run(dev):
+    """A hub on a ``SimCluster`` at a small geometry: committed puts, a
+    whole-range watch, a scan served while the engine steps, and the
+    table walk."""
+    import threading
+
+    from rdma_paxos_tpu_torch import streams
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.models.replicated_kvs import ReplicatedKVS
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime import reads
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    c = SimCluster(LogConfig(n_slots=128, slot_bytes=128, window_slots=32,
+                             batch_slots=16), 3, device=dev)
+    reads.attach(c)
+    hub = streams.attach(c)
+    before, s0 = commit_window.launches, c.step_index
+    c.run_until_elected(0)
+    kv = ReplicatedKVS(c, cap=256)
+    hub.kvs = kv
+    sub = hub.subscribe(0)
+    for i in range(12):
+        kv.put(0, b"k%02d" % i, b"v%d" % i, client_id=9, req_id=i + 1)
+        c.step()
+    box = {}
+    th = threading.Thread(target=lambda: box.setdefault(
+        "rows", hub.scan_all(prefix=b"k", limit=5)))
+    th.start()
+    for _ in range(200):
+        c.step()
+        if not th.is_alive():
+            break
+    th.join(10)
+    assert hub.watch.wait_caught_up({0: hub.tails[0].length()})
+    evs = [(e.term, e.index, e.pos, e.key, e.val) for e in sub.poll(64)]
+    hub.fail_all("test done")
+    return (box["rows"], evs, kv.items_in_range(0, b"", None),
+            commit_window.launches - before, c.step_index - s0)
+
+
+def test_streams_on_the_card():
+    """A streams hub on the card equals its CPU twin: the scan's rows,
+    the watch's events and the table walk, with one ``commit_window``
+    launch per protocol step."""
+    _need_card()
+    crows, cevs, citems, _, _ = _streams_run("cpu")
+    grows, gevs, gitems, launched, steps = _streams_run("cuda")
+    assert launched == steps
+    assert (grows, gevs, gitems) == (crows, cevs, citems)
+    assert len(grows) == 12 and len(gevs) == 12
+
+
+def _topology_run(dev):
+    """A split then a merge of a live range on a ``ShardedKVS`` at
+    G = 2 with leases attached."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime import reads
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    from rdma_paxos_tpu_torch.shard.kvs import ShardedKVS
+    from rdma_paxos_tpu_torch.shard.router import RangeRule
+    from rdma_paxos_tpu_torch.topology import attach_topology
+    from rdma_paxos_tpu_torch.txn.chaos import keys_for_groups
+    sc = ShardedCluster(LogConfig(n_slots=256, slot_bytes=128,
+                                  window_slots=32, batch_slots=8), 3, 2,
+                        device=dev)
+    kv = ShardedKVS(sc, cap=256)
+    reads.attach(sc)
+    ctl = attach_topology(kv, cooldown_steps=4)
+    before, s0 = commit_window.launches, sc.step_index
+    sc.place_leaders()
+    keys = keys_for_groups(kv.router, 6)
+    for g, ks in enumerate(keys):
+        for k in ks:
+            kv.put(k, b"v0:" + k, leader=sc.leader_hint(g))
+    for _ in range(4):
+        sc.step()
+    hot = sorted(keys[0])
+    rule = RangeRule(hot[3], hot[-1] + b"\x00", 1)
+    log = []
+    for direction in ("split", "merge"):
+        while ctl.cooling():
+            sc.step()
+        assert (ctl.propose_split(rule.lo, rule.hi, 1)
+                if direction == "split" else ctl.propose_merge(rule))
+        while ctl.in_window():
+            sc.step()
+            ctl.drive()
+        log.append((kv.router.to_dict(), ctl.status(),
+                    [kv.get(k) for k in hot],
+                    [kv.group_of(k) for k in hot]))
+    return log, commit_window.launches - before, sc.step_index - s0
+
+
+def test_topology_split_merge_on_the_card():
+    """A split and a merge on the card equal their CPU twin: the router,
+    the controller's status, the values and owners after each window,
+    with one ``commit_window`` launch per protocol step."""
+    _need_card()
+    clog, _, _ = _topology_run("cpu")
+    glog, launched, steps = _topology_run("cuda")
+    assert launched == steps
+    assert glog == clog
+    assert glog[0][1]["transitions_total"] == 1
+    assert glog[1][1]["transitions_total"] == 2

@@ -80,7 +80,11 @@ def test_imports_with_jax_and_reference_blocked():
                 "txn", "txn.lane", "txn.merge", "txn.coordinator",
                 "txn.api", "txn.chaos", "topology", "topology.epoch",
                 "obs.alerts", "obs.series", "obs.health", "obs.export",
-                "obs.tracectx", "runtime.repair", "runtime.governor"):
+                "obs.tracectx", "runtime.repair", "runtime.governor",
+                "streams", "streams.tail", "streams.scan", "streams.watch",
+                "streams.cdc", "streams.__main__", "topology.transition",
+                "topology.policy", "topology.chaos", "obs.console",
+                "obs.__main__"):
         assert "rdma_paxos_tpu_torch." + mod in names, mod
 
 
@@ -419,7 +423,7 @@ def test_txn_copies_match_the_reference():
     assert _upper_constants(tepoch) == _upper_constants(jepoch)
     assert {"PENDING", "COMPLETE", "INVALIDATED", "RETRY_STEPS"} <= set(
         _upper_constants(tepoch))
-    assert set(ttopo.__all__) <= set(vars(tepoch))
+    assert set(ttopo.__all__) - {"attach_topology"} <= set(vars(tepoch))
     assert _upper_constants(tmerge) == _upper_constants(jmerge)
     assert {k: v[0] for k, v in tmerge.MERGE_FNS.items()} == {
         k: v[0] for k, v in jmerge.MERGE_FNS.items()}
@@ -515,3 +519,76 @@ def test_alert_repair_governor_copies_match_the_reference():
                   jdriver.ClusterDriver.__init__),):
         ta = set(inspect.signature(a).parameters) - {"device"}
         assert ta == set(inspect.signature(b).parameters)
+
+
+def test_streams_topology_console_copies_match_the_reference():
+    """The streams, topology and console slice's copies: the codec and
+    op constants the tail redeclares, the controller's phases and seed
+    conn namespace, the policy's rule names, the console's bundle
+    constants, and the public signatures (plus the nemesis's
+    ``device``)."""
+    import inspect
+
+    import rdma_paxos_tpu.models.replicated_kvs as jrkvs
+    import rdma_paxos_tpu.obs.console as jconsole
+    import rdma_paxos_tpu.streams as jstreams
+    import rdma_paxos_tpu.streams.cdc as jcdc
+    import rdma_paxos_tpu.streams.scan as jscan
+    import rdma_paxos_tpu.streams.tail as jtail
+    import rdma_paxos_tpu.streams.watch as jwatch
+    import rdma_paxos_tpu.topology as jtopo
+    import rdma_paxos_tpu.topology.chaos as jtchaos
+    import rdma_paxos_tpu.topology.policy as jpolicy
+    import rdma_paxos_tpu.topology.transition as jtrans
+    import rdma_paxos_tpu_torch.models.kvs as tkvs
+    import rdma_paxos_tpu_torch.models.replicated_kvs as trkvs
+    import rdma_paxos_tpu_torch.obs.console as tconsole
+    import rdma_paxos_tpu_torch.streams as tstreams
+    import rdma_paxos_tpu_torch.streams.cdc as tcdc
+    import rdma_paxos_tpu_torch.streams.scan as tscan
+    import rdma_paxos_tpu_torch.streams.tail as ttail
+    import rdma_paxos_tpu_torch.streams.watch as twatch
+    import rdma_paxos_tpu_torch.topology as ttopo
+    import rdma_paxos_tpu_torch.topology.chaos as ttchaos
+    import rdma_paxos_tpu_torch.topology.policy as tpolicy
+    import rdma_paxos_tpu_torch.topology.transition as ttrans
+
+    def params(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+    for tm, jm in ((ttail, jtail), (tcdc, jcdc), (tpolicy, jpolicy),
+                   (ttrans, jtrans), (tconsole, jconsole)):
+        assert _upper_constants(tm) == _upper_constants(jm), tm
+    assert {"KEY_BYTES", "VAL_BYTES", "CMD_BYTES", "OP_PUT", "OP_GET",
+            "OP_RM"} <= set(_upper_constants(ttail))
+    assert ttail.KEY_BYTES == tkvs.KEY_W * 4
+    assert ttail.VAL_BYTES == tkvs.VAL_W * 4
+    assert ttail.CMD_BYTES == tkvs.CMD_W * 4
+    assert (ttail.OP_PUT, ttail.OP_GET, ttail.OP_RM) == (
+        tkvs.OP_PUT, tkvs.OP_GET, tkvs.OP_RM)
+    assert ttrans.TopologyController.SEED_CLIENT_BASE == \
+        jtrans.TopologyController.SEED_CLIENT_BASE
+    assert tstreams.__all__ == jstreams.__all__
+    for a, b in ((tstreams.StreamHub.__init__, jstreams.StreamHub.__init__),
+                 (tstreams.StreamHub.scan, jstreams.StreamHub.scan),
+                 (tstreams.StreamHub.subscribe,
+                  jstreams.StreamHub.subscribe),
+                 (tstreams.attach, jstreams.attach),
+                 (tscan.ScanManager.__init__, jscan.ScanManager.__init__),
+                 (twatch.WatchHub.__init__, jwatch.WatchHub.__init__),
+                 (tcdc.CDCWriter.__init__, jcdc.CDCWriter.__init__),
+                 (tcdc.verify_export, jcdc.verify_export),
+                 (ttopo.attach_topology, jtopo.attach_topology),
+                 (ttrans.TopologyController.__init__,
+                  jtrans.TopologyController.__init__),
+                 (tpolicy.TopologyPolicy.__init__,
+                  jpolicy.TopologyPolicy.__init__),
+                 (trkvs.ReplicatedKVS.items_in_range,
+                  jrkvs.ReplicatedKVS.items_in_range),
+                 (ttchaos.run_topology_chaos, jtchaos.run_topology_chaos),
+                 (tconsole.assemble_bundle, jconsole.assemble_bundle),
+                 (tconsole.fleet_view, jconsole.fleet_view)):
+        assert params(a) == params(b), a
+    tp = params(ttchaos.TopologyNemesisRunner)
+    assert tp[-1] == ("device", inspect.Parameter.KEYWORD_ONLY, None)
+    assert tp[:-1] == params(jtchaos.TopologyNemesisRunner)

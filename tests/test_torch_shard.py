@@ -796,21 +796,30 @@ def test_unported_surfaces_raise():
     with pytest.raises(NotImplementedError, match="item 14"):
         ShardedCluster(cfg, 3, 2, mesh=(2, 3), device="cpu")
     sc = ShardedCluster(cfg, 3, 2, device="cpu")
-    # ported since: the health document and the governor
+    # ported since: the health document, the governor, the streams hub
+    # and the topology controller, each observed by every finish
     assert [g["group"] for g in sc.health()["groups"]] == [0, 1]
+    assert sc.health()["topology"] is None
     for name in ("streams", "governor", "topology"):
+        gsc = ShardedCluster(cfg, 3, 2, device="cpu")
         if name == "governor":
             from rdma_paxos_tpu_torch.runtime.governor import (
                 attach_governor)
-            gsc = ShardedCluster(cfg, 3, 2, device="cpu")
             gov = attach_governor(gsc)
             gsc.step()
             assert gov.evals == 1
-            continue
-        setattr(sc, name, object())
-        with pytest.raises(NotImplementedError, match="item 13"):
-            sc.step()
-        setattr(sc, name, None)
+        elif name == "streams":
+            from rdma_paxos_tpu_torch import streams
+            hub = streams.attach(gsc)
+            gsc.step()
+            assert hub.status()["steps"] == 1 and hub.G == 2
+            hub.fail_all("test done")
+        else:
+            from rdma_paxos_tpu_torch.topology import attach_topology
+            ctl = attach_topology(ShardedKVS(gsc, cap=64))
+            gsc.step()
+            assert gsc.topology is ctl
+            assert gsc.health()["topology"] == ctl.status()
     # transactions are ported (tests/test_torch_txn.py): without a
     # coordinator, transact refuses as the JAX KVS does
     with pytest.raises(RuntimeError, match="attach_coordinator"):

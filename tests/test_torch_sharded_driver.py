@@ -219,8 +219,11 @@ def test_sharded_driver_unsupported_surfaces_raise():
         # ported since: health() and the repair wiring
         # (tests/test_torch_alerts.py, tests/test_torch_repair.py)
         assert td.health()["leaders"] == td.leaders()
-        with pytest.raises(NotImplementedError, match="item 13"):
-            td._on_topology_cutover([0], [1])
+        # ported since: the elastic-topology cutover hook (wired into the
+        # engine; with nothing in flight it fails nothing)
+        assert td.cluster._on_topology_cutover == td._on_topology_cutover
+        td._on_topology_cutover([0], [1])
+        assert td.obs.metrics.get("inflight_failed_total", replica=0) == 0
     finally:
         td.stop()
     with pytest.raises(ValueError, match="audit=True"):
