@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py            # one card; no arguments
 
+Phase 14c starts three more Python processes that import this file and
+call :func:`host_rank`.
+
 Phases, one printed line each (a failed check raises and the script
 exits non-zero without its result line):
 
@@ -190,7 +193,35 @@ exits non-zero without its result line):
     flight (the donor's waiters failed and sent again, every event acked
     once with status 0); (13e) the console's fleet table over (13c)'s
     health document with its ``TOPO`` column;
-14. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+14. the profiler, interposed apps under the sharded driver, and one
+    replica per process: (14a) ``ClusterDriver.start_profile`` around
+    (6a)'s record, then ``stop_profile`` and ``merge_timeline`` — the
+    merged timeline holds spans, host phases and at most one
+    ``commit_window`` kernel event per protocol step (more than none);
+    ``program_report`` for (8a)'s four variant settings, its ops of a
+    stable step equal to ``op_count`` and its kernels per variant no
+    more than 8a's (and phase 5's) count per ``step()``; one capture
+    started by an alert page with ``profile_on_page``, none by a second;
+    (14b) three ``native/toyserver`` apps under ``LD_PRELOAD`` behind
+    ``ShardedClusterDriver`` at G = 2, geometry (a), gather, the serial
+    loop: 2000 SETs from 4 clients on every replica's app over key
+    prefixes of both groups; group 0's leader isolated in its group and
+    its election timer fired on a survivor while group 1 serves 100
+    writes; group 0's new leader serving a write; after the heal every
+    acknowledged key read back from every replica's app; requests/s,
+    latency and the failover time; (14c) three processes, each a
+    ``HostReplicaDriver(device="cuda")`` rank on the one card under gloo
+    (explicit host copies around each collective): election, 64 full
+    batches from the leader (timed), bursts at K = 2 and 4, a K = 2
+    scan, the rollovers they cross, and a leader change (a partition
+    through ``peer_mask`` under gather; a timer under psum, which refuses
+    the partition), at geometry (a) under psum and gather and at (b)
+    for a few steps; every call's outputs and each rank's final row
+    equal to the same script at ``device="cpu"``, ``fetch_local_window``
+    returning the committed payloads, one ``commit_window`` launch per
+    protocol step per rank; steps/s, committed entries/s and ms per
+    exchange;
+15. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
 after, so a failure names its phase.
@@ -408,24 +439,35 @@ def phase_window_checks(dev) -> dict:
              for G, r in ((1, 3), (1, 13), (64, 3)) for W in (16, 128, 2048)]
     cases += [(dict(G=4, R=3, W=W, n_slots=4 * W), edge(4 * W))
               for W in (16, 2048) for edge in WINDOW_EDGES.values()]
-    n_inst, found = 0, 0
+    n_inst, found, lone = 0, 0, 0
     for shape, extra in cases:
         args, kw = window_case(rng, dev, **shape, **extra)
-        got = commit_window_cuda(*args, w=shape["W"], **kw)
-        want = commit_window_ref(*args, w=shape["W"], **kw)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("commit2", "xpos"), got, want):
-            bad = int((a != b).sum())
-            check(bad == 0, f"commit_window kernel != plain in {name} on "
-                            f"{bad} of {len(a)} instances ({shape}, {extra}):"
-                            f" {a[a != b][:8].tolist()} vs "
-                            f"{b[a != b][:8].tolist()}")
-        n_inst += len(got[0])
-        found += int((want[1] >= 0).sum())
+        calls = [(args, kw)]
+        if shape["G"] == 1 and shape["R"] == 3:
+            # the process-group step's call: each instance alone (N = 1)
+            # with its group's R gathered acks
+            calls += [((args[0][n:n + 1].contiguous(),
+                        args[1][n:n + 1].contiguous(), args[2]),
+                       {k: v[n:n + 1].contiguous() for k, v in kw.items()})
+                      for n in range(3)]
+            lone += 3
+        for a_, k_ in calls:
+            got = commit_window_cuda(*a_, w=shape["W"], **k_)
+            want = commit_window_ref(*a_, w=shape["W"], **k_)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("commit2", "xpos"), got, want):
+                bad = int((a != b).sum())
+                check(bad == 0, f"commit_window kernel != plain in {name} "
+                                f"on {bad} of {len(a)} instances ({shape}, "
+                                f"{extra}): {a[a != b][:8].tolist()} vs "
+                                f"{b[a != b][:8].tolist()}")
+            n_inst += len(got[0])
+            found += int((want[1] >= 0).sum())
     check(0 < found < n_inst, "the crossing search was never exercised")
     print(f"kernel check: commit_window == commit_window_ref on {n_inst} "
           f"instances in {len(cases)} batches (N in 3/13/192, W in "
-          f"16/128/2048; edge cases: {', '.join(WINDOW_EDGES)}; "
+          f"16/128/2048, and {lone} lone N = 1 instances reading their "
+          f"group's 3 acks; edge cases: {', '.join(WINDOW_EDGES)}; "
           f"{found} with a crossing CONFIG row), max_abs_err 0", flush=True)
     return dict(max_abs_err=0, instances=n_inst)
 
@@ -884,7 +926,10 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
     its per-function times mix when two run Python at once).
     ``workdir`` and ``variants`` (``audit=``, ``telemetry=``) go to the
     driver; an audited run also reports its ledger and writes its audit
-    artifact, a run with telemetry its device counters."""
+    artifact, a run with telemetry its device counters.
+    ``profile="session"`` wraps the loop in the driver's own capture
+    (``start_profile``/``stop_profile``, spans sampled and host phases
+    recorded) and returns the merged timeline as ``merged``."""
     from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
     from rdma_paxos_tpu_torch.ops.quorum import commit_window
     from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
@@ -941,6 +986,11 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
         commit_window.launches = 0
         steps0, bursts[:], post_s[0] = d.cluster.step_index, [], 0.0
         d._phase_prof.acc.clear()
+        session = None
+        if profile == "session":
+            d._phase_prof.enable_events()
+            session = d.start_profile(seconds=600, log_dir=os.path.join(
+                workdir, "profile"))
         prof = None
         if profile == "device":
             from torch.profiler import ProfilerActivity, profile as tprof
@@ -962,6 +1012,18 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
             prof.__exit__(None, None, None)
+        if session is not None:
+            t_stop = time.perf_counter()
+            d.stop_profile()
+            from rdma_paxos_tpu_torch.obs.device import merge_timeline
+            out.update(
+                stop_s=time.perf_counter() - t_stop,
+                trace_mb=sum(os.path.getsize(f) for f in
+                             session.trace_files) / 2 ** 20,
+                merged=merge_timeline(
+                    [d.obs.spans.dump()],
+                    phase_events=list(d._phase_prof.events),
+                    profiler=session))
         time.sleep(0.2)          # let the follower frontiers settle
         if hub is not None:
             check(hub.watch.wait_caught_up({0: hub.tails[0].length()}),
@@ -2002,6 +2064,7 @@ def phase_audit(dev, card: str, kernels_per_step: float,
                                                         row))
               for row in gpu["counters"][:1]), flush=True)
     rows = variant_costs(dev)
+    VARIANT_KERNELS.update({n: rows[n]["kernels"] for n, _ in VARIANTS})
     off = rows["neither"]
     diff = kernel_names_differ(ref_prof, off["prof"])
     # within the profiler's resolution: one kernel in the ten steps
@@ -4962,6 +5025,597 @@ def phase_streams_topology(dev, card: str) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the profiler, interposed apps under the sharded driver, and
+# one replica per process
+# ---------------------------------------------------------------------------
+
+# the 8a variants' CUDA kernels per step(), for (14a)'s program reports
+VARIANT_KERNELS: dict = {}
+
+
+def phase_profiler(dev, card: str, kernels_per_step: float) -> list:
+    """(14a): a ``ClusterDriver.start_profile`` capture around (6a)'s
+    record merged with its spans and host phases; ``program_report`` for
+    the four (8a) variants; one capture started by an alert page."""
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.consensus.state import clone_state
+    from rdma_paxos_tpu_torch.consensus.step import make_step_input
+    from rdma_paxos_tpu_torch.obs import device as obs_device
+    from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, fanout = GEOMETRIES["a"]
+    wd = tempfile.mkdtemp(prefix="rp-prof-")
+    try:
+        rec = drive_front_door(dev, geom, fanout,
+                               front_record(FRONT_EVENTS, FRONT_BYTES),
+                               FRONT_CONNS, pipeline=2, profile="session",
+                               workdir=wd)
+        check(rec["launches"] == rec["steps"] > 0,
+              f"(14a): {rec['launches']} commit_window launches in "
+              f"{rec['steps']} protocol steps")
+        check(rec["statuses"] == [0] * FRONT_EVENTS
+              and (rec["fired"] == 1).all(),
+              "(14a): not every event was acked once with status 0")
+        doc = rec["merged"]
+        other = doc["otherData"]
+        kern = [e for e in doc["traceEvents"] if e.get("ph") == "X"
+                and e.get("pid", 0) >= obs_device.DEVICE_PID_BASE
+                and "commit_window_kernel" in e.get("name", "")]
+        check(0 < len(kern) <= rec["steps"],
+              f"(14a): the merged timeline holds {len(kern)} commit_window "
+              f"kernel events for {rec['steps']} protocol steps")
+        check(other["host_phase_events"] > 0 and other["spans"] > 0,
+              f"(14a): the merged timeline lacks a layer: {other}")
+        ts = [e["ts"] for e in doc["traceEvents"] if "ts" in e]
+        check(min(ts) >= 0, "(14a): an event before the merged epoch")
+        print(f"profiler (14a) on {card}: start_profile around (6a)'s "
+              f"record ({FRONT_EVENTS} SENDs, pipelined, {rec['steps']} "
+              f"protocol steps in {rec['wall'] * 1e3:.1f} ms under the "
+              f"capture); trace {rec['trace_mb']:.1f} MB in "
+              f"{rec['stop_s']:.2f} s to stop and export; merged timeline "
+              f"{len(doc['traceEvents'])} events: {other['spans']} spans, "
+              f"{other['host_phase_events']} host-phase slices, "
+              f"{other['device_events']} profiler slices "
+              f"({other['device_events_dropped']} dropped), of them "
+              f"{len(kern)} commit_window kernels", flush=True)
+
+        # program_report per variant, held against phases 5 and 8a
+        B = geom["batch_slots"]
+        rows = []
+        for name, kw in VARIANTS:
+            c = SimCluster(LogConfig(**geom), R, fanout=fanout, device=dev,
+                           **kw)
+            c.run_until_elected(0)
+            c.submit_many(0, [(3, 1, 0, b"x" * 16)] * B)
+            c.step()
+            rep = obs_device.program_report(c, tiers=(2,))
+            v = {r["variant"]: r for r in rep["variants"]}
+            check(list(v) == ["step/full", "step/stable", "burst/K=2"],
+                  f"(14a): variants {list(v)}")
+            inp = make_step_input(c.cfg, R, device=dev)
+            st = clone_state(c.state)
+            ops = op_count(lambda: c._steps[False](st, inp))
+            check(v["step/stable"]["ops"] == ops,
+                  f"(14a) {name}: program_report counts "
+                  f"{v['step/stable']['ops']} ops, op_count {ops}")
+            per_step = VARIANT_KERNELS[name]
+            check(v["step/stable"]["kernels"] <= per_step
+                  and v["burst/K=2"]["kernels"] <= 2 * per_step
+                  and (name != "neither"
+                       or v["step/stable"]["kernels"] <= kernels_per_step),
+                  f"(14a) {name}: report kernels "
+                  f"{[r['kernels'] for r in rep['variants']]} against "
+                  f"{per_step} per step() (8a), {kernels_per_step} (5)")
+            rows.append((name, [(r["ops"], r["kernels"])
+                                for r in rep["variants"]], per_step))
+        print(f"program_report (14a) at geometry (a) on {card} (ops, CUDA "
+              f"kernels of step/full, step/stable, burst/K=2; against 8a's "
+              f"kernels per step()): " + "; ".join(
+                  f"{n} {r} vs {k:.1f}" for n, r, k in rows), flush=True)
+
+        # one capture per process, started by the first page
+        d = ClusterDriver(LogConfig(**geom), R, fanout=fanout, device=dev,
+                          timeout_cfg=TimeoutConfig(**TIMERS_OFF),
+                          profile_on_page=30.0, workdir=wd)
+        try:
+            d.runtimes[0].timer._deadline = 0.0
+            d.step()
+            check(d.profile_session is None, "(14a): a capture before a page")
+            d.obs.metrics.inc("audit_divergence_total")
+            d.evaluate_alerts()
+            s = d.profile_session
+            check(s is not None and s.active,
+                  "(14a): the page started no capture")
+            d.step()
+            d.evaluate_alerts()
+            check(d.profile_session is s, "(14a): a second capture started")
+            s._deadline = 0.0
+            d._poll_profile()
+            check(not s.active and s.trace_files,
+                  "(14a): the observe pass did not end the capture")
+        finally:
+            d.stop()
+        print(f"profile_on_page (14a): one bounded capture started by the "
+              f"page ({len(s.chrome_events())} events), none after",
+              flush=True)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return [dict(launches=rec["launches"], steps=rec["steps"])]
+
+
+SHARDED_APP_G = 2
+SHARDED_APP_CLIENTS = 4           # request-reply clients, one connection each
+SHARDED_APP_SETS = 2000
+SHARDED_APP_DURING = 100          # group 1's writes while group 0 fails over
+
+
+def sharded_app_prefixes(router, per_group: int = 2) -> list:
+    """``per_group`` key prefixes routed to each group."""
+    out = {g: [] for g in range(router.n_groups)}
+    i = 0
+    while min(len(v) for v in out.values()) < per_group:
+        p = b"p%d" % i
+        g = router.group_of(p)
+        if len(out[g]) < per_group:
+            out[g].append(p.decode())
+        i += 1
+    return [p for g in sorted(out) for p in out[g]]
+
+
+def pipelined_gets(port: int, keys: list, chunk: int = 256) -> list:
+    """GET each key on one connection, a chunk of lines at a time."""
+    c = AppClient(port)
+    got = []
+    try:
+        for i in range(0, len(keys), chunk):
+            part = keys[i:i + chunk]
+            c.s.sendall(b"".join(b"GET %s\n" % k.encode() for k in part))
+            got.extend(c.f.readline().strip() for _ in part)
+    finally:
+        c.close()
+    return got
+
+
+def phase_sharded_apps(dev, card: str) -> dict:
+    """(14b): three toy apps under ``LD_PRELOAD`` behind a
+    ``ShardedClusterDriver`` at G = 2: SETs over both groups' prefixes
+    from every replica's app, one group's leader failed over while the
+    other group keeps serving, then every acknowledged key read back
+    from every replica's app."""
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.sharded_driver import (
+        ShardedClusterDriver)
+    build_native()
+    geom, _ = GEOMETRIES["a"]
+    G = SHARDED_APP_G
+    wd = tempfile.mkdtemp(prefix="rp-sapps-")
+    ports = free_ports(R)
+    # the serial loop: every heartbeat dispatch is a step that can carry
+    # the failover's election timer
+    d = ShardedClusterDriver(LogConfig(**geom), R, G, workdir=wd,
+                             app_ports=ports, fanout="gather", device=dev,
+                             pipeline=1,
+                             timeout_cfg=TimeoutConfig(elec_timeout_low=1.0,
+                                                       elec_timeout_high=2.0),
+                             group_timer_lo=4, group_timer_hi=8)
+    apps = []
+    try:
+        d.prewarm()
+        for r, port in enumerate(ports):
+            env = dict(os.environ, LD_PRELOAD=str(NATIVE / "interpose.so"),
+                       RP_PROXY_SOCK=os.path.join(wd, f"proxy{r}.sock"))
+            with open(os.path.join(wd, f"app{r}.err"), "w") as err:
+                apps.append(subprocess.Popen(
+                    [str(NATIVE / "toyserver"), str(port)], env=env,
+                    stderr=err))
+        time.sleep(0.3)                      # let the apps bind
+        commit_window.launches = 0
+        steps0 = d.cluster.step_index
+        d.run(period=0.002)
+        wait_for(lambda: min(d.leaders()) >= 0, "a leader in every group")
+        leaders0 = d.leaders()
+        prefixes = sharded_app_prefixes(d.router)
+        groups = [d.router.group_of(p.encode()) for p in prefixes]
+        check(sorted(set(groups)) == list(range(G)),
+              f"(14b) prefixes {prefixes} route to {groups}")
+        lat, errors, acked = [], [], []
+
+        def client(k: int) -> None:
+            try:
+                c = AppClient(ports[k % R])
+                for i in range(SHARDED_APP_SETS // SHARDED_APP_CLIENTS):
+                    key = f"{prefixes[k]}-{i}"
+                    t = time.perf_counter()
+                    got = c.cmd(f"SET {key} v{k}-{i}")
+                    lat.append(time.perf_counter() - t)
+                    if got != b"+OK":
+                        errors.append((k, i, got))
+                    else:
+                        acked.append((key, f"v{k}-{i}".encode()))
+                c.close()
+            except OSError as exc:
+                errors.append((k, exc))
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SHARDED_APP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        check(not errors and len(acked) == SHARDED_APP_SETS,
+              f"(14b) client SETs failed: {errors[:4]}")
+        # fail over group 0's leader: isolated in group 0 only. The
+        # driver's group timers tick only for a leaderless group, and an
+        # isolated leader keeps its claim (ROADMAP Queue 3), so group 0's
+        # election timer is fired on a surviving replica here, once, as
+        # the shard nemesis fires it
+        g0, g1 = 0, 1
+        old = leaders0[g0]
+
+        def closes(n):
+            """Every replica's store holds ``n`` CLOSE records and no
+            waiter is left: an event of the cut group still in flight
+            fails at the leadership change, and a failed event marks its
+            front-end's app dirty."""
+            for rt in d.runtimes:
+                st = rt.store
+                if sum(st.read(i)[0] == 4 for i in range(len(st))) < n:
+                    return False
+            with d._lock:
+                return d._waiter_count() == 0
+        wait_for(lambda: closes(SHARDED_APP_CLIENTS),
+                 "(14b) the clients' CLOSEs committed everywhere")
+        d.cluster.partition(g0, [[old], [r for r in range(R) if r != old]])
+        fire = {g0: [(old + 1) % R]}
+        engine_step, engine_burst = d.cluster.step, d.cluster.step_burst
+
+        def step_with_timer(timeouts=()):
+            if fire:
+                timeouts = {**dict(timeouts or {}), **fire}
+                fire.clear()
+            return engine_step(timeouts)
+
+        def burst_or_timer(**kw):
+            # the next dispatch is a serial step (a burst carries no
+            # election) that fires the timer
+            return (step_with_timer() if fire else engine_burst(**kw))
+        d.cluster.step, d.cluster.step_burst = step_with_timer, burst_or_timer
+        k1 = groups.index(g1)
+        c1 = AppClient(ports[(old + 1) % R])
+        served, t_over = [], None
+        t_cut = time.perf_counter()
+        while time.perf_counter() - t_cut < 60:
+            key = f"{prefixes[k1]}-during-{len(served)}"
+            got = c1.cmd(f"SET {key} x")
+            check(got == b"+OK", f"(14b) group {g1} refused a write "
+                                 f"during group {g0}'s failover: {got}")
+            served.append(time.perf_counter() - t_cut)
+            acked.append((key, b"x"))
+            if t_over is None and d.leaders()[g0] not in (-1, old):
+                t_over = time.perf_counter() - t_cut
+            if t_over is not None and len(served) >= SHARDED_APP_DURING:
+                break
+        c1.close()
+        new = d.leaders()[g0]
+        check(new not in (-1, old), f"(14b) group {g0} never failed over "
+                                    f"from replica {old}")
+        k0 = groups.index(g0)
+        c0 = AppClient(ports[new])
+        check(c0.cmd(f"SET {prefixes[k0]}-after ok") == b"+OK",
+              f"(14b) group {g0}'s new leader did not serve a write")
+        c0.close()
+        acked.append((f"{prefixes[k0]}-after", b"ok"))
+        d.cluster.heal(g0)
+        wait_for(lambda: closes(SHARDED_APP_CLIENTS + 2),
+                 "(14b) the failover clients' CLOSEs committed everywhere")
+        # every acknowledged key from every replica's app, the deposed
+        # leader's too once it has caught up
+        keys = [k for k, _ in acked]
+        want = [v for _, v in acked]
+        for r in range(R):
+            wait_for(lambda r=r: pipelined_gets(ports[r], keys) == want,
+                     f"(14b) replica {r}'s app holding every acked key",
+                     timeout=60)
+        d.stop()
+        check(d.loop_error is None, f"(14b) the loop crashed: "
+                                    f"{d.loop_error!r}")
+        launches = commit_window.launches
+        steps = d.cluster.step_index - steps0
+        check(launches == steps > 0, f"(14b) {launches} commit_window "
+                                     f"launches in {steps} protocol steps")
+    except Exception:
+        last = d.cluster.last or {}
+        print(f"(14b) leaders {d.leaders()} loop_error {d.loop_error!r} "
+              f"steps {d.cluster.step_index} " + " ".join(
+                  f"{k} {np.asarray(last[k]).tolist()}"
+                  for k in ("role", "term", "commit", "end") if k in last)
+              + f" stepped_down {sorted(d.stepped_down)} counters "
+              + str({k: v for k, v in d.obs.metrics.snapshot()[
+                  "counters"].items() if "refused" in k or "failed" in k
+                  or "sever" in k}), flush=True)
+        for r in range(R):
+            err = Path(wd, f"app{r}.err")
+            if err.exists():
+                print(f"app {r} stderr: {err.read_text()[-400:]!r}",
+                      flush=True)
+        raise
+    finally:
+        d.stop()
+        for a in apps:
+            a.kill()
+            a.wait()
+        shutil.rmtree(wd, ignore_errors=True)
+    lat = np.sort(np.array(lat))
+    print(f"sharded apps (14b) on {card}: 3 toyserver apps under "
+          f"LD_PRELOAD=native/interpose.so behind ShardedClusterDriver at "
+          f"G = {G}, geometry (a), gather, serial loop; group leaders "
+          f"{leaders0}; "
+          f"{SHARDED_APP_SETS} SETs from {SHARDED_APP_CLIENTS} clients on "
+          f"replicas' apps {[k % R for k in range(SHARDED_APP_CLIENTS)]} "
+          f"over prefixes {prefixes} (groups {groups}) in {wall:.2f} s = "
+          f"{SHARDED_APP_SETS / wall:.1f} requests/s, latency p50 "
+          f"{lat[len(lat) // 2] * 1e3:.2f} ms p99 "
+          f"{lat[int(len(lat) * 0.99)] * 1e3:.2f} ms; group {g0} failed "
+          f"over from replica {old} to {new} in {t_over:.3f} s; group "
+          f"{g1} served {len(served)} writes from the cut on, in "
+          f"{served[-1]:.2f} s; all {len(acked)} acked "
+          f"keys read back from 3/3 apps; {launches} commit_window launches in "
+          f"{steps} protocol steps", flush=True)
+    return dict(launches=launches, steps=steps)
+
+
+# (14c): geometry (a) with a rollover point the 64 batches cross
+HOST_GEOM = dict(GEOMETRIES["a"][0], rebase_threshold=1 << 17)
+HOST_BATCHES = 64
+HOST_TIMEOUT = 600                 # seconds for one world's three ranks
+HOST_SEND = 3                      # EntryType.SEND
+
+
+def host_payload(i: int) -> bytes:
+    return (b"h%09d" % i).ljust(FRONT_BYTES, b".")
+
+
+def host_drill(hd, pid: int, fanout: str, n_batches: int, rec: dict,
+               expect_rebase: bool) -> dict:
+    """One rank's script: elect 0, ``n_batches`` full batches from the
+    leader (timed), a burst at K = 2 and at K = 4, a K = 2 scan, the
+    rollovers the step reports, then a leader change (a partition
+    through ``peer_mask`` under gather; replica 1's timer under psum,
+    where a partition mask is refused). Every call's outputs land in
+    ``rec``; returns the protocol steps and the timed window."""
+    B = hd.cfg.batch_slots
+    st = dict(steps=0, seq=0, applied=0, rebases=0, calls=0)
+
+    def put(tag, res):
+        st["calls"] += 1
+        for k, v in res.items():
+            rec[f"{st['calls']:05d}.{tag}.{k}"] = np.asarray(v)
+        st["applied"] = int(res["commit"])
+        rd = int(res["rebase_delta"]) if "rebase_delta" in res else 0
+        if rd > 0:
+            hd.rebase(rd)
+            st["applied"] -= rd
+            st["rebases"] += 1
+        return res
+
+    def batch(lead):
+        rows = [(HOST_SEND, 1, st["seq"] + j + 1,
+                 host_payload(st["seq"] + j)) for j in range(B)]
+        st["seq"] += B
+        return rows if lead else []
+
+    res = put("step", hd.step(timeout_fired=(pid == 0)))
+    st["steps"] += 1
+    check(int(res["term"]) == 1, f"rank {pid}: no election ({res})")
+    ex0, exs0 = hd.world.exchanges, hd.world.exchange_s
+    t0 = time.perf_counter()
+    for _ in range(n_batches):
+        res = put("step", hd.step(batch=batch(pid == 0),
+                                  apply_done=st["applied"]))
+        st["steps"] += 1
+    wall = time.perf_counter() - t0
+    timed = dict(wall=wall, exchanges=hd.world.exchanges - ex0,
+                 exchange_s=hd.world.exchange_s - exs0,
+                 steps=n_batches, entries=n_batches * B)
+    res = put("step", hd.step(apply_done=st["applied"]))
+    st["steps"] += 1
+    commit = int(res["commit"])
+    wd, wm = hd.fetch_local_window(commit - B)
+    got = [wd[j].astype("<i4").tobytes()[:int(wm[j, 4])] for j in range(B)]
+    check(got == [host_payload(st["seq"] - B + j) for j in range(B)],
+          f"rank {pid}: fetch_local_window lacks the committed payloads")
+    for K in (2, 4):
+        res = put(f"burst{K}", hd.step_burst(
+            K, [batch(pid == 0) for _ in range(K)],
+            apply_done=st["applied"]))
+        st["steps"] += K
+    res, (rd, rm) = hd.step_scan(2, [batch(pid == 0) for _ in range(2)],
+                                 apply_done=st["applied"])
+    put("scan", dict(res, wd=rd, wm=rm))
+    st["steps"] += 2
+    if expect_rebase:
+        check(st["rebases"] >= 1, f"rank {pid}: no rollover")
+    # a heartbeat brings every commit to the leader's: a new leader's
+    # commit window starts at its own commit and spans W entries, so a
+    # full batch it has not seen committed would hide its NOOP
+    put("step", hd.step(apply_done=st["applied"]))
+    st["steps"] += 1
+    cut = np.array([[1, 0, 0], [0, 1, 1], [0, 1, 1]], np.int32)[pid]
+    mask = None
+    if fanout == "psum":
+        try:
+            hd.step(peer_mask=cut)
+            check(False, "the psum world took a partition mask")
+        except ValueError:
+            pass
+    else:
+        mask = cut               # one entry the heal will truncate
+        put("step", hd.step(batch=batch(pid == 0)[:1], peer_mask=mask,
+                            apply_done=st["applied"]))
+        st["steps"] += 1
+    res = put("step", hd.step(timeout_fired=(pid == 1), peer_mask=mask,
+                              apply_done=st["applied"]))
+    st["steps"] += 1
+    # the majority's writes stay within one window, so the deposed
+    # leader catches up from the log after the heal
+    for _ in range(4):
+        res = put("step", hd.step(batch=batch(pid == 1)[:B // 8],
+                                  peer_mask=mask, apply_done=st["applied"]))
+        st["steps"] += 1
+    for _ in range(5):
+        res = put("step", hd.step(apply_done=st["applied"]))
+        st["steps"] += 1
+    check(int(res["leader_id"]) == 1 and int(res["term"]) == 2
+          and int(res["commit"]) == int(res["end"]),
+          f"rank {pid} ({fanout}): no failover to replica 1 ({res})")
+    for k, v in hd.export_local_row().items():
+        rec[f"row.{k}"] = v
+    return dict(steps=st["steps"], rebases=st["rebases"], timed=timed)
+
+
+def host_rank(pid: int, port: int, device: str, geom_json: str,
+              n_batches: int, fanouts: str, out: str) -> None:
+    """A rank of (14c)'s world (run as its own process): the drill under
+    each fan-out, its outputs, final rows, protocol steps and
+    ``commit_window`` launches saved to ``out`` (npz) with the timings."""
+    load_port()
+    import torch.distributed as dist
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.host import HostReplicaDriver
+    torch.set_num_threads(2)
+    geom = json.loads(geom_json)
+    arrays, meta = {}, {}
+    try:
+        for i, fanout in enumerate(fanouts.split(",")):
+            hd = HostReplicaDriver(
+                LogConfig(**geom), process_id=pid, num_processes=R,
+                coordinator=f"127.0.0.1:{port}", fanout=fanout,
+                device=device, initialize_distributed=(i == 0),
+                timeout=HOST_TIMEOUT / 2)
+            rec = {}
+            commit_window.launches = 0
+            info = host_drill(hd, pid, fanout, n_batches, rec,
+                              expect_rebase=geom.get("rebase_threshold",
+                                                     1 << 30) < (1 << 30))
+            info["launches"] = commit_window.launches
+            arrays.update({f"{fanout}/{k}": v for k, v in rec.items()})
+            meta[fanout] = info
+        np.savez(out, **arrays)
+        with open(out + ".json", "w") as f:
+            json.dump(meta, f)
+        print(f"RANK{pid} OK", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_host_world(device: str, geom: dict, n_batches: int, fanouts: tuple,
+                   wd: str, tag: str) -> list:
+    """Three rank processes of :func:`host_rank`; fails if a rank exits
+    non-zero or runs past :data:`HOST_TIMEOUT`. Returns per rank
+    ``(arrays, meta, output)``."""
+    port = free_ports(1)[0]
+    outs = [os.path.join(wd, f"{tag}{r}.npz") for r in range(R)]
+    code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            "chip_smoke.host_rank({r}, {port}, {dev!r}, {geom!r}, {n}, "
+            "{fan!r}, {out!r})")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code.format(
+            root=str(ROOT), r=r, port=port, dev=device,
+            geom=json.dumps(geom), n=n_batches, fan=",".join(fanouts),
+            out=outs[r])],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(R)]
+    texts = [""] * R
+    try:
+        deadline = time.time() + HOST_TIMEOUT
+        for r, p in enumerate(procs):
+            try:
+                texts[r] = p.communicate(
+                    timeout=max(1.0, deadline - time.time()))[0].decode()
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"check failed: (14c) {tag} rank {r} "
+                                   f"ran past {HOST_TIMEOUT} s")
+        for r, p in enumerate(procs):
+            check(p.returncode == 0 and f"RANK{r} OK" in texts[r],
+                  f"(14c) {tag} rank {r} exited {p.returncode}:\n"
+                  f"{texts[r][-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for r in range(R):
+        with open(outs[r] + ".json") as f:
+            meta = json.load(f)
+        res.append((dict(np.load(outs[r])), meta, texts[r]))
+    return res
+
+
+def phase_host_world(card: str) -> list:
+    """(14c): three ranks, each ``HostReplicaDriver(device="cuda")`` on
+    the one card under gloo, at geometry (a) under psum and gather and at
+    (b) for a few steps; every rank equal to its CPU twin (the same
+    script at ``device="cpu"``), one ``commit_window`` launch per
+    protocol step per rank."""
+    wd = tempfile.mkdtemp(prefix="rp-host-")
+    runs = []
+    try:
+        cases = (("a", HOST_GEOM, HOST_BATCHES, ("psum", "gather")),
+                 ("b", GEOMETRIES["b"][0], 4, ("gather",)))
+        for geo, geom, n, fanouts in cases:
+            t = time.perf_counter()
+            gpu = run_host_world("cuda", geom, n, fanouts, wd, f"gpu{geo}")
+            t_gpu = time.perf_counter() - t
+            t = time.perf_counter()
+            cpu = run_host_world("cpu", geom, n, fanouts, wd, f"cpu{geo}")
+            t_cpu = time.perf_counter() - t
+            backend = [ln for ln in gpu[0][2].splitlines()
+                       if ln.startswith("replica world:")]
+            for r in range(R):
+                (ga, gm, _), (ca, cm, _) = gpu[r], cpu[r]
+                check(sorted(ga) == sorted(ca) and all(
+                    ga[k].dtype == ca[k].dtype and np.array_equal(ga[k], ca[k])
+                    for k in ga), f"(14c) ({geo}) rank {r} differs from its "
+                    f"CPU twin: " + str([k for k in ga if k not in ca or
+                                         not np.array_equal(ga[k], ca[k])][:6]))
+                for f in fanouts:
+                    check(gm[f]["launches"] == gm[f]["steps"] > 0,
+                          f"(14c) ({geo}, {f}) rank {r}: "
+                          f"{gm[f]['launches']} commit_window launches in "
+                          f"{gm[f]['steps']} protocol steps")
+                    check(cm[f]["launches"] == 0,
+                          f"(14c) the CPU twin launched a kernel")
+                    runs.append(dict(launches=gm[f]["launches"],
+                                     steps=gm[f]["steps"]))
+            for f in fanouts:
+                tm = gpu[0][1][f]["timed"]
+                rate = "" if geo == "b" else (
+                    f": {tm['steps']} full batches in {tm['wall'] * 1e3:.1f} "
+                    f"ms = {tm['steps'] / tm['wall']:.1f} steps/s, "
+                    f"{tm['entries'] / tm['wall']:.0f} committed entries/s, "
+                    f"{tm['exchange_s'] / tm['exchanges'] * 1e3:.3f} ms per "
+                    f"exchange ({tm['exchanges']} exchanges, "
+                    f"{tm['exchange_s'] / tm['wall']:.2f} of the wall)")
+                print(f"host world (14c) geometry ({geo}) {f} on {card}: 3 "
+                      f"ranks on one card ({backend[0] if backend else '?'})"
+                      f"{rate}; {gpu[0][1][f]['steps']} protocol steps and "
+                      f"{gpu[0][1][f]['rebases']} rollovers per rank, one "
+                      f"commit_window launch each; outputs and rows of 3/3 "
+                      f"ranks equal to the CPU twin", flush=True)
+            print(f"host world (14c) geometry ({geo}): card world "
+                  f"{t_gpu:.1f} s, CPU twin {t_cpu:.1f} s (process start "
+                  f"included)", flush=True)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return runs
+
+
 class Phase:
     """Prints ``phase N start`` (flushed) on entry and the phase's wall
     time on exit, so a failure names its phase."""
@@ -5045,6 +5699,14 @@ def main() -> int:
                    "driver and nemesis, 13c split and merge, 13d "
                    "topology nemesis and live driver, 13e console)"):
         main_runs += phase_streams_topology(dev, smi)
+    with Phase("14a", "the profiler (a driver capture of (6a)'s record, "
+                      "program_report, a page's capture)"):
+        main_runs += phase_profiler(dev, smi, kernels_per_step)
+    with Phase("14b", "interposed apps under the sharded driver, G = 2"):
+        main_runs.append(phase_sharded_apps(dev, smi))
+    with Phase("14c", "one replica per process: three HostReplicaDriver "
+                      "ranks on the card under gloo"):
+        main_runs += phase_host_world(smi)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

@@ -8,6 +8,11 @@ against it). The reference splits configuration across the libconfig
 ``nodes.local.cfg`` timing block, env vars and compile-time constants
 (``LOG_SIZE`` ``dare_log.h:76``, ``MAX_SERVER_COUNT`` ``dare.h:26``).
 
+The cluster identity block (:class:`ClusterConfig`, with
+:meth:`ClusterConfig.from_env` reading the reference's launch env vars)
+and :func:`load_config`, the JSON config-file loader, are the port's
+copies of the JAX package's (``config.py:150-237``).
+
 Also home of :func:`resolve_device`, the one rule every entry point of
 the port uses to pick its device: the card unless the caller names the
 CPU, and an error (never a silent fallback) when there is no card.
@@ -16,6 +21,8 @@ CPU, and an error (never a silent fallback) when there is no card.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional, Union
 
 import torch
@@ -102,6 +109,88 @@ class TimeoutConfig:
     def production(cls) -> "TimeoutConfig":
         return cls(hb_period=0.001, elec_timeout_low=0.010,
                    elec_timeout_high=0.030)
+
+
+# ---------------------------------------------------------------------------
+# Cluster identity / membership
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ClusterConfig:
+    """Per-instance identity and group shape.
+
+    The reference passes these through env vars (``server_idx``,
+    ``group_size``, ``server_type``, ``config_path``, ``dare_log_file``,
+    ``mgid`` — ``src/proxy/proxy.c:33-59``); :meth:`from_env` accepts the
+    same names so drivers written against the reference's launch
+    convention (``benchmarks/run.sh:24-33``) keep working.
+    """
+
+    server_idx: int = 0
+    group_size: int = 3
+    server_type: str = "start"          # "start" | "join"
+    config_path: Optional[str] = None
+    log_file: Optional[str] = None
+    # bootstrap: "host:port" of every replica's control endpoint (the
+    # analog of the IB multicast group, dare_ibv_ud.h:25)
+    peers: tuple = ()
+
+    def __post_init__(self) -> None:
+        if not (1 <= self.group_size <= MAX_SERVER_COUNT):
+            raise ValueError(
+                f"group_size must be in [1, {MAX_SERVER_COUNT}]")
+        if self.server_type not in ("start", "join"):
+            raise ValueError("server_type must be 'start' or 'join'")
+
+    @classmethod
+    def from_env(cls, env: Optional[dict] = None) -> "ClusterConfig":
+        e = os.environ if env is None else env
+        return cls(
+            server_idx=int(e.get("server_idx", 0)),
+            group_size=int(e.get("group_size", 3)),
+            server_type=e.get("server_type", "start"),
+            config_path=e.get("config_path"),
+            log_file=e.get("dare_log_file"),
+            peers=tuple(p for p in e.get("peers", "").split(",") if p),
+        )
+
+    @property
+    def majority(self) -> int:
+        return self.group_size // 2 + 1
+
+
+def load_config(path: str, env: Optional[dict] = None):
+    """Load a cluster config file — the analog of ``dare_read_config`` +
+    ``proxy_read_config`` over ``nodes.local.cfg`` (reference
+    ``src/config-comp/``), in JSON::
+
+        {
+          "log":     {"n_slots": 16384, "slot_bytes": 256, ...},
+          "timing":  {"hb_period": 0.001, "elec_timeout_low": 0.01, ...},
+          "cluster": {"group_size": 3, "peers": ["h0:9000", ...], ...}
+        }
+
+    Per-instance identity still comes from env vars (``server_idx``
+    etc.), exactly like the reference. Returns ``(LogConfig,
+    TimeoutConfig, ClusterConfig)``."""
+    with open(path) as f:
+        raw = json.load(f)
+    log_cfg = LogConfig(**raw.get("log", {}))
+    timing = TimeoutConfig(**raw.get("timing", {}))
+    cluster_raw = dict(raw.get("cluster", {}))
+    if "peers" in cluster_raw:
+        cluster_raw["peers"] = tuple(cluster_raw["peers"])
+    e = os.environ if env is None else env
+    if "server_idx" in e:
+        cluster_raw["server_idx"] = int(e["server_idx"])
+    if "group_size" in e:
+        cluster_raw["group_size"] = int(e["group_size"])
+    if "server_type" in e:
+        cluster_raw["server_type"] = e["server_type"]
+    if "dare_log_file" in e:
+        cluster_raw["log_file"] = e["dare_log_file"]
+    cluster_raw["config_path"] = path
+    return log_cfg, timing, ClusterConfig(**cluster_raw)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

@@ -348,12 +348,13 @@ def export_row(state_b: ReplicaState, r: int) -> dict:
     """Replica ``r``'s full state row as host numpy, in the JAX dtypes
     (u32 member masks) — the transfer unit of cross-generation
     recovery. Keys are ReplicaState field names; the log travels as
-    ``log_buf``."""
-    out = {"log_buf": state_b.log.buf[r].cpu().numpy()}
+    ``log_buf``. Copies, on the CPU too: the step updates the ring in
+    place."""
+    out = {"log_buf": state_b.log.buf[r].to("cpu", copy=True).numpy()}
     for k in STATE_FIELDS:
         if k == "log":
             continue
-        a = getattr(state_b, k)[r].cpu().numpy()
+        a = getattr(state_b, k)[r].to("cpu", copy=True).numpy()
         out[k] = a.astype(np.uint32 if k in U32_FIELDS else np.int32)
     return out
 

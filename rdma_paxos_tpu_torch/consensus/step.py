@@ -37,9 +37,25 @@ counter vector (read by ``obs/device.py``), and ``txn=True`` the
 the step launches exactly what it launched before they existed, and the
 optional ``StepOutput`` fields are None.
 
+The same function also runs ONE replica per process (the JAX step under
+``shard_map`` across hosts, ``runtime/host.py``): given an ``exchange``
+(``parallel/mesh.py:ReplicaWorld``), the local state is one replica
+``[1, ...]``, ``me`` is the rank, ``heard`` the rank's ``peer_mask`` row
+``[1, R]``, and each of the JAX step's five collectives — the control
+gather, the vote gather, the window scalars, the window data (a sum of
+the single leader's window under ``fanout="psum"``, a gather under
+``"gather"``) and the acks — is one exchange seam (:func:`_senders`,
+:func:`_window_fanout`) that returns all R senders' messages from the
+local one. On the stacked path the seams are the identity (the stacked
+tensors already hold every sender) and the step dispatches exactly the
+ops it did before the seams existed; the choice is made in Python, not
+by a tensor op.
+
 The state is updated in place (the JAX step donates it) and returned.
-The step never synchronises with the host: every decision is a tensor
-select, so it queues on the card without stalls. The CONFIG full-ring
+The stacked step never synchronises with the host: every decision is a
+tensor select, so it queues on the card without stalls. The
+process-group step synchronises with the host at each exchange (the
+world's collectives run on the host's gloo backend). The CONFIG full-ring
 rescan is computed for every replica and selected where the cached
 source entry was invalidated — the result the JAX ``lax.cond`` gives,
 without a host round trip.
@@ -184,6 +200,38 @@ def _pick(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.view(*idx.shape, *out.shape[1:])
 
 
+def _senders(ex, *local: torch.Tensor) -> tuple:
+    """Exchange seam: every sender's copy of each local message. On the
+    stacked path (``ex`` None) the stacked tensors already hold all R
+    senders, so the messages come back as they are (no op dispatched);
+    on the process-group path each ``[1, ...]`` message becomes the
+    ``[R, ...]`` gather over the world's ranks."""
+    return local if ex is None else ex.all_gather(local)
+
+
+def _window_fanout(ex, fanout: str, contrib: torch.Tensor,
+                   wdata: torch.Tensor, wmeta: torch.Tensor,
+                   dsafe: torch.Tensor):
+    """Exchange seam of the window data: per receiver, the dominant
+    leader's window rows. ``"psum"`` sums the contributor-masked windows
+    over the senders (exact: at most one contributes); ``"gather"``
+    selects sender ``dsafe`` of the gathered windows. On the process-
+    group path the sum is the world's int64 all-reduce and the gather
+    its all-gather."""
+    c = contrib[..., None, None]
+    if fanout == "psum":
+        if ex is not None:
+            return ex.all_sum((wdata * c, wmeta * c))
+        m_data = (wdata * c).sum(-3, dtype=torch.int64).to(I32)
+        m_meta = (wmeta * c).sum(-3, dtype=torch.int64).to(I32)
+        return (m_data[..., None, :, :].expand(wdata.shape),
+                m_meta[..., None, :, :].expand(wmeta.shape))
+    if ex is not None:
+        g_data, g_meta = ex.all_gather((wdata * c, wmeta * c))
+        return _from_sender(g_data, dsafe), _from_sender(g_meta, dsafe)
+    return _from_sender(wdata * c, dsafe), _from_sender(wmeta * c, dsafe)
+
+
 def _from_sender(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Per receiver, the sender ``idx`` row of ``t``: ``out[..., i, ...]
     = t[..., idx[..., i], ...]`` for ``t [..., R, ...]`` and ``idx
@@ -298,9 +346,11 @@ def build_redigest(cfg, *, window_slots: int):
 def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
                  n_replicas: int, fanout: str = "gather",
                  elections: bool = True, audit: bool = False,
-                 telemetry: bool = False, txn: bool = False
-                 ) -> Tuple[ReplicaState, StepOutput]:
-    """One protocol step of all R replicas (see the module docstring).
+                 telemetry: bool = False, txn: bool = False,
+                 exchange=None) -> Tuple[ReplicaState, StepOutput]:
+    """One protocol step of all R replicas (see the module docstring),
+    or with ``exchange`` (a ``parallel/mesh.py:ReplicaWorld``) of this
+    process's one replica, ``state`` and ``inp`` shaped ``[1, ...]``.
 
     ``fanout="gather"`` selects the dominant leader's window row per
     receiver (split-brain safe under partitions); ``"psum"`` sums the
@@ -315,13 +365,21 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     dev = state.term.device
     rs = tuple(state.term.shape)                 # [R], or [G, R]
     log = state.log
-    me = torch.arange(R, dtype=I32, device=dev)
-    peer = me[None, :]                                     # sender index
+    ex = exchange
+    if ex is None:
+        me = torch.arange(R, dtype=I32, device=dev)
+        peer = me[None, :]                                 # sender index
+    else:
+        me, peer = ex.me, ex.peer          # [1] the rank, [1, R] senders
     eye = me[:, None] == peer
-    heard = inp.peer_mask.bool()                           # [..., R, R]
+    heard = inp.peer_mask.bool()          # [..., R, R] (process: [1, R])
 
     def diag(t):
-        return t.diagonal(dim1=-2, dim2=-1)
+        """Each receiver's own entry of a ``[..., receiver, sender]``
+        matrix."""
+        if ex is None:
+            return t.diagonal(dim1=-2, dim2=-1)
+        return t[..., ex.rank]
 
     in_new = _members(state.bitmask_new, R)                # [..., R, R]
     in_old = _members(state.bitmask_old, R)
@@ -333,14 +391,16 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     i_member = (diag(in_vote) > 0) | ((transit > 0) & (diag(in_old) > 0))
     my_lterm = last_term(log, state.end)
 
-    # ---- Phase A: control gather (every receiver reads the stack) ----
-    g_term, g_end, g_lterm = state.term, state.end, my_lterm
-    g_apply = torch.minimum(inp.apply_done, state.commit)
-    rec_upd0 = heard & (state.voted_term[..., None, :]
-                        > state.vote_rec_term)
-    vote_rec_term1 = torch.where(rec_upd0, state.voted_term[..., None, :],
+    # ---- Phase A: control gather (every receiver reads the senders) ----
+    (g_term, g_role, g_end, g_lterm, g_apply, g_tmo, g_vterm, g_vfor,
+     g_qdep, g_head) = _senders(
+        ex, state.term, state.role, state.end, my_lterm,
+        torch.minimum(inp.apply_done, state.commit), inp.timeout_fired,
+        state.voted_term, state.voted_for, inp.queue_depth, state.head)
+    rec_upd0 = heard & (g_vterm[..., None, :] > state.vote_rec_term)
+    vote_rec_term1 = torch.where(rec_upd0, g_vterm[..., None, :],
                                  state.vote_rec_term)
-    vote_rec_for1 = torch.where(rec_upd0, state.voted_for[..., None, :],
+    vote_rec_for1 = torch.where(rec_upd0, g_vfor[..., None, :],
                                 state.vote_rec_for)
 
     # ---- Phase B: one-round election ----
@@ -361,7 +421,7 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
             log, state.end, state.head, inp.batch_data, inp.batch_meta,
             torch.where(i_lead, inp.batch_count, 0).to(I32), new_term)
     else:
-        is_cand = (inp.timeout_fired > 0)[..., None, :] & (in_vote > 0)
+        is_cand = (g_tmo > 0)[..., None, :] & (in_vote > 0)
         cand_term = g_term + 1                             # [R] by sender
         i_cand = diag(is_cand) & (state.role != int(Role.LEADER))
         can_grant = (
@@ -386,11 +446,14 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
             state.voted_term)
         new_voted_for = torch.where(vote_cast, my_vote, state.voted_for)
 
-        got = (my_vote[..., None, :] == me[:, None]) & heard
-        rec_upd = heard & (new_voted_term[..., None, :] > vote_rec_term1)
-        vote_rec_term2 = torch.where(rec_upd, new_voted_term[..., None, :],
+        # the vote gather
+        v_vote, v_vterm, v_vfor = _senders(ex, my_vote, new_voted_term,
+                                           new_voted_for)
+        got = (v_vote[..., None, :] == me[:, None]) & heard
+        rec_upd = heard & (v_vterm[..., None, :] > vote_rec_term1)
+        vote_rec_term2 = torch.where(rec_upd, v_vterm[..., None, :],
                                      vote_rec_term1)
-        vote_rec_for2 = torch.where(rec_upd, new_voted_for[..., None, :],
+        vote_rec_for2 = torch.where(rec_upd, v_vfor[..., None, :],
                                     vote_rec_for1)
         got_i = got.to(I32)
         win = (i_cand & ((got_i * in_vote).sum(-1) >= maj_vote)
@@ -440,23 +503,16 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     msg_scal = torch.stack([
         torch.ones_like(wstart), wstart, wcount, new_term, prev_term,
         state.commit, state.head], dim=-1) * contrib[..., None]  # [R, S_N]
-    claim = heard & (msg_scal[..., None, :, S_VALID] > 0)
+    (g_scal,) = _senders(ex, msg_scal)        # the window-scalar gather
+    claim = heard & (g_scal[..., None, :, S_VALID] > 0)
     dom = lex_argmax(claim,
-                     [msg_scal[..., None, :, S_TERM].expand(heard.shape)])
+                     [g_scal[..., None, :, S_TERM].expand(heard.shape)])
     has_msg = dom >= 0
     dsafe = torch.clamp(dom, min=0).long()
-    m_scal = _from_sender(msg_scal, dsafe)                 # [R, S_N]
+    m_scal = _from_sender(g_scal, dsafe)                   # [R, S_N]
     m_term = m_scal[..., S_TERM]
-    if fanout == "psum":
-        m_data = (wdata * contrib[..., None, None]).sum(
-            -3, dtype=torch.int64).to(I32)
-        m_meta = (wmeta * contrib[..., None, None]).sum(
-            -3, dtype=torch.int64).to(I32)
-        m_data = m_data[..., None, :, :].expand(wdata.shape)
-        m_meta = m_meta[..., None, :, :].expand(wmeta.shape)
-    else:
-        m_data = _from_sender(wdata * contrib[..., None, None], dsafe)
-        m_meta = _from_sender(wmeta * contrib[..., None, None], dsafe)
+    m_data, m_meta = _window_fanout(ex, fanout, contrib, wdata, wmeta,
+                                    dsafe)
 
     # ---- Phase E: term-gated absorb ----
     use = has_msg & (m_scal[..., S_VALID] > 0) & (m_term >= new_term)
@@ -580,13 +636,14 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     # N = G·R instances as rows; the ring goes in as a view) ----
     my_ack = torch.where(can_absorb, m_wstart + m_wcount, 0).to(I32)
     ack_dom = torch.where(can_absorb, dom, -1)
-    peer_acked = heard & (ack_dom[..., None, :] == me[:, None])  # [R, R]
+    g_ack, g_dom = _senders(ex, my_ack, ack_dom)          # the ack gather
+    peer_acked = heard & (g_dom[..., None, :] == me[:, None])  # [R, R]
 
     def flat(t):
         return t.reshape(-1)
     commit2, xpos = commit_window(
         log3.buf.view(-1, cfg.n_slots, log3.buf.shape[-1]),
-        peer_acked.reshape(-1, R), flat(my_ack), w=W,
+        peer_acked.reshape(-1, R), flat(g_ack), w=W,
         commit=flat(state.commit), my_term=flat(new_term2),
         my_end=flat(end3), bm_old=flat(bm_old2), bm_new=flat(q_mask2),
         transit=flat(transit2), maj_old=flat(maj_old2),
@@ -681,9 +738,9 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
         ccfg_cid=torch.where(promote, cid2, cc1_cid),
         ccfg_epoch=torch.where(promote, epoch2, cc1_epoch),
     )
-    is_leader_row = state.role[..., None, :] == int(Role.LEADER)
+    is_leader_row = g_role[..., None, :] == int(Role.LEADER)
     max_end = torch.where(heard, g_end[..., None, :], 0).max(-1).values
-    min_head = torch.where(heard, state.head[..., None, :], I32_MAX
+    min_head = torch.where(heard, g_head[..., None, :], I32_MAX
                            ).min(-1).values
     out = StepOutput(
         term=new_term2, role=role2, leader_id=leader_id2,
@@ -699,7 +756,7 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
             & ((transit2 <= 0) | ((pa * in_old2).sum(-1) >= maj_old2))
         ).to(I32),
         burst_hint=torch.where(heard & is_leader_row,
-                               inp.queue_depth[..., None, :], 0
+                               g_qdep[..., None, :], 0
                                ).max(-1).values.to(I32),
         rebase_delta=torch.where(
             max_end >= cfg.rebase_threshold,

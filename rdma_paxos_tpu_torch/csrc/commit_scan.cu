@@ -23,7 +23,8 @@
 // (rdma_paxos_tpu/consensus/step.py:744-803: the ack gather, the window's
 // term column, the scan, the leader's commit select, and the
 // commit-crossing CONFIG search `crossed` / `_lex_argmax`). Per instance n
-// (N = R replicas now, G x R once groups are ported; R = n_rep):
+// (N = G x R: G groups of R = n_rep replicas; or N = 1, the one replica
+// of a process-group step, whose my_ack holds its group's R acks):
 //   acks[r]  = peer_acked[n, r] ? my_ack[(n / R) * R + r] : 0
 //   scanned  = the commit scan above over acks, with the terms read from
 //              the ring rows commit + j, j < W
@@ -35,7 +36,8 @@
 //   buf  [N, n_slots, row_w] i32  the fused log ring, read in place: row
 //        g sits at slot g & (n_slots - 1); its metadata words start at
 //        column meta_off (M_TYPE, M_TERM, M_GIDX at +0, +1, +5)
-//   peer_acked [N, R] bool, my_ack [N] i32, i_lead [N] bool,
+//   peer_acked [N, R] bool, my_ack [N] i32 ([R] when N = 1),
+//   i_lead [N] bool,
 //   commit/my_term/my_end/transit/maj_old/maj_new/commit1 [N] i32,
 //   bm_old/bm_new [N] int64 holding a u32 (the low 32 bits are read)
 //
@@ -273,8 +275,8 @@ extern "C" int commit_window_launch(
     const int* commit1, int* out, int n, int n_rep, int w, int n_slots,
     int row_w, int meta_off, void* stream) {
   if (n <= 0) return 0;
-  if (w <= 0 || n_rep <= 0 || n % n_rep != 0 || n_slots <= 0 ||
-      (n_slots & (n_slots - 1)) != 0 || meta_off < 0 ||
+  if (w <= 0 || n_rep <= 0 || (n % n_rep != 0 && n != 1) ||
+      n_slots <= 0 || (n_slots & (n_slots - 1)) != 0 || meta_off < 0 ||
       meta_off + kMetaW > row_w)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * static_cast<size_t>(window_words(w)) *

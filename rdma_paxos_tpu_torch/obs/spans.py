@@ -9,18 +9,22 @@ spans, correlated across replicas by ``(term, index)``),
 (:func:`to_chrome_trace`, which ``obs/tracectx.py:merge_timeline``
 builds on). The profiler's opt-in fence waits for the CUDA device the
 step's outputs live on (``torch.cuda.synchronize``) where the JAX
-package blocks on the outputs. The critical-path breakdown and the CLI
-come with the rest of ``obs`` (ROADMAP Queue 1, item 13).
+package blocks on the outputs. The critical-path breakdown
+(:func:`breakdown`, :func:`format_breakdown`) and the CLI —
+``python -m rdma_paxos_tpu_torch.obs.spans merge|dump|report`` — are
+the reference's too.
 
 Host-side only: nothing here runs inside the replica step.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import heapq
 import json
 import os
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -737,3 +741,108 @@ def to_chrome_trace(dumps, *, max_cp_tracks: int = 512,
         other["t0_wall"] = t0
     return dict(traceEvents=meta + events, displayTimeUnit="ms",
                 otherData=other)
+
+
+# ---------------------------------------------------------------------------
+# critical-path breakdown
+# ---------------------------------------------------------------------------
+
+def breakdown(dumps) -> dict:
+    """Aggregate critical-path segment durations over every span in
+    ``dumps``: per segment n/mean/p50/p95/p99 µs, plus span status
+    counts — the "where did the time go" table."""
+    if isinstance(dumps, dict):
+        dumps = [dumps]
+    segs: Dict[str, List[float]] = {}
+    status: Dict[str, int] = {}
+    for d in dumps:
+        a = d["anchor"]
+
+        def wall(ts, _a=a):
+            return _a["wall"] + (ts - _a["monotonic"])
+
+        for sp in d["spans"]:
+            status[sp["status"]] = status.get(sp["status"], 0) + 1
+            for seg, ta, tb in _critical_path(sp, wall):
+                segs.setdefault(seg, []).append((tb - ta) * 1e6)
+    out = dict(spans=status, segments={})
+    for seg, vals in segs.items():
+        vals.sort()
+        n = len(vals)
+        out["segments"][seg] = dict(
+            n=n, mean_us=round(sum(vals) / n, 2),
+            p50_us=round(vals[n // 2], 2),
+            p95_us=round(vals[int(n * .95)], 2),
+            p99_us=round(vals[min(int(n * .99), n - 1)], 2))
+    return out
+
+
+def format_breakdown(bd: dict) -> str:
+    lines = ["spans: " + ", ".join(f"{k}={v}"
+                                   for k, v in sorted(bd["spans"].items()))]
+    order = [f"{a}->{b}" for a, b in zip(CP_PHASES, CP_PHASES[1:])]
+    segs = bd["segments"]
+    width = max([len(s) for s in segs] or [8])
+    lines.append(f"{'segment'.ljust(width)}  {'n':>7} {'mean_us':>10} "
+                 f"{'p50_us':>10} {'p95_us':>10} {'p99_us':>10}")
+    for seg in sorted(segs, key=lambda s: (order.index(s)
+                                           if s in order else 99, s)):
+        st = segs[seg]
+        lines.append(f"{seg.ljust(width)}  {st['n']:>7} "
+                     f"{st['mean_us']:>10.2f} {st['p50_us']:>10.2f} "
+                     f"{st['p95_us']:>10.2f} {st['p99_us']:>10.2f}")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# CLI: dump / merge / report
+# ---------------------------------------------------------------------------
+
+def _load_dumps(paths: Sequence[str]) -> List[dict]:
+    dumps = []
+    for p in paths:
+        with open(p) as f:
+            doc = json.load(f)
+        if "spans" not in doc:
+            raise SystemExit(f"{p}: not a span dump (no 'spans' key)")
+        dumps.append(doc)
+    return dumps
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m rdma_paxos_tpu_torch.obs.spans",
+        description="Merge span dumps into a Perfetto-loadable Chrome "
+                    "trace and print critical-path breakdowns.")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    for name, doc in (("merge", "merge one or more (multi-replica) raw "
+                                "span dumps into ONE Chrome trace-event "
+                                "JSON, aligned on the shared clock "
+                                "anchors — open the output in "
+                                "https://ui.perfetto.dev"),
+                      ("dump", "alias of merge (single-file convert)")):
+        p = sub.add_parser(name, help=doc)
+        p.add_argument("files", nargs="+", help="raw span dump JSONs")
+        p.add_argument("-o", "--out", required=True,
+                       help="Chrome trace JSON output path")
+    rp = sub.add_parser("report", help="print the aggregated "
+                        "critical-path breakdown of span dumps")
+    rp.add_argument("files", nargs="+")
+    args = ap.parse_args(argv)
+
+    dumps = _load_dumps(args.files)
+    if args.cmd in ("merge", "dump"):
+        trace = to_chrome_trace(dumps)
+        with open(args.out, "w") as f:
+            json.dump(trace, f)
+        n = trace["otherData"]["spans"]
+        print(f"wrote {args.out}: {len(trace['traceEvents'])} events "
+              f"from {n} spans across {len(dumps)} dump(s) — load it "
+              f"in https://ui.perfetto.dev")
+    else:
+        print(format_breakdown(breakdown(dumps)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -103,7 +103,9 @@ def commit_window_ref(buf, peer_acked, my_ack, *, commit, my_term, my_end,
     ``buf [N, n_slots, cols]`` is the fused ring; ``peer_acked [N, R]``
     bool says whose ack instance n counts; ``my_ack [N]`` is each
     replica's own ack offset (instance n reads the R entries of its
-    group, ``n // R``); ``i_lead`` is bool, ``bm_*`` int64 holding a
+    group, ``n // R``) — or, for one lone instance (``N = 1``, the
+    process-group step's replica), ``my_ack [R]`` holds its group's R
+    gathered acks, which the same rule reads; ``i_lead`` is bool, ``bm_*`` int64 holding a
     u32, the rest ``[N]`` i32. Returns ``(commit2, xpos)``, both ``[N]``
     i32: the leader's scanned commit (else ``commit1``) and the window
     row of the newest CONFIG entry crossing below ``commit2`` (-1 if
@@ -111,8 +113,10 @@ def commit_window_ref(buf, peer_acked, my_ack, *, commit, my_term, my_end,
     N, R = peer_acked.shape
     sw = buf.shape[2] - META_W
     acks_pad = torch.zeros((N, R_PAD), dtype=I32, device=buf.device)
-    acks_pad[:, :R] = torch.where(
-        peer_acked, my_ack.view(-1, R).repeat_interleave(R, 0), 0)
+    acks = my_ack.view(-1, R)
+    if acks.shape[0] * R == N:       # whole groups: n reads group n // R
+        acks = acks.repeat_interleave(R, 0)
+    acks_pad[:, :R] = torch.where(peer_acked, acks, 0)
     cwin_g = commit[:, None] + torch.arange(w, dtype=I32, device=buf.device)
     cwin_meta = gather_rows(buf, cwin_g)[..., sw:]           # [N, W, MW]
     scanned = commit_scan_ref(
@@ -175,12 +179,14 @@ def _check_window(buf, peer_acked, my_ack, w, v) -> None:
     if not 1 <= w <= n_slots:
         raise ValueError(f"{who}: window {w} outside 1..{n_slots}")
     R = peer_acked.shape[-1] if peer_acked.dim() == 2 else 0
-    if R < 1 or N % R:
+    if R < 1 or (N % R and N != 1):
         raise ValueError(f"{who}: peer_acked shape {tuple(peer_acked.shape)}"
                          f" does not split {N} instances into groups")
     n = (N,)
+    # a lone instance outside whole groups reads its group's R acks
+    n_ack = (R,) if N % R else n
     _check(who, (("peer_acked", peer_acked, torch.bool, (N, R)),
-                 ("my_ack", my_ack, I32, n),
+                 ("my_ack", my_ack, I32, n_ack),
                  ("i_lead", v["i_lead"], torch.bool, n),
                  ("bm_old", v["bm_old"], torch.int64, n),
                  ("bm_new", v["bm_new"], torch.int64, n))

@@ -62,9 +62,10 @@ window is open.
 
 Differences from the JAX driver, each failing loudly:
 
-* ``profile_on_page`` raises ``NotImplementedError`` when set, and so
-  does :meth:`start_profile` (ROADMAP Queue 1, item 13: the profiler
-  half of ``obs/device.py``).
+* Profiler captures (:meth:`start_profile`, :meth:`stop_profile`,
+  ``profile_on_page``) run ``torch.profiler`` through
+  ``obs/device.py:ProfilerSession``, bounded by the observe pass as in
+  the JAX driver.
 * ``audit=True`` and ``telemetry=True`` run as in the JAX driver: the
   engine's ledger and flight ring (dumped by
   :meth:`_dump_audit_artifact` into ``audit_artifact``) and its
@@ -122,10 +123,6 @@ from rdma_paxos_tpu_torch.utils.codec import fragment
 
 # the origin replica lives in the conn id's bits 24+ (ProxyServer)
 CONN_ORIGIN_SHIFT = 24
-
-PROFILER_LATER = ("profiler captures (the profiler half of obs/device.py) "
-                  "are not ported yet (ROADMAP Queue 1, item 13)")
-
 
 def conn_origin(conn_id):
     """Origin replica/host encoded in a connection id (scalar
@@ -208,9 +205,6 @@ class ClusterDriver:
                  streams: bool = False,
                  streams_opts: Optional[Dict] = None,
                  device=None):
-        if profile_on_page > 0:
-            raise NotImplementedError(
-                "ClusterDriver(profile_on_page=...): " + PROFILER_LATER)
         self.cfg = cfg
         # scan=True engages the engine's K-window scan tier on the burst
         # path (runtime-mutable as driver.cluster.scan)
@@ -352,6 +346,15 @@ class ClusterDriver:
         self._idle_backoff = 0.001
         self._idle_guard = (timeout_cfg.elec_timeout_low * 0.25
                             if timeout_cfg is not None else 0.025)
+        # bounded torch.profiler captures (obs/device.py:
+        # ProfilerSession): started via start_profile() (operator /
+        # bench) or automatically on the first page-severity alert when
+        # profile_on_page > 0 (the capture duration in seconds); the
+        # observe pass enforces the bound so an alert-triggered capture
+        # can never run unbounded
+        self.profile_session = None
+        self._profile_on_page = float(profile_on_page)
+        self._page_profiled = False
         # absolute (rebase-corrected) commit cursor per replica, for the
         # committed_entries_total counters / commit_advance traces
         self._prev_commit_abs = np.zeros(n_replicas, np.int64)
@@ -862,13 +865,15 @@ class ClusterDriver:
 
     def _cadence_observe(self) -> None:
         """The wall-cadenced observability work (alert evaluation and
-        series sampling, health files), shared by the per-step observe
-        pass and the idle-quiescence branch, so a parked poll loop keeps
-        its alerts and health files fresh while skipping dispatches."""
+        series sampling, profiler expiry, health files), shared by the
+        per-step observe pass and the idle-quiescence branch, so a
+        parked poll loop keeps its alerts and health files fresh while
+        skipping dispatches."""
         now = time.monotonic()
         if now - self._alert_last >= self._alert_period:
             self._alert_last = now
             self.evaluate_alerts()
+        self._poll_profile()
         if self._health is not None and self._health.due():
             try:
                 # ONE health() pass feeds both files: the per-replica
@@ -916,7 +921,10 @@ class ClusterDriver:
         """One SLO-rule evaluation pass (also called on a cadence from
         the poll loop). A newly firing ``page``-severity alert on an
         audited cluster dumps the audit artifact (ledger, flight ring
-        and obs dumps) for post-mortem. The series store samples FIRST,
+        and obs dumps) for post-mortem, and — with ``profile_on_page``
+        set — starts ONE bounded profiler capture so the pages' root
+        cause is inspectable on the device timeline. The series store
+        samples FIRST,
         from the same registry snapshot the rules then evaluate, so the
         window-domain rules always see the freshest point."""
         snap = self.obs.metrics.snapshot()
@@ -928,7 +936,58 @@ class ClusterDriver:
         if pages and (self.cluster.auditor is not None
                       or self.cluster.flight is not None):
             self._dump_audit_artifact("alert: " + ",".join(pages))
+        if (pages and self._profile_on_page > 0
+                and not self._page_profiled):
+            self._page_profiled = True      # one capture per process
+            try:
+                self.start_profile(seconds=self._profile_on_page)
+                self.obs.trace.record(obs_trace.ALERT_FIRED,
+                                      alert="profile_capture",
+                                      severity="info",
+                                      value=",".join(pages))
+            except RuntimeError:
+                pass        # another capture is active — keep serving
         return out
+
+    # ------------------------------------------------------------------
+    # bounded profiler captures (obs/device.py:ProfilerSession)
+    # ------------------------------------------------------------------
+
+    def start_profile(self, seconds: float = 5.0,
+                      log_dir: Optional[str] = None):
+        """Begin a bounded ``torch.profiler`` capture of the serving
+        path; the poll loop stops it when ``seconds`` elapse (or call
+        :meth:`stop_profile`). The capture's Chrome trace merges onto
+        the span timeline via ``obs.device.merge_timeline``."""
+        from rdma_paxos_tpu_torch.obs.device import ProfilerSession
+        if self.profile_session is not None \
+                and self.profile_session.active:
+            raise RuntimeError("a profiler capture is already active")
+        if log_dir is None:
+            import tempfile
+            log_dir = (os.path.join(self._workdir, "profile")
+                       if self._workdir else
+                       tempfile.mkdtemp(prefix="rp_profile_"))
+        self.profile_session = ProfilerSession(
+            log_dir, max_seconds=seconds).start()
+        return self.profile_session
+
+    def stop_profile(self):
+        """Stop the active capture (idempotent); returns the session
+        (trace files resolved) or None when none was started."""
+        if self.profile_session is not None:
+            self.profile_session.stop()
+        return self.profile_session
+
+    def _poll_profile(self) -> None:
+        """Observe-pass hook: expire a bounded capture. Profiler I/O
+        must never kill the data path."""
+        s = self.profile_session
+        if s is not None and s.active:
+            try:
+                s.maybe_stop()
+            except Exception:  # noqa: BLE001 — evidence, not data path
+                pass    # stop() already marked the session inactive
 
     def _dump_audit_artifact(self, reason: str) -> Optional[str]:
         """Write the audit artifact (ledger dump, flight ring, trace and
@@ -1004,10 +1063,6 @@ class ClusterDriver:
                 alerts=self.alerts, series=self.series,
                 port=port).start()
         return self.exporter
-
-    def start_profile(self, seconds: float = 5.0,
-                      log_dir: Optional[str] = None):
-        raise NotImplementedError("start_profile: " + PROFILER_LATER)
 
     # ------------------------------------------------------------------
     # failure detection + eviction (push-detection analog: WC failures
@@ -1682,6 +1737,9 @@ class ClusterDriver:
         # per-group ones) own their own timing
         if (getattr(c, "link_model", None) is not None
                 or getattr(c, "link_models", None)):
+            return False
+        # an active profiler capture wants the serving path visible
+        if self.profile_session is not None and self.profile_session.active:
             return False
         with self._lock:
             if (self._recover_req is not None

@@ -13,6 +13,7 @@ against the JAX package's driver.
   step-down, the automatic snapshot recovery of a force-pruned replica,
   and the surfaces that wait for later slices."""
 
+import shutil
 import time
 
 import numpy as np
@@ -371,12 +372,12 @@ def test_auto_recovery_matches_the_jax_driver(tmp_path):
     dict(repair_opts={}), dict(mode="spmd"),
     dict(health_period=1.0), dict(alert_period=1.0)])
 def test_later_slices_raise(kw):
-    """What waits for later slices (profiler captures, the spmd mode)
-    raises; the alert and health plane, repair, the governor, the scan
-    tier and the streams hub are ported and take their settings
+    """What waits for later slices (the spmd mode) raises; the alert and
+    health plane, repair, the governor, the scan tier, the streams hub
+    and profiler captures are ported and take their settings
     (``repair=`` alone is refused for want of ``audit=True``, as in
     JAX)."""
-    if set(kw) & {"profile_on_page", "mode"}:
+    if set(kw) & {"mode"}:
         with pytest.raises(NotImplementedError):
             ClusterDriver(LogConfig(**GEO), 3, device="cpu", **kw)
         return
@@ -395,6 +396,8 @@ def test_later_slices_raise(kw):
             kw.get("streams"))
         if "alert_rules" in kw:
             assert d.alerts.state() == {}
+        assert d._profile_on_page == kw.get("profile_on_page", 0.0)
+        assert d.profile_session is None
     finally:
         d.stop()
 
@@ -530,15 +533,18 @@ def _attach_governor_and_step(d):
     lambda d: d.health(), lambda d: d.evaluate_alerts(),
     lambda d: d.serve_metrics(0), lambda d: d.start_profile()])
 def test_later_methods_raise(call):
-    """What waits for later slices raises and names its ROADMAP item
-    (13: the profiler half of ``obs/device.py``); the governor, health,
-    alerts and the metrics exporter are ported and answer."""
+    """Every surface of the later slices answers now: the governor,
+    health, alerts, the metrics exporter and profiler captures (the
+    profiler half of ``obs/device.py``)."""
     from rdma_paxos_tpu_torch.obs.health import validate_cluster
     d = ClusterDriver(LogConfig(**GEO), 3, device="cpu", leases=False)
     try:
         if "start_profile" in call.__code__.co_names:
-            with pytest.raises(NotImplementedError, match=r"item 13"):
-                call(d)
+            s = call(d)
+            assert s.active and d.profile_session is s
+            d.stop_profile()
+            assert not s.active and s.trace_files
+            shutil.rmtree(s.log_dir)
         else:
             out = call(d)
             if "health" in call.__code__.co_names:

@@ -392,3 +392,70 @@ def test_topology_split_merge_on_the_card():
     assert glog == clog
     assert glog[0][1]["transitions_total"] == 1
     assert glog[1][1]["transitions_total"] == 2
+
+
+def test_lone_instance_commit_window_kernel_equals_plain():
+    """The process-group step's call: one instance (N = 1) reading its
+    group's R gathered acks, kernel against plain on the card."""
+    _need_card()
+    from chip_smoke import window_case
+    from rdma_paxos_tpu_torch.ops.quorum import (
+        commit_window_cuda, commit_window_ref)
+    rng = np.random.default_rng(11)
+    args, kw = window_case(rng, torch.device("cuda"), G=1, R=3, W=2048,
+                           n_slots=8192)
+    buf, peer, my_ack = args
+    for n in range(3):
+        one = (buf[n:n + 1].contiguous(), peer[n:n + 1].contiguous(), my_ack)
+        kn = {k: v[n:n + 1].contiguous() for k, v in kw.items()}
+        want = commit_window_ref(*one, w=2048, **kn)
+        got = commit_window_cuda(*one, w=2048, **kn)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), n
+
+
+def test_host_world_on_the_card(tmp_path):
+    """Three ``HostReplicaDriver(device="cuda")`` ranks sharing the card
+    under gloo (``chip_smoke.py`` phase 14c's drill, small geometry):
+    one ``commit_window`` launch per protocol step per rank, and every
+    rank equal to its CPU twin."""
+    _need_card()
+    import chip_smoke
+    geom = dict(n_slots=256, slot_bytes=128, window_slots=32,
+                batch_slots=32, rebase_threshold=512)
+    fanouts = ("psum", "gather")
+    gpu = chip_smoke.run_host_world("cuda", geom, 24, fanouts, str(tmp_path),
+                                    "gpu")
+    cpu = chip_smoke.run_host_world("cpu", geom, 24, fanouts, str(tmp_path),
+                                    "cpu")
+    for (ga, gm, _), (ca, _cm, _) in zip(gpu, cpu):
+        assert sorted(ga) == sorted(ca)
+        for k in ga:
+            np.testing.assert_array_equal(ga[k], ca[k], err_msg=k)
+        for f in fanouts:
+            assert gm[f]["launches"] == gm[f]["steps"] > 0
+
+
+def test_profiler_capture_holds_commit_window_kernels(tmp_path):
+    """A ``ProfilerSession`` around steps on the card: the capture and
+    the merged timeline hold the ``commit_window`` kernel's events, at
+    most one per protocol step (profiled records can drop)."""
+    _need_card()
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.obs import device as obs_device
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    c = SimCluster(LogConfig(n_slots=256, slot_bytes=64, window_slots=32,
+                             batch_slots=32), 3)
+    c.run_until_elected(0)
+    s = obs_device.ProfilerSession(str(tmp_path / "prof")).start()
+    for i in range(8):
+        c.submit(0, b"p%d" % i)
+        c.step()
+    torch.cuda.synchronize()
+    s.stop()
+    kern = [e for e in s.chrome_events()
+            if "commit_window_kernel" in e.get("name", "")]
+    assert 0 < len(kern) <= 8
+    doc = obs_device.merge_timeline([], profiler=s)
+    assert doc["otherData"]["device_events"] > 0
+    assert any("commit_window_kernel" in e.get("name", "")
+               for e in doc["traceEvents"])

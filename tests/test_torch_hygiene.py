@@ -84,7 +84,8 @@ def test_imports_with_jax_and_reference_blocked():
                 "streams", "streams.tail", "streams.scan", "streams.watch",
                 "streams.cdc", "streams.__main__", "topology.transition",
                 "topology.policy", "topology.chaos", "obs.console",
-                "obs.__main__"):
+                "obs.__main__", "obs.spans", "config", "parallel.mesh",
+                "runtime.host"):
         assert "rdma_paxos_tpu_torch." + mod in names, mod
 
 
@@ -592,3 +593,64 @@ def test_streams_topology_console_copies_match_the_reference():
     tp = params(ttchaos.TopologyNemesisRunner)
     assert tp[-1] == ("device", inspect.Parameter.KEYWORD_ONLY, None)
     assert tp[:-1] == params(jtchaos.TopologyNemesisRunner)
+
+
+def test_host_world_and_profiler_copies_match_the_reference():
+    """The one-replica-per-process slice and the rest of ``obs``: the
+    host driver's output keys and public signatures (plus ``device``
+    and ``timeout``), the spmd builders' flags, ``ClusterConfig``'s
+    fields, and the profiler half's constants and signatures."""
+    import dataclasses
+    import inspect
+
+    import rdma_paxos_tpu.config as jconfig
+    import rdma_paxos_tpu.obs.device as jdevice
+    import rdma_paxos_tpu.obs.spans as jspans
+    import rdma_paxos_tpu.parallel.mesh as jmesh
+    import rdma_paxos_tpu.runtime.host as jhost
+    import rdma_paxos_tpu_torch.config as tconfig
+    import rdma_paxos_tpu_torch.obs.device as tdevice
+    import rdma_paxos_tpu_torch.obs.spans as tspans
+    import rdma_paxos_tpu_torch.parallel.mesh as tmesh
+    import rdma_paxos_tpu_torch.runtime.host as thost
+
+    def params(fn, drop=()):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()
+                if p.name not in drop]
+    assert thost.OUT_KEYS == jhost.OUT_KEYS
+    jd, td = jhost.HostReplicaDriver, thost.HostReplicaDriver
+    for name in ("install_genesis", "restore_hardstate", "make_input",
+                 "_pack_batch", "step", "step_burst", "step_scan", "rebase",
+                 "export_local_row", "fetch_local_window"):
+        assert params(getattr(td, name)) == params(getattr(jd, name)), name
+    assert params(td.__init__, ("device", "timeout")) == params(jd.__init__)
+    assert [p[0] for p in params(td.__init__)][-2:] == ["device", "timeout"]
+    for t, j in ((tmesh.build_spmd_step, jmesh.build_spmd_step),
+                 (tmesh.build_spmd_burst, jmesh.build_spmd_burst),
+                 (tmesh.build_spmd_scan, jmesh.build_spmd_scan)):
+        drop = ("use_pallas", "interpret", "donate")
+        tp, jp = params(t), params(j, drop)
+        assert [p[0] for p in tp][:2] == [p[0] for p in jp][:2]
+        assert tp[3:] == jp[3:], t          # the flags after the world
+    assert tconfig.MAX_SERVER_COUNT == jconfig.MAX_SERVER_COUNT
+    assert [(f.name, f.default) for f in dataclasses.fields(
+        tconfig.ClusterConfig)] == [(f.name, f.default) for f in
+                                    dataclasses.fields(jconfig.ClusterConfig)]
+    assert params(tconfig.load_config) == params(jconfig.load_config)
+    for k in ("HOST_PHASE_PID", "DEVICE_PID_BASE", "MAX_DEVICE_EVENTS"):
+        assert getattr(tdevice, k) == getattr(jdevice, k), k
+    for t, j in ((tdevice.ProfilerSession.__init__,
+                  jdevice.ProfilerSession.__init__),
+                 (tdevice.merge_timeline, jdevice.merge_timeline),
+                 (tdevice.load_profiler_dir, jdevice.load_profiler_dir),
+                 (tdevice.program_report, jdevice.program_report),
+                 (tdevice.write_program_report,
+                  jdevice.write_program_report),
+                 (tspans.breakdown, jspans.breakdown),
+                 (tspans.format_breakdown, jspans.format_breakdown),
+                 (tspans.main, jspans.main)):
+        assert params(t) == params(j), t
+    for name in ("start", "expired", "maybe_stop", "stop", "chrome_events",
+                 "summary"):
+        assert hasattr(tdevice.ProfilerSession, name), name
