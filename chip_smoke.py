@@ -4,7 +4,10 @@
     python3 chip_smoke.py            # one card; no arguments
 
 Phase 14c starts three more Python processes that import this file and
-call :func:`host_rank`.
+call :func:`host_rank`, phase 15a three that call :func:`node_rank` and
+three launchers with their apps, phase 15b three supervisors with
+their workers and apps; every one of them is stopped before the phase
+ends.
 
 Phases, one printed line each (a failed check raises and the script
 exits non-zero without its result line):
@@ -204,14 +207,14 @@ exits non-zero without its result line):
     started by an alert page with ``profile_on_page``, none by a second;
     (14b) three ``native/toyserver`` apps under ``LD_PRELOAD`` behind
     ``ShardedClusterDriver`` at G = 2, geometry (a), gather, the serial
-    loop: 2000 SETs from 4 clients on every replica's app over key
+    loop: 1000 SETs from 4 clients on every replica's app over key
     prefixes of both groups; group 0's leader isolated in its group and
     its election timer fired on a survivor while group 1 serves 100
     writes; group 0's new leader serving a write; after the heal every
     acknowledged key read back from every replica's app; requests/s,
     latency and the failover time; (14c) three processes, each a
     ``HostReplicaDriver(device="cuda")`` rank on the one card under gloo
-    (explicit host copies around each collective): election, 64 full
+    (explicit host copies around each collective): election, 32 full
     batches from the leader (timed), bursts at K = 2 and 4, a K = 2
     scan, the rollovers they cross, and a leader change (a partition
     through ``peer_mask`` under gather; a timer under psum, which refuses
@@ -221,7 +224,30 @@ exits non-zero without its result line):
     returning the committed payloads, one ``commit_window`` launch per
     protocol step per rank; steps/s, committed entries/s and ms per
     exchange;
-15. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+15. the per-host daemon and the elastic plane: (15a) three ``python -m
+    rdma_paxos_tpu_torch.runtime.launch_node --device cuda`` processes
+    at geometry (a), each with a toy app under ``LD_PRELOAD``, 2000
+    pipelined SETs through the leader's app read back from every app,
+    with ``RP_BURST=0`` and ``RP_BURST=1`` (requests/s, p50, p99); three
+    ``NodeDaemon(device="cuda")`` rank processes of :func:`node_rank`
+    given (6a)'s record through rank 0's ``_on_event`` (rank 0's timer
+    forced), bursts on and off, every iteration's outputs, the events'
+    statuses, the stores, the hard state, ``meta()`` and the rows equal
+    to the same script at ``device="cpu"``, one ``commit_window`` launch
+    per protocol step per rank (acked events/s, iterations/s); the
+    launchers booted at geometry (b) serving a few SETs; (15b) a
+    ``GroupController`` here and three ``python -m
+    rdma_paxos_tpu_torch.runtime.elastic`` supervisors whose workers run
+    on the card at (a), with toy apps: acked SETs, the leader's
+    supervisor stopped and its worker SIGKILLed, a generation cut from
+    the two survivors with the donor the ``(last_log_term, end)`` order
+    names, more SETs, the stopped supervisor killed and restarted and
+    its host rejoining in a later generation, every acked write read
+    back from all three apps; the generations, the time to recover (the
+    SIGKILL to the first acked write), the time to rejoin, the ms per
+    iteration in ``write_rowdump``, and each worker's protocol steps and
+    ``commit_window`` launches (equal);
+16. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
 after, so a failure names its phase.
@@ -1634,20 +1660,26 @@ def toy_probe(sock) -> None:
         buf += chunk
 
 
-def pipelined_sets(port: int, items, chunk: int = 256) -> float:
-    """SET each ``(key, value)`` on one connection, a chunk of lines at a
-    time, then the chunk's replies; returns the wall seconds."""
+def pipelined_sets(port: int, items, chunk: int = 256):
+    """SET each ``(key, value)`` (bytes) on one connection, a chunk of
+    lines at a time, then the chunk's replies. Returns the wall seconds
+    and each reply's latency from its chunk's send, sorted."""
     c = AppClient(port)
-    t = time.perf_counter()
-    for i in range(0, len(items), chunk):
-        part = items[i:i + chunk]
-        c.s.sendall(b"".join(b"SET %s %s\n" % kv for kv in part))
-        for k, _v in part:
-            got = c.f.readline().strip()
-            check(got == b"+OK", f"SET {k!r} answered {got!r}")
-    wall = time.perf_counter() - t
-    c.close()
-    return wall
+    lat = []
+    try:
+        t = time.perf_counter()
+        for i in range(0, len(items), chunk):
+            part = items[i:i + chunk]
+            t0 = time.perf_counter()
+            c.s.sendall(b"".join(b"SET %s %s\n" % kv for kv in part))
+            for k, _v in part:
+                got = c.f.readline().strip()
+                check(got == b"+OK", f"SET {k!r} answered {got!r}")
+                lat.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t
+    finally:
+        c.close()
+    return wall, np.sort(np.array(lat))
 
 
 def wait_for(cond, what: str, timeout: float = 60.0) -> float:
@@ -1739,7 +1771,7 @@ def phase_recovery_apps(dev, card: str) -> dict:
                                       f"{d.leader()} during {what}")
         items = [(b"a%05d" % i, b"v%05d" % i) for i in range(RECOVERY_SETS)]
         sample = items[::397] + items[-1:]
-        out["sets_s"] = pipelined_sets(ports[lead], items)
+        out["sets_s"] = pipelined_sets(ports[lead], items)[0]
         wait_for(stores_settled, "the stores to settle")
         for r in (f1, f2):
             same_keys(r, items[-1:])
@@ -1780,7 +1812,7 @@ def phase_recovery_apps(dev, card: str) -> dict:
         n_big = 2 * geom["n_slots"] + 512
         big = [(b"b%06d" % i, b"%06d" % i + b"x" * 120)
                for i in range(n_big)]
-        out["big_s"] = pipelined_sets(ports[lead], big)
+        out["big_s"] = pipelined_sets(ports[lead], big)[0]
         out["big_sets"] = n_big
         t_unwedge = time.perf_counter()
         d.cluster.unwedge_apply(f2)
@@ -5146,7 +5178,7 @@ def phase_profiler(dev, card: str, kernels_per_step: float) -> list:
 
 SHARDED_APP_G = 2
 SHARDED_APP_CLIENTS = 4           # request-reply clients, one connection each
-SHARDED_APP_SETS = 2000
+SHARDED_APP_SETS = 1000
 SHARDED_APP_DURING = 100          # group 1's writes while group 0 fails over
 
 
@@ -5367,9 +5399,9 @@ def phase_sharded_apps(dev, card: str) -> dict:
     return dict(launches=launches, steps=steps)
 
 
-# (14c): geometry (a) with a rollover point the 64 batches cross
-HOST_GEOM = dict(GEOMETRIES["a"][0], rebase_threshold=1 << 17)
-HOST_BATCHES = 64
+# (14c): geometry (a) with a rollover point the 32 batches cross
+HOST_GEOM = dict(GEOMETRIES["a"][0], rebase_threshold=1 << 16)
+HOST_BATCHES = 32
 HOST_TIMEOUT = 600                 # seconds for one world's three ranks
 HOST_SEND = 3                      # EntryType.SEND
 
@@ -5513,36 +5545,36 @@ def host_rank(pid: int, port: int, device: str, geom_json: str,
             dist.destroy_process_group()
 
 
-def run_host_world(device: str, geom: dict, n_batches: int, fanouts: tuple,
-                   wd: str, tag: str) -> list:
-    """Three rank processes of :func:`host_rank`; fails if a rank exits
-    non-zero or runs past :data:`HOST_TIMEOUT`. Returns per rank
-    ``(arrays, meta, output)``."""
+def run_rank_world(fn: str, args: tuple, wd: str, tag: str,
+                   timeout: float, what: str) -> list:
+    """Three processes, each calling ``chip_smoke.<fn>(rank, port,
+    *args, out)`` on one free coordinator port; fails if a rank exits
+    non-zero, prints no ``RANK<r> OK`` or runs past ``timeout`` s.
+    Returns per rank ``(arrays, info, output)`` from ``out`` (npz) and
+    ``out + ".json"``."""
     port = free_ports(1)[0]
     outs = [os.path.join(wd, f"{tag}{r}.npz") for r in range(R)]
     code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
-            "chip_smoke.host_rank({r}, {port}, {dev!r}, {geom!r}, {n}, "
-            "{fan!r}, {out!r})")
+            "chip_smoke.{fn}({r}, {port}, *{args!r}, {out!r})")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code.format(
-            root=str(ROOT), r=r, port=port, dev=device,
-            geom=json.dumps(geom), n=n_batches, fan=",".join(fanouts),
-            out=outs[r])],
+        [sys.executable, "-c", code.format(root=str(ROOT), fn=fn, r=r,
+                                           port=port, args=args,
+                                           out=outs[r])],
         cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(R)]
     texts = [""] * R
     try:
-        deadline = time.time() + HOST_TIMEOUT
+        deadline = time.time() + timeout
         for r, p in enumerate(procs):
             try:
                 texts[r] = p.communicate(
                     timeout=max(1.0, deadline - time.time()))[0].decode()
             except subprocess.TimeoutExpired:
-                raise RuntimeError(f"check failed: (14c) {tag} rank {r} "
-                                   f"ran past {HOST_TIMEOUT} s")
+                raise RuntimeError(f"check failed: {what} {tag} rank {r} "
+                                   f"ran past {timeout} s")
         for r, p in enumerate(procs):
             check(p.returncode == 0 and f"RANK{r} OK" in texts[r],
-                  f"(14c) {tag} rank {r} exited {p.returncode}:\n"
+                  f"{what} {tag} rank {r} exited {p.returncode}:\n"
                   f"{texts[r][-3000:]}")
     finally:
         for p in procs:
@@ -5552,9 +5584,18 @@ def run_host_world(device: str, geom: dict, n_batches: int, fanouts: tuple,
     res = []
     for r in range(R):
         with open(outs[r] + ".json") as f:
-            meta = json.load(f)
-        res.append((dict(np.load(outs[r])), meta, texts[r]))
+            info = json.load(f)
+        res.append((dict(np.load(outs[r])), info, texts[r]))
     return res
+
+
+def run_host_world(device: str, geom: dict, n_batches: int, fanouts: tuple,
+                   wd: str, tag: str) -> list:
+    """Three rank processes of :func:`host_rank`, bounded by
+    :data:`HOST_TIMEOUT`. Returns per rank ``(arrays, meta, output)``."""
+    return run_rank_world("host_rank", (device, json.dumps(geom), n_batches,
+                                        ",".join(fanouts)),
+                          wd, tag, HOST_TIMEOUT, "(14c)")
 
 
 def phase_host_world(card: str) -> list:
@@ -5614,6 +5655,501 @@ def phase_host_world(card: str) -> list:
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the per-host daemon, the launcher and the elastic plane
+# ---------------------------------------------------------------------------
+
+NODE_ITERS = 20               # iterations of (15a)'s deterministic drain
+NODE_TIMEOUT = 300            # seconds for one world of three processes
+NODE_TIMING = dict(elec_timeout_low=2.0, elec_timeout_high=4.0)
+DEPLOY_SETS = 2000            # pipelined SETs of a (15a) deployment run
+DEPLOY_CHUNK = 256            # SET lines per pipelined send
+DEPLOY_SETS_B = 16            # SETs of the boot check at geometry (b)
+ELASTIC_SETS = 200            # pipelined SETs per write step of (15b)
+ELASTIC_BARRIER = 80.0        # the controller's barrier budget (s)
+ELASTIC_WAIT = 180.0          # seconds for any one generation event
+
+
+def node_rank(pid: int, port: int, device: str, geom_json: str,
+              n_iters: int, n_events: int, burst: str, out: str) -> None:
+    """A rank of (15a)'s deterministic run (its own process): a
+    ``NodeDaemon`` at ``device`` under RP_BURST=``burst`` (set for the
+    CPU twin alike), the prewarm burst, rank 0's timer forced,
+    (6a)'s record through rank 0's shim handler, then ``n_iters``
+    iterations (``n_events`` of the record's SENDs). Every iteration's
+    outputs, the events' statuses, the
+    store bytes, the hard state, ``meta()`` and the final row are saved
+    to ``out`` (npz) with the counts and times."""
+    load_port()
+    os.environ["RP_BURST"] = burst
+    import torch.distributed as dist
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
+    from rdma_paxos_tpu_torch.runtime.node import NodeDaemon
+    torch.set_num_threads(2)
+    arrays, info = {}, {}
+    commit_window.launches = 0
+    node = NodeDaemon(
+        LogConfig(**json.loads(geom_json)), process_id=pid,
+        num_processes=R, coordinator=f"127.0.0.1:{port}",
+        workdir=out + ".wd", timeout_cfg=TimeoutConfig(**TIMERS_OFF),
+        device=device, timeout=NODE_TIMEOUT / 2)
+    try:
+        node.prewarm_burst()
+
+        def iterate(tag: str) -> None:
+            res = node.iterate()
+            for k, v in res.items():
+                arrays[f"{node.iterations:04d}.{tag}.{k}"] = np.asarray(v)
+        if pid == 0:
+            node.timer._deadline = 0.0
+        iterate("elect")
+        evs = []
+        if pid == 0:
+            conns = [100 + i for i in range(FRONT_CONNS)]
+            evs = [node._on_event(2, c, b"") for c in conns]
+            evs += [node._on_event(3, conns[i % FRONT_CONNS], p)
+                    for i, p in enumerate(front_record(n_events,
+                                                       FRONT_BYTES))]
+            check(all(isinstance(e, PendingEvent) for e in evs),
+                  "the leader refused an event")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done_at = None
+        for i in range(n_iters):
+            iterate("drain")
+            if evs and done_at is None and all(e.done.is_set()
+                                               for e in evs):
+                done_at = (i + 1, time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        if pid == 0:
+            check(done_at is not None, f"events still pending after "
+                                       f"{n_iters} iterations")
+            info.update(events=len(evs), done_iters=done_at[0],
+                        done_s=done_at[1])
+        arrays["statuses"] = np.array([e.status for e in evs], np.int32)
+        arrays["store"] = np.frombuffer(node.store.dump(), np.uint8)
+        arrays["hard"] = np.array(node.hard.load(), np.int64)
+        for k, v in node.meta().items():
+            arrays[f"meta.{k}"] = np.asarray(v)
+        for k, v in node.dump_row().items():
+            arrays[f"row.{k}"] = v
+        info.update(steps=node.steps, launches=commit_window.launches,
+                    iterations=node.iterations, wall=wall)
+        np.savez(out, **arrays)
+        with open(out + ".json", "w") as f:
+            json.dump(info, f)
+        print(f"RANK{pid} OK", flush=True)
+    finally:
+        node.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_node_world(device: str, geom: dict, n_iters: int, n_events: int,
+                   burst: str, wd: str, tag: str) -> list:
+    """Three :func:`node_rank` processes, bounded by
+    :data:`NODE_TIMEOUT`. Per rank ``(arrays, info, output)``."""
+    return run_rank_world("node_rank", (device, json.dumps(geom), n_iters,
+                                        n_events, burst),
+                          wd, tag, NODE_TIMEOUT, "(15a)")
+
+
+def kill_group(p: subprocess.Popen) -> None:
+    """SIGKILL a process started with ``start_new_session`` and everything
+    in its process group (its app, its worker), then reap it."""
+    import signal
+    try:
+        os.killpg(p.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    p.wait()
+
+
+def log_leader(wd: str) -> int:
+    """The replica whose log holds the highest-term ``[T<n>] LEADER``
+    line, or -1."""
+    best, lead = 0, -1
+    for r in range(R):
+        p = Path(wd, f"replica{r}.log")
+        if not p.exists():
+            continue
+        for ln in p.read_text().splitlines():
+            if "] LEADER" in ln:
+                term = int(ln.split("[T", 1)[1].split("]", 1)[0])
+                if term > best:
+                    best, lead = term, r
+    return lead
+
+
+def deploy_world(geom: dict, env: dict, n_sets: int, wd: str) -> dict:
+    """(15a)'s deployment: three ``python -m
+    rdma_paxos_tpu_torch.runtime.launch_node --device cuda`` processes,
+    each starting its toy app under ``LD_PRELOAD``; ``n_sets`` pipelined
+    SETs through the leader's app, then every key read back from every
+    app. The launchers run until killed (with their apps)."""
+    os.makedirs(wd, exist_ok=True)
+    coord, *ports = free_ports(R + 1)
+    cfg = os.path.join(wd, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump(dict(log=geom, timing=NODE_TIMING), f)
+    base = dict(os.environ, PYTHONPATH=str(ROOT), group_size=str(R), **env)
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for i in range(R):
+            with open(os.path.join(wd, f"node{i}.out"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "rdma_paxos_tpu_torch.runtime.launch_node",
+                     "--coordinator", f"127.0.0.1:{coord}", "--workdir", wd,
+                     "--app-port", str(ports[i]), "--iterations", "1000000",
+                     "--config", cfg, "--device", "cuda"],
+                    cwd=str(ROOT), env=dict(base, server_idx=str(i)),
+                    stdout=log, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        boot = wait_for(lambda: log_leader(wd) >= 0
+                        or any(p.poll() is not None for p in procs),
+                        "a leader line in the launchers' logs", 120)
+        check(all(p.poll() is None for p in procs), "a launcher exited")
+        lead = log_leader(wd)
+        items = [(b"d%05d" % i, b"v%05d" % i) for i in range(n_sets)]
+        wall, lat = pipelined_sets(ports[lead], items, DEPLOY_CHUNK)
+        keys = [k.decode() for k, _ in items]
+        want = [v for _, v in items]
+        for r in range(R):
+            wait_for(lambda r=r: pipelined_gets(ports[r], keys) == want,
+                     f"app {r} serving every SET", 60)
+        check(log_leader(wd) == lead, "the leader changed during the run")
+        check(all(p.poll() is None for p in procs), "a launcher exited")
+        world = [ln for ln in Path(wd, "node0.out").read_text().splitlines()
+                 if ln.startswith("replica world:")]
+        return dict(lead=lead, boot_s=boot, wall=wall, lat=lat,
+                    world=world[0] if world else "?",
+                    total_s=time.perf_counter() - t0)
+    except Exception:
+        for i in range(R):
+            p = Path(wd, f"node{i}.out")
+            if p.exists():
+                print(f"launcher {i} output: {p.read_text()[-1500:]}",
+                      flush=True)
+        raise
+    finally:
+        for p in procs:
+            kill_group(p)
+
+
+def compare_node_worlds(tag: str, gpu: list, cpu: list) -> None:
+    for r in range(R):
+        ga, ca = gpu[r][0], cpu[r][0]
+        bad = [k for k in sorted(set(ga) | set(ca))
+               if k not in ga or k not in ca or ga[k].dtype != ca[k].dtype
+               or not np.array_equal(ga[k], ca[k])]
+        check(not bad, f"{tag} rank {r} differs from its CPU twin: "
+                       f"{bad[:6]}")
+
+
+def phase_node(card: str) -> list:
+    """(15a): the three-host ``NodeDaemon`` world on the one card."""
+    wd = tempfile.mkdtemp(prefix="rp-node-")
+    geom = GEOMETRIES["a"][0]
+    runs = []
+    try:
+        # deployment runs, bursts off then on
+        for burst in ("0", "1"):
+            d = deploy_world(geom, dict(RP_BURST=burst), DEPLOY_SETS,
+                             os.path.join(wd, f"deploy{burst}"))
+            lat = d["lat"]
+            print(f"node world (15a) deployment, geometry (a) psum, "
+                  f"RP_BURST={burst} on {card}: 3 launch_node processes "
+                  f"({d['world']}) with toy apps; leader {d['lead']} after "
+                  f"{d['boot_s']:.1f} s; {DEPLOY_SETS} pipelined SETs "
+                  f"({DEPLOY_CHUNK} per send) in {d['wall']:.3f} s = "
+                  f"{DEPLOY_SETS / d['wall']:.1f} requests/s, latency p50 "
+                  f"{lat[len(lat) // 2] * 1e3:.2f} ms p99 "
+                  f"{lat[int(len(lat) * 0.99)] * 1e3:.2f} ms; every key "
+                  f"read back from 3/3 apps; world {d['total_s']:.1f} s",
+                  flush=True)
+        # the deterministic run against its CPU twin, bursts on (the
+        # card's default) and off
+        for burst in ("1", "0"):
+            t = time.perf_counter()
+            gpu = run_node_world("cuda", geom, NODE_ITERS, FRONT_EVENTS,
+                                 burst, wd, f"gpu{burst}-")
+            t_gpu = time.perf_counter() - t
+            t = time.perf_counter()
+            cpu = run_node_world("cpu", geom, NODE_ITERS, FRONT_EVENTS,
+                                 burst, wd, f"cpu{burst}-")
+            t_cpu = time.perf_counter() - t
+            compare_node_worlds(f"(15a) deterministic RP_BURST={burst}",
+                                gpu, cpu)
+            for r in range(R):
+                gi, ci = gpu[r][1], cpu[r][1]
+                check(gi["launches"] == gi["steps"] > 0,
+                      f"(15a) rank {r}: {gi['launches']} commit_window "
+                      f"launches in {gi['steps']} protocol steps")
+                check(ci["launches"] == 0,
+                      "(15a) the CPU twin launched a kernel")
+                check(not gpu[r][0]["statuses"].any(),
+                      f"(15a) rank {r}: an event failed")
+                runs.append(dict(launches=gi["launches"], steps=gi["steps"]))
+            g0 = gpu[0][1]
+            print(f"node world (15a) deterministic, geometry (a) psum, "
+                  f"RP_BURST={burst} on {card}: (6a)'s record "
+                  f"({g0['events']} events) through rank 0's _on_event "
+                  f"acked in {g0['done_s'] * 1e3:.1f} ms = "
+                  f"{g0['events'] / g0['done_s']:.0f} acked events/s over "
+                  f"{g0['done_iters']} iterations = "
+                  f"{g0['done_iters'] / g0['done_s']:.2f} iterations/s "
+                  f"({NODE_ITERS} iterations in {g0['wall']:.3f} s); "
+                  f"{g0['steps']} protocol steps and as many commit_window "
+                  f"launches per rank; outputs, statuses, stores, hard "
+                  f"state, meta and rows of 3/3 ranks equal to the CPU twin "
+                  f"(card world {t_gpu:.1f} s, CPU twin {t_cpu:.1f} s)",
+                  flush=True)
+        # geometry (b): boot and a few SETs, checked only
+        d = deploy_world(GEOMETRIES["b"][0], {}, DEPLOY_SETS_B,
+                         os.path.join(wd, "deployb"))
+        print(f"node world (15a) geometry (b) psum on {card}: leader "
+              f"{d['lead']} after {d['boot_s']:.1f} s, {DEPLOY_SETS_B} SETs "
+              f"read back from 3/3 apps", flush=True)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return runs
+
+
+def children(pid: int) -> list:
+    """Pids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                stat = (d / "stat").read_text()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(d.name))
+    return out
+
+
+def worker_pid(sup: subprocess.Popen) -> int:
+    for c in children(sup.pid):
+        try:
+            if b"elastic_worker" in Path(f"/proc/{c}/cmdline").read_bytes():
+                return c
+        except OSError:
+            pass
+    return -1
+
+
+def phase_elastic(card: str) -> list:
+    """(15b): a ``GroupController`` here and three ``python -m
+    rdma_paxos_tpu_torch.runtime.elastic`` supervisors whose workers run
+    on the card at geometry (a), with toy apps: acked SETs; the leader's
+    supervisor stopped and its worker SIGKILLed, a generation cut from
+    the two survivors with the donor ``(last_log_term, end)`` elects;
+    more SETs; that supervisor killed outright and restarted, its host
+    rejoining in a later generation; every acked write read back from
+    all three apps."""
+    import signal
+    from rdma_paxos_tpu_torch.runtime.elastic import (
+        GroupController, call, read_rowdump)
+    wd = tempfile.mkdtemp(prefix="rp-elastic-")
+    ctl = GroupController(expect=R, settle=1.2,
+                          barrier_timeout=ELASTIC_BARRIER)
+    regs = []
+    handle = ctl._handle
+
+    def recorded(req):
+        if req.get("op") == "register":
+            regs.append(dict(req))
+        return handle(req)
+    ctl._handle = recorded
+    ports = free_ports(R)
+    cfg = json.dumps(dict(log=GEOMETRIES["a"][0], timing=NODE_TIMING))
+    sups = {}
+    dirs = {h: os.path.join(wd, f"h{h}") for h in range(R)}
+
+    def start(h):
+        os.makedirs(dirs[h], exist_ok=True)
+        with open(os.path.join(dirs[h], "supervisor.out"), "a") as log:
+            sups[h] = subprocess.Popen(
+                [sys.executable, "-m", "rdma_paxos_tpu_torch.runtime.elastic",
+                 "--host-id", str(h), "--controller",
+                 f"127.0.0.1:{ctl.port}", "--workdir", dirs[h],
+                 "--app-port", str(ports[h]), "--round-iters", "25",
+                 "--cfg-json", cfg],
+                cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+
+    def spec_at(g):
+        with ctl._lock:
+            s = ctl._spec
+            return dict(s) if s is not None and s["gen"] >= g else None
+
+    def members(s):
+        return [m["host"] for m in s["members"]]
+
+    def leader_of(s):
+        for h in members(s):
+            d = read_rowdump(dirs[h], h)
+            if d is not None and d[1].get("gen") == s["gen"] \
+                    and d[1].get("leader"):
+                return h
+        return -1
+
+    def wait_leader(s):
+        wait_for(lambda: leader_of(s) >= 0,
+                 f"a leader of generation {s['gen']}", ELASTIC_WAIT)
+        return leader_of(s)
+
+    acked = []
+
+    def write(s, tag):
+        lead = wait_leader(s)
+        items = [(f"{tag}{i:04d}", f"{tag}v{i:04d}")
+                 for i in range(ELASTIC_SETS)]
+        pipelined_sets(ports[lead], [(k.encode(), v.encode())
+                                     for k, v in items])
+        acked.extend(items)
+        return lead
+
+    ends = []
+    try:
+        for h in range(R):
+            start(h)
+        wait_for(lambda: spec_at(1), "generation 1", ELASTIC_WAIT)
+        s1 = spec_at(1)
+        check(members(s1) == [0, 1, 2], f"generation 1 is {members(s1)}")
+        lead = write(s1, "a")
+        # the leader's host: supervisor stopped (it cannot re-register),
+        # worker SIGKILLed
+        victim, wpid = lead, worker_pid(sups[lead])
+        check(wpid > 0, "no worker process under the leader's supervisor")
+        os.kill(sups[victim].pid, signal.SIGSTOP)
+        n_regs = len(regs)
+        t_kill = time.perf_counter()
+        os.kill(wpid, signal.SIGKILL)
+        wait_for(lambda: spec_at(2), "generation 2", ELASTIC_WAIT)
+        s2 = spec_at(2)
+        survivors = members(s2)
+        check(victim not in survivors and len(survivors) == R - 1,
+              f"generation 2 is {survivors} after losing {victim}")
+        metas = {r["host"]: r["meta"] for r in regs[n_regs:]
+                 if r["host"] in survivors}
+        want = max(sorted(metas), key=lambda h: (
+            int(metas[h]["last_log_term"]), int(metas[h]["end"]),
+            -h)) if all(metas.values()) else -1
+        check(s2["donor"] == want, f"generation 2's donor {s2['donor']}, "
+                                   f"the (last_log_term, end) order names "
+                                   f"{want} ({metas})")
+        # how each survivor learnt of the loss: its collective raised
+        # (an unclean end) or the round barrier timed out (a clean one)
+        cut_s = time.perf_counter() - t_kill
+        learnt = {h: [("collective raised" if not e["clean"] else
+                       "barrier timed out") for e in worker_ends(dirs[h], h)
+                      if e["gen"] == s1["gen"]] for h in survivors}
+        # time to recover: from the SIGKILL to the first acked write
+        lead2 = wait_leader(s2)
+        c = AppClient(ports[lead2])
+        check(c.cmd("SET first-after-kill yes") == b"+OK",
+              "generation 2's leader did not ack a write")
+        c.close()
+        recover_s = time.perf_counter() - t_kill
+        acked.append(("first-after-kill", "yes"))
+        write(s2, "b")
+        # the stopped supervisor killed outright (with its app) and
+        # restarted: its host rejoins in a later generation
+        kill_group(sups[victim])
+        t_rejoin = time.perf_counter()
+        start(victim)
+        last = acked[-1]
+        wait_for(lambda: victim in members(spec_at(3) or s2),
+                 f"host {victim} readmitted", ELASTIC_WAIT)
+        wait_for(lambda: app_get(ports[victim], last[0], last[1].encode(),
+                                 1.0) == last[1].encode(),
+                 f"host {victim}'s app serving the outage's writes",
+                 ELASTIC_WAIT)
+        rejoin_s = time.perf_counter() - t_rejoin
+        s3 = spec_at(3)
+        write(s3, "c")
+        keys = [k for k, _ in acked]
+        want_v = [v.encode() for _, v in acked]
+        for h in range(R):
+            wait_for(lambda h=h: pipelined_gets(ports[h], keys) == want_v,
+                     f"app {h} serving every acked write", 60)
+        final = spec_at(3)
+        gens = [s1["gen"], s2["gen"], final["gen"]]
+        # break the generation (a member leaves) and close the
+        # controller: the workers end cleanly at their round barrier and
+        # print their counts; no supervisor can register again
+        call(f"127.0.0.1:{ctl.port}", {"op": "leave",
+                                       "host": members(final)[0]})
+        ctl.close()
+        for h in members(final):
+            wait_for(lambda h=h: any(
+                e["gen"] == final["gen"] for e in worker_ends(dirs[h], h)),
+                f"host {h}'s last worker ending", 60)
+        for h in range(R):
+            ends += [dict(e, host=h) for e in worker_ends(dirs[h], h)]
+    except Exception:
+        for h in range(R):
+            for name in ("supervisor.out", f"worker_h{h}.log"):
+                p = Path(dirs[h], name)
+                if p.exists():
+                    print(f"host {h} {name}: {p.read_text()[-2000:]}",
+                          flush=True)
+        raise
+    finally:
+        ctl.close()
+        for p in sups.values():
+            try:
+                os.kill(p.pid, signal.SIGCONT)
+            except ProcessLookupError:
+                pass
+            kill_group(p)
+        shutil.rmtree(wd, ignore_errors=True)
+    runs = []
+    for e in ends:
+        check(e["device"] == "cuda" and e["launches"] == e["steps"],
+              f"(15b) worker h{e['host']} gen {e['gen']}: {e['launches']} "
+              f"commit_window launches in {e['steps']} protocol steps")
+        runs.append(dict(launches=e["launches"] + e["launches_failed_call"],
+                         steps=e["steps"]))
+    per_it = [e["rowdump_ms"] / max(e["iterations"], 1) for e in ends]
+    print(f"elastic plane (15b) on {card}: generations {gens} (gen 2 cut "
+          f"from survivors {survivors} after host {victim}'s worker was "
+          f"SIGKILLed, {cut_s:.2f} s later; survivors: {learnt}; donor "
+          f"{s2['donor']} by (last_log_term, end)); time "
+          f"to recover (SIGKILL to the first acked write of gen "
+          f"{s2['gen']}) {recover_s:.2f} s; host {victim} restarted and "
+          f"serving the outage's writes after {rejoin_s:.2f} s; "
+          f"{len(acked)} acked writes read back from 3/3 apps; "
+          f"write_rowdump {min(per_it):.3f}-{max(per_it):.3f} ms per "
+          f"iteration", flush=True)
+    for e in ends:
+        print(f"elastic worker (15b) h{e['host']} gen {e['gen']} "
+              f"{'clean' if e['clean'] else 'failed'}: {e['iterations']} "
+              f"iterations, {e['steps']} protocol steps, {e['launches']} "
+              f"commit_window launches (+{e['launches_failed_call']} in "
+              f"the failed call), {e['rowdumps']} rowdumps in "
+              f"{e['rowdump_ms']:.1f} ms", flush=True)
+    return runs
+
+
+def worker_ends(wd: str, h: int) -> list:
+    """The ``WORKER_END`` records of host ``h``'s worker log."""
+    p = Path(wd, f"worker_h{h}.log")
+    if not p.exists():
+        return []
+    return [json.loads(ln.split(" ", 1)[1])
+            for ln in p.read_text(errors="replace").splitlines()
+            if ln.startswith("WORKER_END ")]
 
 
 class Phase:
@@ -5707,6 +6243,13 @@ def main() -> int:
     with Phase("14c", "one replica per process: three HostReplicaDriver "
                       "ranks on the card under gloo"):
         main_runs += phase_host_world(smi)
+    with Phase("15a", "the per-host NodeDaemon: launcher deployments and "
+                      "a deterministic run against its CPU twin"):
+        build_native()
+        main_runs += phase_node(smi)
+    with Phase("15b", "the elastic plane: controller, supervisors and "
+                      "workers on the card"):
+        main_runs += phase_elastic(smi)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

@@ -15,9 +15,9 @@ from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libstablestore.so")
+_LIB_PATH = os.path.join(NATIVE_DIR, "libstablestore.so")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -95,7 +95,7 @@ def _load() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     if not os.path.exists(_LIB_PATH):
-        subprocess.run(["make", "-C", _NATIVE_DIR, "libstablestore.so"],
+        subprocess.run(["make", "-C", NATIVE_DIR, "libstablestore.so"],
                        check=True, capture_output=True)
     lib = ctypes.CDLL(_LIB_PATH)
     lib.ss_open.restype = ctypes.c_void_p

@@ -459,3 +459,41 @@ def test_profiler_capture_holds_commit_window_kernels(tmp_path):
     assert doc["otherData"]["device_events"] > 0
     assert any("commit_window_kernel" in e.get("name", "")
                for e in doc["traceEvents"])
+
+
+def test_one_rank_node_daemon_on_the_card(tmp_path):
+    """A one-rank ``NodeDaemon`` on the card elects itself and commits a
+    write through its shim handler (bursts on, the card's default), with
+    one ``commit_window`` launch per protocol step."""
+    _need_card()
+    import socket
+    import torch.distributed as dist
+    from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.node import NodeDaemon
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    commit_window.launches = 0
+    node = NodeDaemon(
+        LogConfig(n_slots=256, slot_bytes=64, window_slots=32,
+                  batch_slots=32), process_id=0, num_processes=1,
+        coordinator=f"127.0.0.1:{port}", workdir=str(tmp_path),
+        timeout_cfg=TimeoutConfig(elec_timeout_low=1e9,
+                                  elec_timeout_high=2e9))
+    try:
+        assert node.hd.device.type == "cuda" and node.burst_enabled
+        node.prewarm_burst()
+        node.timer._deadline = 0.0
+        res = node.iterate()
+        assert int(res["role"]) == 3, res           # Role.LEADER
+        conn = node._on_event(2, 1, b"")
+        ev = node._on_event(3, 1, b"SET card yes\n")
+        for _ in range(4):
+            node.iterate()
+        assert conn.done.is_set() and ev.done.is_set() and ev.status == 0
+        assert len(node.store) >= 2
+        assert commit_window.launches == node.steps > 8
+    finally:
+        node.close()
+        dist.destroy_process_group()

@@ -5,6 +5,7 @@ CPU on its own."""
 
 import ast
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -85,7 +86,8 @@ def test_imports_with_jax_and_reference_blocked():
                 "streams.cdc", "streams.__main__", "topology.transition",
                 "topology.policy", "topology.chaos", "obs.console",
                 "obs.__main__", "obs.spans", "config", "parallel.mesh",
-                "runtime.host"):
+                "runtime.host", "runtime.node", "runtime.launch_node",
+                "runtime.elastic", "runtime.elastic_worker"):
         assert "rdma_paxos_tpu_torch." + mod in names, mod
 
 
@@ -114,6 +116,52 @@ def test_source_names_no_jax(path):
         assert top not in ("jax", "jaxlib", "rdma_paxos_tpu", "tests") \
             and not top.startswith(("test_", "conftest")), (
             f"{path}:{line} imports {mod}")
+
+
+# a string that names a module of the JAX package (``rdma_paxos_tpu.x``,
+# never ``rdma_paxos_tpu_torch``): a module spawned by name (``python -m``)
+# or imported through importlib escapes the import scan above
+JAX_MODULE_NAME = re.compile(r"\brdma_paxos_tpu(?:\.\w|$)")
+
+
+def _jax_module_strings(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and JAX_MODULE_NAME.search(node.value)):
+            yield node.lineno, node.value
+
+
+def test_jax_module_name_scan_finds_a_spawned_module(tmp_path):
+    bad = tmp_path / "spawn.py"
+    bad.write_text('argv = ["python", "-m",\n'
+                   '        "rdma_paxos_tpu.runtime.elastic_worker"]\n'
+                   'mod = f"rdma_paxos_tpu{""}"\n'
+                   'ok = "rdma_paxos_tpu_torch.runtime.elastic_worker"\n'
+                   'path = "rdma_paxos_tpu/ops/quorum.py:144"\n')
+    assert [ln for ln, _ in _jax_module_strings(bad)] == [2, 3]
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_source_strings_name_no_jax_module(path):
+    """No string constant names a module of the JAX package: the
+    supervisor spawns its worker by module name."""
+    found = list(_jax_module_strings(ROOT / path))
+    assert not found, f"{path}: {found}"
+
+
+def test_launcher_and_worker_default_to_the_card():
+    from rdma_paxos_tpu_torch.runtime import elastic_worker, launch_node
+    a = launch_node.parser().parse_args(["--coordinator", "h:1",
+                                         "--workdir", "w"])
+    b = elastic_worker.parser().parse_args(
+        ["--spec", "s", "--workdir", "w", "--host-id", "0",
+         "--controller", "c"])
+    for args in (a, b):
+        assert args.device == "cuda"
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                tconfig.resolve_device(args.device)
 
 
 def test_copied_constants_match_the_reference():
@@ -654,3 +702,37 @@ def test_host_world_and_profiler_copies_match_the_reference():
     for name in ("start", "expired", "maybe_stop", "stop", "chrome_events",
                  "summary"):
         assert hasattr(tdevice.ProfilerSession, name), name
+
+
+def test_node_and_elastic_copies_match_the_reference():
+    """The per-host daemon's and the elastic plane's public signatures
+    (plus the daemon's ``device`` and ``timeout`` and the supervisor's
+    ``worker_device``) and constants."""
+    import inspect
+
+    import rdma_paxos_tpu.runtime.elastic as jel
+    import rdma_paxos_tpu.runtime.node as jnode
+    import rdma_paxos_tpu_torch.runtime.elastic as tel
+    import rdma_paxos_tpu_torch.runtime.node as tnode
+
+    def params(fn, drop=()):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()
+                if p.name not in drop]
+    jd, td = jnode.NodeDaemon, tnode.NodeDaemon
+    for name in ("iterate", "run_iterations", "prewarm_burst", "_on_event",
+                 "_ingest_audit", "health", "bootstrap_from_store",
+                 "reset_app", "dump_row", "meta", "close"):
+        assert params(getattr(td, name)) == params(getattr(jd, name)), name
+    assert params(td.__init__, ("device", "timeout")) == params(jd.__init__)
+    assert [p[0] for p in params(td.__init__)][-2:] == ["device", "timeout"]
+    assert (td.BURST_K, td.REBASE_STALL_STEPS) == (jd.BURST_K,
+                                                   jd.REBASE_STALL_STEPS)
+    for name in ("_send_msg", "_recv_exact", "_recv_msg", "call",
+                 "dump_path", "write_dump", "read_dump", "rowdump_path",
+                 "write_rowdump", "read_rowdump", "best_recovery"):
+        assert params(getattr(tel, name)) == params(getattr(jel, name)), name
+    assert params(tel.GroupController.__init__) == params(
+        jel.GroupController.__init__)
+    assert params(tel.ElasticSupervisor.__init__, ("worker_device",)) == \
+        params(jel.ElasticSupervisor.__init__)
