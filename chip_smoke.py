@@ -247,7 +247,30 @@ exits non-zero without its result line):
     SIGKILL to the first acked write), the time to rejoin, the ms per
     iteration in ``write_rowdump``, and each worker's protocol steps and
     ``commit_window`` launches (equal);
-16. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+16. the single-controller engines over a device list, the layouts
+    repeating the one card and printed with their repeats: (16a)
+    ``SimCluster(mode="spmd")`` on ``[cuda:0] * 3`` at geometry (a) with
+    a rollover point the run crosses, psum and gather: election, 32 full
+    batches through ``step()`` (timed), a burst, a scan, the catch-up —
+    every dispatch's results, the streams and the rows equal to the
+    stacked engine on the card and to the same script on
+    ``["cpu"] * 3``, three ``commit_window`` launches per protocol step
+    (one per entry, N = 1); steps/s and committed entries/s beside the
+    stacked engine's, exchanges per step and ms per exchange; at
+    geometry (b) four batches, equal to the stacked engine; (16b)
+    ``ShardedCluster(mesh=(2, 3))`` at G = 8, geometry (a), and
+    ``mesh=(4, 3)`` at G = 64 on ``benchmarks/shard_bench.py``'s
+    geometry: (10b/10c)'s step, burst and scan drive, every dispatch
+    equal to the stacked group engine on the card and to the CPU twin,
+    one launch per entry per protocol step (6 over N = 4, 12 over
+    N = 16), aggregate entries/s beside the stacked engine's; one
+    audit+telemetry+txn step at G = 8 equal to the stacked engine's;
+    (16c) ``ShardedClusterDriver(mesh=(2, 3))`` at G = 4, geometry (a),
+    pipelined: (6a)'s shape (20480 SENDs of 100 B on 8 connections,
+    key-prefix routed) acked once each with status 0, in per-group
+    order, equal to the stacked driver's acks and streams; acked
+    events/s beside the stacked driver's;
+17. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
 after, so a failure names its phase.
@@ -445,6 +468,19 @@ def window_case(rng, dev, *, G: int, R: int, W: int, n_slots: int,
     return args, kw
 
 
+def entry_call(args, kw, R: int, groups: range, r: int):
+    """A device-list entry's commit-window call cut from a stacked
+    :func:`window_case`: replica ``r`` of each group in ``groups``, one
+    instance per group, each reading its own group's R gathered acks (the
+    row layout, ``my_ack [N * R]``). Returns the call and the stacked
+    instances it covers."""
+    idx = torch.tensor([g * R + r for g in groups], device=args[0].device)
+    acks = args[2].view(-1, R)[groups.start:groups.stop].reshape(-1)
+    return ((args[0][idx].contiguous(), args[1][idx].contiguous(),
+             acks.contiguous()),
+            {k: v[idx].contiguous() for k, v in kw.items()}), idx
+
+
 # edge cases of the commit window (see tests/test_torch_window.py)
 WINDOW_EDGES = {
     "ring wrap": lambda n_slots: dict(commit=2 * n_slots - 7),
@@ -465,10 +501,29 @@ def phase_window_checks(dev) -> dict:
              for G, r in ((1, 3), (1, 13), (64, 3)) for W in (16, 128, 2048)]
     cases += [(dict(G=4, R=3, W=W, n_slots=4 * W), edge(4 * W))
               for W in (16, 2048) for edge in WINDOW_EDGES.values()]
-    n_inst, found, lone = 0, 0, 0
+    n_inst, found, lone, rows = 0, 0, 0, 0
     for shape, extra in cases:
         args, kw = window_case(rng, dev, **shape, **extra)
         calls = [(args, kw)]
+        G, R = shape["G"], shape["R"]
+        if G > 1 and R == 3:
+            # the device-list entries' calls: replica r of a group
+            # shard's groups (1, 4 or 16 of them), the acks as rows; each
+            # must also equal the stacked call's instances
+            want_all = commit_window_ref(*args, w=shape["W"], **kw)
+            for gl in sorted({1, min(G, 16), G // 4}):
+                for s0 in range(0, G, gl)[:2]:
+                    for r in range(R):
+                        call, idx = entry_call(args, kw, R,
+                                               range(s0, s0 + gl), r)
+                        want = commit_window_ref(*call[0], w=shape["W"],
+                                                 **call[1])
+                        for a, b in zip(want, want_all):
+                            check(torch.equal(a, b[idx]),
+                                  "commit_window_ref: the row layout "
+                                  "disagrees with the stacked call")
+                        calls.append(call)
+                        rows += gl
         if shape["G"] == 1 and shape["R"] == 3:
             # the process-group step's call: each instance alone (N = 1)
             # with its group's R gathered acks
@@ -492,8 +547,10 @@ def phase_window_checks(dev) -> dict:
     check(0 < found < n_inst, "the crossing search was never exercised")
     print(f"kernel check: commit_window == commit_window_ref on {n_inst} "
           f"instances in {len(cases)} batches (N in 3/13/192, W in "
-          f"16/128/2048, and {lone} lone N = 1 instances reading their "
-          f"group's 3 acks; edge cases: {', '.join(WINDOW_EDGES)}; "
+          f"16/128/2048, {lone} lone N = 1 instances reading their "
+          f"group's 3 acks, {rows} instances of device-list entries "
+          f"(N = 1, 4 or 16) reading their own groups' acks as rows; edge "
+          f"cases: {', '.join(WINDOW_EDGES)}; "
           f"{found} with a crossing CONFIG row), max_abs_err 0", flush=True)
     return dict(max_abs_err=0, instances=n_inst)
 
@@ -2529,12 +2586,14 @@ def group_sends(G: int, B: int) -> list:
     return out
 
 
-def drive_groups(dev, geom: dict, G: int) -> dict:
+def drive_groups(dev, geom: dict, G: int, mesh=None) -> dict:
     """(10a-10c) the group engine's main path on ``dev``: place the
     leaders round-robin, then every group's seeded SEND stream — two
     batches through ``step()``, two through ``step_burst()``, two
     through the scan tier — and three catch-up steps. Returns what the
-    caller compares (with the launches counted from 0 over the run)."""
+    caller compares (with the launches counted from 0 over the run, and
+    every dispatch's results). With ``mesh=(group_shards, R)`` the
+    engine is the mesh engine on a list repeating ``dev`` (16b)."""
     from rdma_paxos_tpu_torch import convert
     from rdma_paxos_tpu_torch.config import LogConfig
     from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
@@ -2542,7 +2601,16 @@ def drive_groups(dev, geom: dict, G: int) -> dict:
     cfg = LogConfig(**geom)
     B = cfg.batch_slots
     sends = group_sends(G, B)
-    c = ShardedCluster(cfg, R, G, fanout=GROUP_FANOUT, device=dev)
+    c = ShardedCluster(cfg, R, G, fanout=GROUP_FANOUT, mesh=mesh,
+                       device=dev if mesh is None
+                       else [dev] * (mesh[0] * mesh[1]))
+    results = []
+    for name in ("step", "step_burst"):
+        def recorded(*a, _fn=getattr(c, name), **k):
+            res = _fn(*a, **k)
+            results.append({k_: np.array(res[k_]) for k_ in c.RES_KEYS})
+            return res
+        setattr(c, name, recorded)
     commit_window.launches = commit_scan.launches = 0
     t0 = time.perf_counter()
     leaders = c.place_leaders()
@@ -2583,11 +2651,13 @@ def drive_groups(dev, geom: dict, G: int) -> dict:
               f"G={G}: group {g}'s committed SENDs are not its stream")
         check((c.applied[g] == c.last["commit"][g]).all(),
               f"G={G}: group {g} did not catch up")
-    return dict(steps=c.step_index, launches=launches, scans=scans,
-                wall=wall, n_place=n_place, sends=sends,
-                entries=int(sum(len(s) for s in sends)),
-                replayed=[[list(s) for s in row] for row in c.replayed],
-                state=convert.replica_state_to_numpy(c.state))
+    out = dict(steps=c.step_index, launches=launches, scans=scans,
+               wall=wall, n_place=n_place, sends=sends,
+               entries=int(sum(len(s) for s in sends)), results=results,
+               replayed=[[list(s) for s in row] for row in c.replayed],
+               state=convert.replica_state_to_numpy(c.state))
+    c.close()
+    return out
 
 
 def drive_twin(dev, geom: dict, g: int, n_place: int, sends: list) -> dict:
@@ -2792,11 +2862,16 @@ def drive_group_kvs(dev) -> dict:
                          for t in kv.groups[g].tables] for g in range(G)])
 
 
-def drive_sharded_driver(dev, pipeline: int) -> dict:
+def drive_sharded_driver(dev, pipeline: int, mesh=None, conns=None,
+                         per_conn: int = GROUP_EVENTS_PER_CONN) -> dict:
     """(10f) ``ShardedClusterDriver`` at geometry (a), G = 4: the group
     timers elect round-robin, then pre-queued SENDs through all three
     replicas' shim handlers (a CONNECT held per connection, each
-    connection's keys in one group) until every event is acked."""
+    connection's keys in one group) until every event is acked.
+    ``conns`` lists each connection's replica (default
+    ``GROUP_CONNS_PER_REPLICA`` on each), ``per_conn`` its SENDs; with
+    ``mesh`` the cluster is the mesh engine on a list repeating ``dev``
+    (16c)."""
     from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
     from rdma_paxos_tpu_torch.ops.quorum import commit_window
     from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
@@ -2805,7 +2880,9 @@ def drive_sharded_driver(dev, pipeline: int) -> dict:
     geom, _ = GEOMETRIES["a"]
     G = 4
     d = ShardedClusterDriver(LogConfig(**geom), R, G, fanout=GROUP_FANOUT,
-                             pipeline=pipeline, device=dev,
+                             pipeline=pipeline, mesh=mesh,
+                             device=dev if mesh is None
+                             else [dev] * (mesh[0] * mesh[1]),
                              timeout_cfg=TimeoutConfig(**TIMERS_OFF),
                              group_timer_lo=1, group_timer_hi=2)
     try:
@@ -2818,21 +2895,21 @@ def drive_sharded_driver(dev, pipeline: int) -> dict:
               f"(10f) the group timers elected {d.leaders()}")
         handlers = [d._make_handler(r) for r in range(R)]
         evs, order = [], []
-        n_conn = GROUP_CONNS_PER_REPLICA
-        for r in range(R):
-            for i in range(n_conn):
-                conn = (r << 24) | (300 + i)
-                check(handlers[r](2, conn, b"") == 0,
-                      "(10f) a CONNECT was not held")
-                tid = r * n_conn + i
-                g = d.router.group_of(b"k%d" % tid)
-                for j in range(GROUP_EVENTS_PER_CONN):
-                    p = (b"SET k%d-%d " % (tid, j)).ljust(FRONT_BYTES, b"v")
-                    ev = handlers[r](3, conn, p)
-                    check(isinstance(ev, PendingEvent),
-                          "(10f) a SEND was refused")
-                    evs.append(ev)
-                    order.append((g, r))
+        if conns is None:
+            conns = [r for r in range(R)
+                     for _ in range(GROUP_CONNS_PER_REPLICA)]
+        for tid, r in enumerate(conns):
+            conn = (r << 24) | (300 + conns[:tid].count(r))
+            check(handlers[r](2, conn, b"") == 0,
+                  "(10f) a CONNECT was not held")
+            g = d.router.group_of(b"k%d" % tid)
+            for j in range(per_conn):
+                p = (b"SET k%d-%d " % (tid, j)).ljust(FRONT_BYTES, b"v")
+                ev = handlers[r](3, conn, p)
+                check(isinstance(ev, PendingEvent),
+                      "(10f) a SEND was refused")
+                evs.append(ev)
+                order.append((g, r))
         rel = np.zeros(len(evs))
         fired = np.zeros(len(evs), np.int64)
 
@@ -2869,6 +2946,7 @@ def drive_sharded_driver(dev, pipeline: int) -> dict:
         return dict(launches=commit_window.launches,
                     steps=c.step_index - steps0, wall=wall,
                     events=len(evs), streams=streams,
+                    statuses=[e.status for e in evs],
                     max_inflight=c.max_inflight_dispatches)
     finally:
         d.stop()
@@ -6170,6 +6248,321 @@ class Phase:
         return False
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the single-controller engines over a device list
+# ---------------------------------------------------------------------------
+
+# (16a): geometry (a) with a rollover point the 32 timed batches cross
+SPMD_GEOM = dict(GEOMETRIES["a"][0], rebase_threshold=1 << 16)
+SPMD_BATCHES = 32
+SPMD_B_BATCHES = 4
+# (16b): (tag, geometry, G, mesh)
+MESH_CASES = (("G=8", GEOMETRIES["a"][0], 8, (2, 3)),
+              ("G=64", SHARD_GEOM, 64, (4, 3)))
+MESH_RATE_STEPS = 10
+# (16c): (6a)'s shape, 8 connections of 2560 SENDs of 100 B each
+MESH_DRIVER_CONNS = [c % R for c in range(8)]
+MESH_DRIVER_PER_CONN = 2560
+
+
+def spmd_run(dev, geom: dict, fanout: str, n_batches: int,
+             spmd: bool) -> dict:
+    """(16a) one engine's script on ``dev`` (``spmd``: the spmd engine on
+    ``[dev] * 3``, else the stacked engine): elect replica 0,
+    ``n_batches`` full batches through ``step()`` (timed), a burst and a
+    scan burst, then steps until the queue drains and every replica has
+    caught up. Every dispatch's results are recorded."""
+    from rdma_paxos_tpu_torch import convert
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    cfg = LogConfig(**geom)
+    B = cfg.batch_slots
+    c = (SimCluster(cfg, R, mode="spmd", fanout=fanout, device=[dev] * R)
+         if spmd else SimCluster(cfg, R, fanout=fanout, device=dev))
+    try:
+        results, seq = [], [0]
+
+        def rec(res):
+            results.append({k: np.array(res[k]) for k in c.RES_KEYS})
+
+        def feed(n):
+            c.submit_many(0, [(3, 1 + (seq[0] + j) % 64, 0,
+                               host_payload(seq[0] + j)) for j in range(n)])
+            seq[0] += n
+
+        def committed():
+            return int(c.last["commit"][0]) + int(c.rebased_total)
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        commit_window.launches = commit_scan.launches = 0
+        rec(c.step(timeouts=[0]))
+        check(c.leader() == 0, f"(16a) no election: {c.last['role']}")
+        sync()
+        w = c.world
+        ex0 = (w.exchanges, w.exchange_s) if spmd else (0, 0.0)
+        s0, c0 = c.step_index, committed()
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            feed(B)
+            rec(c.step())
+        sync()
+        timed = dict(wall=time.perf_counter() - t0, steps=c.step_index - s0,
+                     entries=committed() - c0,
+                     exchanges=(w.exchanges - ex0[0]) if spmd else 0,
+                     exchange_s=(w.exchange_s - ex0[1]) if spmd else 0.0)
+        feed(4 * B)
+        rec(c.step_burst())
+        c.scan = True
+        feed(2 * B)
+        rec(c.step_burst())
+        c.scan = False
+        for _ in range(12):
+            rec(c.step())
+            if not c.pending[0] and (c.applied == c.last["commit"][0]).all():
+                break
+        check(not c.pending[0] and (c.applied == c.last["commit"][0]).all(),
+              "(16a) the replicas did not catch up")
+        s = list(c.replayed[0])
+        check(all(list(c.replayed[r]) == s for r in range(R))
+              and [p for (t, _c, _q, p) in s if t == 3]
+              == [host_payload(i) for i in range(seq[0])],
+              "(16a) the committed streams are not the submitted SENDs")
+        sync()
+        return dict(results=results, replayed=[list(x) for x in c.replayed],
+                    state=convert.replica_state_to_numpy(c.state),
+                    steps=c.step_index, launches=commit_window.launches,
+                    scans=commit_scan.launches, rebases=int(c.rebases),
+                    scan_dispatches=c.scan_dispatches, timed=timed)
+    finally:
+        c.close()
+
+
+def compare_steps(tag: str, a: dict, b: dict) -> None:
+    """Every dispatch's results, the replay streams and the state."""
+    check(len(a["results"]) == len(b["results"]),
+          f"{tag}: {len(a['results'])} dispatches against "
+          f"{len(b['results'])}")
+    for i, (x, y) in enumerate(zip(a["results"], b["results"])):
+        for k, v in x.items():
+            check(np.array_equal(v, y[k]), f"{tag}: dispatch {i}: {k} "
+                                           f"differs")
+    compare_runs(tag, a, b)
+
+
+def mesh_rate(dev, geom: dict, G: int, mesh) -> tuple:
+    """(16b) steps/s and aggregate committed entries/s of
+    ``MESH_RATE_STEPS`` full-batch ``step()`` calls (16-byte SENDs in
+    every group), on the mesh engine or (``mesh=None``) the stacked
+    one."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    cfg = LogConfig(**geom)
+    B = cfg.batch_slots
+    c = ShardedCluster(cfg, R, G, fanout=GROUP_FANOUT, mesh=mesh,
+                       device=dev if mesh is None
+                       else [dev] * (mesh[0] * mesh[1]))
+    try:
+        leaders = c.place_leaders()
+
+        def feed():
+            for g in range(G):
+                c.submit_many(g, leaders[g], [(3, 1, 0, b"x" * 16)] * B)
+
+        def committed():
+            return int(sum(int(c.last["commit"][g, leaders[g]])
+                           + int(c.rebased_total[g]) for g in range(G)))
+        for _ in range(3):
+            feed()
+            c.step()
+        torch.cuda.synchronize()
+        s0, c0 = c.step_index, committed()
+        t0 = time.perf_counter()
+        for _ in range(MESH_RATE_STEPS):
+            feed()
+            c.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return (c.step_index - s0) / dt, (committed() - c0) / dt
+    finally:
+        c.close()
+
+
+def mesh_variant_step(dev) -> dict:
+    """(16b) one audit+telemetry+txn serial step at G = 8, geometry (a),
+    on the 2x3 mesh engine against the stacked engine on the card."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    cfg = LogConfig(**GEOMETRIES["a"][0])
+    G = 8
+    out = {}
+    for name, mesh in (("vmap", None), ("mesh", (2, 3))):
+        c = ShardedCluster(cfg, R, G, fanout=GROUP_FANOUT, mesh=mesh,
+                           audit=True, telemetry=True, txn=True,
+                           device=dev if mesh is None else [dev] * 6)
+        try:
+            leaders = c.place_leaders()
+            for g in range(G):
+                c.submit_many(g, leaders[g], [(3, 1, 0, host_payload(i))
+                                              for i in range(64)])
+            c.step()
+            c.set_txn_watch(0, int(c.last["end"][0, leaders[0]]) - 1,
+                            int(c.last["term"][0, leaders[0]]))
+            n0 = commit_window.launches
+            res = c.step()
+            out[name] = dict(
+                res={k: np.array(v) for k, v in res.items()},
+                launches=commit_window.launches - n0,
+                ledger=json.dumps(no_anchor(c.auditor.dump()),
+                                  sort_keys=True, default=str),
+                counters=np.array(c.device_counters))
+        finally:
+            c.close()
+    a, b = out["vmap"], out["mesh"]
+    check(set(a["res"]) == set(b["res"]) and all(
+        np.array_equal(v, b["res"][k]) for k, v in a["res"].items()),
+        "(16b) the audit+telemetry+txn step differs from the stacked "
+        "engine's")
+    check(a["ledger"] == b["ledger"]
+          and np.array_equal(a["counters"], b["counters"]),
+          "(16b) the ledger or the device counters differ")
+    check((b["res"]["txn_vote"][0] > 0).all(),
+          f"(16b) group 0's watch was not voted on: "
+          f"{b['res']['txn_vote'][0]}")
+    check(a["launches"] == 1 and b["launches"] == 6,
+          f"(16b) the variant step launched commit_window {a['launches']} "
+          f"(stacked) and {b['launches']} (mesh) times")
+    return b
+
+
+def phase_device_list(dev, card: str) -> list:
+    """Phase 16: the spmd and mesh engines on lists repeating the one
+    card; returns the protocol steps and commit_window launches of their
+    runs."""
+    from rdma_paxos_tpu_torch.parallel.mesh import (
+        build_mesh_2d, make_replica_mesh)
+    cpu = torch.device("cpu")
+    runs = []
+    print(f"device list (16): layouts {make_replica_mesh(R, [dev] * R).describe()}"
+          f"; {build_mesh_2d(2, R, [dev] * 6).describe()}; "
+          f"{build_mesh_2d(4, R, [dev] * 12).describe()}", flush=True)
+
+    # (16a) SimCluster(mode="spmd") against the stacked engine and a CPU
+    # twin, psum and gather at (a), gather at (b)
+    for fanout in ("psum", "gather"):
+        sp = spmd_run(dev, SPMD_GEOM, fanout, SPMD_BATCHES, True)
+        st = spmd_run(dev, SPMD_GEOM, fanout, SPMD_BATCHES, False)
+        compare_steps(f"(16a) {fanout}: spmd against the stacked engine",
+                      sp, st)
+        t0 = time.perf_counter()
+        tw = spmd_run(cpu, SPMD_GEOM, fanout, SPMD_BATCHES, True)
+        cpu_s = time.perf_counter() - t0
+        compare_steps(f"(16a) {fanout}: the CPU twin", sp, tw)
+        check(sp["launches"] == R * sp["steps"] and sp["scans"] == 0
+              and st["launches"] == st["steps"],
+              f"(16a) {fanout}: {sp['launches']} commit_window launches in "
+              f"{sp['steps']} spmd protocol steps, {st['launches']} in "
+              f"{st['steps']} stacked")
+        check(sp["rebases"] >= 1 and sp["scan_dispatches"] > 0,
+              f"(16a) {fanout}: {sp['rebases']} rollovers, "
+              f"{sp['scan_dispatches']} scans")
+        runs.append(dict(launches=sp["launches"], steps=sp["steps"]))
+        ts, tt = sp["timed"], st["timed"]
+        print(f"device list (16a) on {card}: SimCluster(mode='spmd') on "
+              f"[{dev}] * 3 at geometry (a) {fanout}, {SPMD_BATCHES} full "
+              f"batches timed: {ts['steps'] / ts['wall']:.2f} steps/s "
+              f"{ts['entries'] / ts['wall']:.0f} committed entries/s "
+              f"against the stacked engine's {tt['steps'] / tt['wall']:.2f}"
+              f" steps/s {tt['entries'] / tt['wall']:.0f} entries/s "
+              f"(ratio {tt['wall'] / ts['wall']:.3f}); "
+              f"{ts['exchanges'] / ts['steps']:.2f} exchanges per step, "
+              f"{ts['exchange_s'] / max(ts['exchanges'], 1) * 1e3:.3f} ms "
+              f"per exchange (entry 0, waits included); "
+              f"{sp['launches'] / sp['steps']:.2f} commit_window launches "
+              f"per protocol step (N = 1 each); {sp['steps']} protocol "
+              f"steps, {sp['rebases']} rollover(s), "
+              f"{sp['scan_dispatches']} scan(s); every dispatch's results,"
+              f" the streams and the rows equal to the stacked engine on "
+              f"the card and to the CPU twin ({cpu_s:.1f} s)", flush=True)
+    geom_b, fan_b = GEOMETRIES["b"]
+    sp = spmd_run(dev, geom_b, fan_b, SPMD_B_BATCHES, True)
+    st = spmd_run(dev, geom_b, fan_b, SPMD_B_BATCHES, False)
+    compare_steps("(16a) geometry (b): spmd against the stacked engine",
+                  sp, st)
+    check(sp["launches"] == R * sp["steps"],
+          f"(16a) (b): {sp['launches']} launches in {sp['steps']} steps")
+    runs.append(dict(launches=sp["launches"], steps=sp["steps"]))
+    print(f"device list (16a) on {card}: geometry (b) {fan_b}, "
+          f"{SPMD_B_BATCHES} full batches: {sp['steps']} protocol steps, "
+          f"{sp['launches']} commit_window launches, equal to the stacked "
+          f"engine on the card", flush=True)
+
+    # (16b) the mesh engine against the stacked group engine and a CPU
+    # twin
+    for tag, geom, G, mesh in MESH_CASES:
+        n_entries = mesh[0] * mesh[1]
+        ms = drive_groups(dev, geom, G, mesh)
+        vm = drive_groups(dev, geom, G)
+        compare_steps(f"(16b) {tag}: the mesh against the stacked engine",
+                      ms, vm)
+        t0 = time.perf_counter()
+        tw = drive_groups(cpu, geom, G, mesh)
+        cpu_s = time.perf_counter() - t0
+        compare_steps(f"(16b) {tag}: the CPU twin", ms, tw)
+        check(ms["launches"] == n_entries * ms["steps"] and ms["scans"] == 0,
+              f"(16b) {tag}: {ms['launches']} launches in {ms['steps']} "
+              f"protocol steps")
+        runs.append(dict(launches=ms["launches"], steps=ms["steps"]))
+        m_rate = mesh_rate(dev, geom, G, mesh)
+        v_rate = mesh_rate(dev, geom, G, None)
+        print(f"device list (16b) on {card}: ShardedCluster(mesh={mesh}) "
+              f"{tag} at {geom} {GROUP_FANOUT} on [{dev}] * {n_entries}: "
+              f"{ms['steps']} protocol steps (step, burst, scan), "
+              f"{ms['launches'] / ms['steps']:.2f} commit_window launches "
+              f"per protocol step (N = {G // mesh[0]} each); every "
+              f"dispatch's results, the streams and the state equal to the"
+              f" stacked engine on the card and to the CPU twin "
+              f"({cpu_s:.1f} s); step(): {m_rate[0]:.2f} steps/s "
+              f"{m_rate[1]:.0f} committed entries/s (all groups) against "
+              f"the stacked engine's {v_rate[0]:.2f} steps/s "
+              f"{v_rate[1]:.0f} (ratio {m_rate[1] / v_rate[1]:.3f})",
+              flush=True)
+    var = mesh_variant_step(dev)
+    print(f"device list (16b) on {card}: one audit+telemetry+txn step at "
+          f"G = 8 on the 2x3 mesh equal to the stacked engine (results, "
+          f"votes {var['res']['txn_vote'][0].tolist()} in group 0, "
+          f"ledger, device counters), {var['launches']} commit_window "
+          f"launches", flush=True)
+
+    # (16c) the sharded driver on the mesh engine
+    md = drive_sharded_driver(dev, pipeline=2, mesh=(2, R),
+                              conns=MESH_DRIVER_CONNS,
+                              per_conn=MESH_DRIVER_PER_CONN)
+    vd = drive_sharded_driver(dev, pipeline=2, conns=MESH_DRIVER_CONNS,
+                              per_conn=MESH_DRIVER_PER_CONN)
+    check(md["statuses"] == vd["statuses"] == [0] * md["events"],
+          "(16c) the acks differ from the stacked driver's")
+    check(md["streams"] == vd["streams"],
+          "(16c) the committed streams differ from the stacked driver's")
+    check(md["launches"] == 2 * R * md["steps"],
+          f"(16c) {md['launches']} launches in {md['steps']} protocol "
+          f"steps")
+    runs.append(dict(launches=md["launches"], steps=md["steps"]))
+    print(f"device list (16c) on {card}: ShardedClusterDriver(mesh=(2, 3))"
+          f" G = 4 at geometry (a), pipeline 2: {md['events']} SEND events"
+          f" of {FRONT_BYTES} B on {len(MESH_DRIVER_CONNS)} connections "
+          f"acked once each with status 0, in per-group order, equal to "
+          f"the stacked driver's acks and streams; {md['events'] / md['wall']:.0f}"
+          f" acked events/s against the stacked driver's "
+          f"{vd['events'] / vd['wall']:.0f}; {md['steps']} protocol steps,"
+          f" {md['launches']} commit_window launches, max "
+          f"{md['max_inflight']} dispatches in flight", flush=True)
+    return runs
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -6250,6 +6643,9 @@ def main() -> int:
     with Phase("15b", "the elastic plane: controller, supervisors and "
                       "workers on the card"):
         main_runs += phase_elastic(smi)
+    with Phase(16, "the single-controller engines over a device list "
+                   "(16a spmd, 16b mesh, 16c the sharded driver)"):
+        main_runs += phase_device_list(dev, smi)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

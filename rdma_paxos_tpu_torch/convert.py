@@ -131,7 +131,9 @@ def sim_snapshot(cluster) -> dict:
 
 def sim_restore(cluster, snap: dict) -> None:
     """Load :func:`sim_snapshot` output into the port's ``SimCluster``
-    (same geometry), on the cluster's device."""
+    (same geometry), on the cluster's device (on a device list each
+    replica's row on its entry's device: a JAX ``mode="spmd"`` state
+    becomes per-device rows)."""
     if cluster._tickets:
         raise RuntimeError("restore with dispatches in flight")
     with cluster._host_lock:
@@ -184,7 +186,8 @@ def sharded_snapshot(cluster) -> dict:
 def sharded_restore(cluster, snap: dict) -> None:
     """Load :func:`sharded_snapshot` output into the port's
     ``ShardedCluster`` (same geometry and group count), on the
-    cluster's device."""
+    cluster's device (on a mesh engine each entry's group rows on its
+    device)."""
     if cluster._tickets:
         raise RuntimeError("restore with dispatches in flight")
     with cluster._host_lock:

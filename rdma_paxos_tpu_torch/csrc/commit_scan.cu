@@ -23,9 +23,11 @@
 // (rdma_paxos_tpu/consensus/step.py:744-803: the ack gather, the window's
 // term column, the scan, the leader's commit select, and the
 // commit-crossing CONFIG search `crossed` / `_lex_argmax`). Per instance n
-// (N = G x R: G groups of R = n_rep replicas; or N = 1, the one replica
-// of a process-group step, whose my_ack holds its group's R acks):
-//   acks[r]  = peer_acked[n, r] ? my_ack[(n / R) * R + r] : 0
+// (N = G x R: G groups of R = n_rep replicas; or, with ack_rows set, N
+// instances each holding its own row of R gathered acks: the one replica
+// of a process-group step, or a device-list entry's rows of N groups):
+//   acks[r]  = peer_acked[n, r] ? my_ack[(ack_rows ? n : n / R) * R + r]
+//                               : 0
 //   scanned  = the commit scan above over acks, with the terms read from
 //              the ring rows commit + j, j < W
 //   commit2  = i_lead[n] ? max(commit, scanned) : commit1[n]
@@ -36,7 +38,7 @@
 //   buf  [N, n_slots, row_w] i32  the fused log ring, read in place: row
 //        g sits at slot g & (n_slots - 1); its metadata words start at
 //        column meta_off (M_TYPE, M_TERM, M_GIDX at +0, +1, +5)
-//   peer_acked [N, R] bool, my_ack [N] i32 ([R] when N = 1),
+//   peer_acked [N, R] bool, my_ack [N] i32 ([N * R] with ack_rows),
 //   i_lead [N] bool,
 //   commit/my_term/my_end/transit/maj_old/maj_new/commit1 [N] i32,
 //   bm_old/bm_new [N] int64 holding a u32 (the low 32 bits are read)
@@ -168,7 +170,7 @@ commit_window_kernel(const int* __restrict__ buf,
                      const bool* __restrict__ i_lead_v,
                      const int* __restrict__ commit1_v,
                      int* __restrict__ out, int n_inst, int n_rep, int w,
-                     int n_slots, int row_w, int meta_off) {
+                     int n_slots, int row_w, int meta_off, int ack_rows) {
   // two bits per window row, one word per 32 rows: s_bits[k] holds
   // term == my_term, s_bits[n_words + k] "CONFIG stamped with its index"
   extern __shared__ unsigned s_bits[];
@@ -187,7 +189,8 @@ commit_window_kernel(const int* __restrict__ buf,
   if (threadIdx.x < kMemberBits) {
     const int r = threadIdx.x;
     s_ends[r] = r < n_rep && peer_acked[static_cast<size_t>(n) * n_rep + r]
-                    ? my_ack[n / n_rep * n_rep + r] : 0;
+                    ? my_ack[(ack_rows ? n : n / n_rep) * n_rep + r]
+                    : 0;
   }
   __syncthreads();
 
@@ -273,9 +276,9 @@ extern "C" int commit_window_launch(
     const long long* bm_old, const long long* bm_new, const int* transit,
     const int* maj_old, const int* maj_new, const bool* i_lead,
     const int* commit1, int* out, int n, int n_rep, int w, int n_slots,
-    int row_w, int meta_off, void* stream) {
+    int row_w, int meta_off, int ack_rows, void* stream) {
   if (n <= 0) return 0;
-  if (w <= 0 || n_rep <= 0 || (n % n_rep != 0 && n != 1) ||
+  if (w <= 0 || n_rep <= 0 || (n % n_rep != 0 && !ack_rows) ||
       n_slots <= 0 || (n_slots & (n_slots - 1)) != 0 || meta_off < 0 ||
       meta_off + kMetaW > row_w)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -291,6 +294,6 @@ extern "C" int commit_window_launch(
                          static_cast<cudaStream_t>(stream)>>>(
       buf, peer_acked, my_ack, commit, my_term, my_end, bm_old, bm_new,
       transit, maj_old, maj_new, i_lead, commit1, out, n, n_rep, w, n_slots,
-      row_w, meta_off);
+      row_w, meta_off, ack_rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -428,9 +428,12 @@ def merge_timeline(span_dumps, *, phase_events: Optional[Sequence] = None,
 # per-variant dispatch reports
 # ---------------------------------------------------------------------------
 
-def count_ops(fn) -> int:
+def count_ops(fn, world=None) -> int:
     """The non-view PyTorch ops ``fn()`` dispatches — what decides the
-    kernels it launches, counted exactly at the dispatcher."""
+    kernels it launches, counted exactly at the dispatcher. A dispatch
+    mode holds for its own thread only: with a device-list engine's
+    ``world`` every job its worker threads run meanwhile is counted
+    too."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -440,9 +443,16 @@ def count_ops(fn) -> int:
             if not func.is_view:
                 self.n += 1
             return func(*args, **(kwargs or {}))
-    with Count() as m:
-        fn()
-    return m.n
+    modes = [Count()]
+    if world is not None:
+        world.job_context = lambda: modes.append(Count()) or modes[-1]
+    try:
+        with modes[0]:
+            fn()
+    finally:
+        if world is not None:
+            world.job_context = None
+    return sum(m.n for m in modes)
 
 
 def count_kernels(fn) -> Optional[int]:
@@ -481,12 +491,14 @@ def _example_step_args(cluster):
 
 def _measure(cluster, call) -> dict:
     """Ops (and on the card kernels) of ``call(state)``, each run on a
-    fresh clone of the live state."""
-    from rdma_paxos_tpu_torch.consensus.state import clone_state
-    st = clone_state(cluster.state)
-    row = dict(ops=count_ops(lambda: call(st)), kernels=None)
+    fresh clone of the live state (a device-list engine's blocks: every
+    entry's ops and kernels are counted)."""
+    st = cluster.clone_live()
+    row = dict(ops=count_ops(lambda: call(st),
+                             world=getattr(cluster, "world", None)),
+               kernels=None)
     if cluster.device.type == "cuda":
-        st = clone_state(cluster.state)
+        st = cluster.clone_live()
         row["kernels"] = count_kernels(lambda: call(st))
     return row
 

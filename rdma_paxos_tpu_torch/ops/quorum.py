@@ -28,6 +28,7 @@ tensors — never one in place of the other — and counts its launches.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -103,10 +104,11 @@ def commit_window_ref(buf, peer_acked, my_ack, *, commit, my_term, my_end,
     ``buf [N, n_slots, cols]`` is the fused ring; ``peer_acked [N, R]``
     bool says whose ack instance n counts; ``my_ack [N]`` is each
     replica's own ack offset (instance n reads the R entries of its
-    group, ``n // R``) — or, for one lone instance (``N = 1``, the
-    process-group step's replica), ``my_ack [R]`` holds its group's R
-    gathered acks, which the same rule reads; ``i_lead`` is bool, ``bm_*`` int64 holding a
-    u32, the rest ``[N]`` i32. Returns ``(commit2, xpos)``, both ``[N]``
+    group, ``n // R``) — or ``my_ack [N * R]`` holds each instance's own
+    row of R gathered acks (instance n reads row n: the replica of a
+    process-group step, ``N = 1``, or a device-list entry's rows of
+    distinct groups); ``i_lead`` is bool, ``bm_*`` int64 holding a u32,
+    the rest ``[N]`` i32. Returns ``(commit2, xpos)``, both ``[N]``
     i32: the leader's scanned commit (else ``commit1``) and the window
     row of the newest CONFIG entry crossing below ``commit2`` (-1 if
     none)."""
@@ -179,12 +181,14 @@ def _check_window(buf, peer_acked, my_ack, w, v) -> None:
     if not 1 <= w <= n_slots:
         raise ValueError(f"{who}: window {w} outside 1..{n_slots}")
     R = peer_acked.shape[-1] if peer_acked.dim() == 2 else 0
-    if R < 1 or (N % R and N != 1):
+    rows = R > 1 and my_ack.numel() == N * R
+    if R < 1 or (N % R and not rows):
         raise ValueError(f"{who}: peer_acked shape {tuple(peer_acked.shape)}"
                          f" does not split {N} instances into groups")
     n = (N,)
-    # a lone instance outside whole groups reads its group's R acks
-    n_ack = (R,) if N % R else n
+    # instances outside whole groups (a process's replica, a device-list
+    # entry's group rows) each read their own row of R gathered acks
+    n_ack = (N * R,) if rows else n
     _check(who, (("peer_acked", peer_acked, torch.bool, (N, R)),
                  ("my_ack", my_ack, I32, n_ack),
                  ("i_lead", v["i_lead"], torch.bool, n),
@@ -196,7 +200,7 @@ def _check_window(buf, peer_acked, my_ack, w, v) -> None:
 _ARGTYPES = {
     "commit_scan_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
-    "commit_window_launch": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+    "commit_window_launch": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
 }
 _fns: dict = {}
@@ -253,11 +257,15 @@ def commit_scan(ends: torch.Tensor, terms: torch.Tensor,
         _check_scan(ends, terms, scal)
         return commit_scan_ref(ends, terms, scal)
     out = commit_scan_cuda(ends, terms, scal)
-    commit_scan.launches += 1
+    with _COUNT_LOCK:
+        commit_scan.launches += 1
     return out
 
 
 commit_scan.launches = 0
+# the launch counts are exact under threads (a device-list engine steps
+# every entry on its own thread)
+_COUNT_LOCK = threading.Lock()
 
 
 def commit_window_cuda(buf, peer_acked, my_ack, *, w: int, **v):
@@ -275,7 +283,8 @@ def commit_window_cuda(buf, peer_acked, my_ack, *, w: int, **v):
         v["bm_new"].data_ptr(), v["transit"].data_ptr(),
         v["maj_old"].data_ptr(), v["maj_new"].data_ptr(),
         v["i_lead"].data_ptr(), v["commit1"].data_ptr(), out.data_ptr(),
-        N, peer_acked.shape[1], w, n_slots, cols, cols - META_W, stream))
+        N, peer_acked.shape[1], w, n_slots, cols, cols - META_W,
+        int(my_ack.numel() != N), stream))
     return out[0], out[1]
 
 
@@ -287,7 +296,8 @@ def commit_window(buf, peer_acked, my_ack, *, w: int, **v):
         _check_window(buf, peer_acked, my_ack, w, v)
         return commit_window_ref(buf, peer_acked, my_ack, w=w, **v)
     out = commit_window_cuda(buf, peer_acked, my_ack, w=w, **v)
-    commit_window.launches += 1
+    with _COUNT_LOCK:
+        commit_window.launches += 1
     return out
 
 

@@ -443,7 +443,8 @@ class ClusterDriver:
     def _make_cluster(self, cfg, n_replicas, group_size, mode, fanout,
                       audit, telemetry, device, txn=False):
         """Engine factory: the port's SimCluster on ``device`` (the card
-        unless the caller names the CPU)."""
+        unless the caller names the CPU; with ``mode="spmd"`` a device
+        list, one entry per replica)."""
         return SimCluster(cfg, n_replicas, group_size, mode=mode,
                           fanout=fanout, audit=audit, telemetry=telemetry,
                           scan=self._scan, txn=txn, device=device)
@@ -1994,6 +1995,8 @@ class ClusterDriver:
                         res.close()
                     except OSError:
                         pass
+            # a device-list engine's worker threads (none when stacked)
+            self.cluster.close()
         finally:
             # latch only after the cleanup actually ran
             self._stopped = True

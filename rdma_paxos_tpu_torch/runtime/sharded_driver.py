@@ -43,8 +43,14 @@ ShardedCluster` on the card (``device="cpu"`` in the tests):
 
 Differences from the JAX driver, each failing loudly: the surfaces that
 are single-group by design raise as in the JAX driver (membership,
-``recover_replica``, ``reset_app``, ``checkpoint_app``); the multi-chip
-engine (``mesh=``) raises naming ROADMAP Queue 1, item 14.
+``recover_replica``, ``reset_app``, ``checkpoint_app``).
+
+With ``mesh=(group_shards, R)`` and a device list (``device=``, None for
+the machine's cards) the cluster is the device-list engine; the loop is
+unchanged. Its dispatch returns only once every worker thread has passed
+its last seam (the engine's ``begin_*`` joins its world), so the
+readback thread never meets a half-stepped engine, and ``stop()`` joins
+the world's threads.
 """
 
 from __future__ import annotations

@@ -1,5 +1,16 @@
-"""In-process multi-replica cluster: R replicas stacked on one device,
-with the host-side bookkeeping of the replicated write path.
+"""In-process multi-replica cluster: R replicas stacked on one device
+(``mode="sim"``), or one replica per entry of a device list
+(``mode="spmd"``), with the host-side bookkeeping of the replicated
+write path.
+
+In spmd mode the replicas' rows live on their entries' devices and are
+the state's authority; a :class:`~rdma_paxos_tpu_torch.parallel.mesh.
+DeviceWorld` steps them (one worker thread per entry, each step's seams
+explicit exchanges), and the step, burst, scan tier and replay fetch run
+on the world with stacked inputs and outputs, so every host rule below
+is the stacked engine's. ``cluster.state`` is then an assembled
+read-only view; assigning it places each row on its device, and
+``cluster.blocks`` are the rows themselves.
 
 The port of ``rdma_paxos_tpu/runtime/sim.py:SimCluster``'s core: client
 submission, partitions through per-replica ``peer_mask`` rows, the
@@ -49,7 +60,10 @@ fetches only as many rows as the furthest-behind replica decodes.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import functools
 import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,12 +73,14 @@ from rdma_paxos_tpu_torch.config import (
     LogConfig, REBASE_STALL_STEPS, resolve_device)
 from rdma_paxos_tpu_torch.consensus.log import EntryType, M_GIDX, META_W
 from rdma_paxos_tpu_torch.consensus.snapshot import rebase_offsets
-from rdma_paxos_tpu_torch.consensus.state import Role
+from rdma_paxos_tpu_torch.consensus.state import Role, clone_state
 from rdma_paxos_tpu_torch.consensus.step import (
     SCAN_KEYS, StepInput, build_redigest, fetch_window)
 from rdma_paxos_tpu_torch.obs import device as obs_device
 from rdma_paxos_tpu_torch.parallel.mesh import (
-    build_sim_burst, build_sim_scan, build_sim_step, stack_states)
+    DeviceLayout, DeviceWorld, build_sim_burst, build_sim_scan,
+    build_sim_step, build_spmd_burst, build_spmd_scan, build_spmd_step,
+    join_state, make_replica_mesh, run_fetch, split_state, stack_states)
 from rdma_paxos_tpu_torch.runtime import hostpath
 from rdma_paxos_tpu_torch.runtime.hostpath import LazyReplayStream
 
@@ -125,6 +141,38 @@ def run_redigest(cluster, buf_row, lo: int, hi: int, *, group: int,
         done += n
         start += n
     return done
+
+
+def cap_scan_tiers(cluster, K: int) -> None:
+    """Cap an engine's fused tiers at ``K`` (the benches' ``--scan K``):
+    K must be >= 2, the smallest fused tier; the burst and scan sizing
+    then pick the smallest capped tier covering the backlog."""
+    K = int(K)
+    if K < 2:
+        raise ValueError(
+            "scan K must be >= 2 (the smallest fused tier)")
+    cluster.K_TIERS = (tuple(t for t in cluster.K_TIERS if t <= K)
+                       or cluster.K_TIERS[:1])
+
+
+def engine_device(device, n_entries: int, axes: str, build):
+    """An engine's device list (None: the machine's cards) as its
+    layout, via ``build(devices)``; a single device is refused, so no
+    list is ever implied."""
+    if isinstance(device, DeviceLayout):
+        return device
+    if device is not None and not isinstance(device, (list, tuple)):
+        raise ValueError(
+            f"the {axes} engine takes a device list of {n_entries} "
+            f"entries (e.g. ['cpu'] * {n_entries}), or None for the "
+            f"machine's cards; got {device!r}")
+    return build(device)
+
+
+def _versions(state) -> tuple:
+    return (state.log.buf._version,) + tuple(
+        getattr(state, f.name)._version
+        for f in dataclasses.fields(state) if f.name != "log")
 
 
 def require_drained(tickets, site: str) -> None:
@@ -228,10 +276,16 @@ def pack_rows(bufs: dict, idx: tuple, take: Sequence[Tuple],
 
 
 class SimCluster:
-    """R-replica protocol engine on one device with host bookkeeping.
+    """R-replica protocol engine with host bookkeeping: stacked on one
+    device (``mode="sim"``), or one replica per entry of a device list
+    (``mode="spmd"``).
 
-    Runs on the card unless ``device="cpu"`` is passed; raises when no
-    card is present and none was named."""
+    ``mode="sim"`` runs on the card unless ``device="cpu"`` is passed;
+    ``mode="spmd"`` takes a device list of R entries (``device=None``:
+    the machine's cards, one per replica; a list may repeat a device,
+    e.g. ``["cpu"] * 3``) and a :class:`~rdma_paxos_tpu_torch.parallel.
+    mesh.DeviceWorld` steps each entry's row on its own thread. Either
+    raises when a named card is absent; neither falls back."""
 
     # burst size tiers: the smallest tier >= the steps needed is used,
     # padded with zero-count steps
@@ -251,15 +305,25 @@ class SimCluster:
                  scan: bool = False, device=None,
                  audit: bool = False, flight_capacity: int = 64,
                  telemetry: bool = False, txn: bool = False):
-        if mode == "spmd":
-            raise NotImplementedError(
-                "mode='spmd' (one replica per device) is not ported yet "
-                "(ROADMAP Queue 1, item 14)")
-        if mode != "sim":
+        if mode not in ("sim", "spmd"):
             raise ValueError(f"unknown mode {mode!r}")
         if fanout not in ("gather", "psum"):
             raise ValueError(f"unknown fanout {fanout!r}")
-        self.device = resolve_device(device)
+        self._mode = mode
+        self._host_lock = threading.RLock()
+        if mode == "spmd":
+            # one replica row per entry of the device list, stepped by
+            # the world's threads; the rows are the state's authority
+            self.mesh = engine_device(
+                device, n_replicas, "spmd",
+                lambda d: make_replica_mesh(n_replicas, d))
+            self.world = DeviceWorld(self.mesh)
+            weakref.finalize(self, self.world.close)
+            self.device = self.world.device
+        else:
+            self.mesh = self.world = None
+            self.device = resolve_device(device)
+        self._view = None
         self.cfg = cfg
         self.R = n_replicas
         self.group_size = group_size or n_replicas
@@ -291,12 +355,18 @@ class SimCluster:
         self.device_counters = (obs_device.zeros(n_replicas)
                                 if telemetry else None)
         variants = dict(audit=self._audit, telemetry=self._telemetry)
-        self._steps = {e: build_sim_step(cfg, n_replicas, fanout=fanout,
-                                         elections=e, txn=self._txn,
-                                         **variants)
-                       for e in (True, False)}
-        self._burst = build_sim_burst(cfg, n_replicas, fanout=fanout,
-                                      **variants)
+        if self.world is None:
+            self._steps = {e: build_sim_step(
+                cfg, n_replicas, fanout=fanout, elections=e, txn=self._txn,
+                **variants) for e in (True, False)}
+            self._burst = build_sim_burst(cfg, n_replicas, fanout=fanout,
+                                          **variants)
+        else:
+            self._steps = {e: self._on_world(build_spmd_step(
+                cfg, n_replicas, self.mesh, fanout=fanout, elections=e,
+                txn=self._txn, **variants)) for e in (True, False)}
+            self._burst = self._on_world(build_spmd_burst(
+                cfg, n_replicas, self.mesh, fanout=fanout, **variants))
         self._scans: Dict[int, object] = {}
         # guarded-by: _host_lock [writes]
         self.state = stack_states(cfg, n_replicas, self.group_size,
@@ -312,7 +382,6 @@ class SimCluster:
             [] for _ in range(n_replicas)]
         self._tickets: collections.deque = collections.deque()
         self._staging = StagingPool()
-        self._host_lock = threading.RLock()
         self.inflight_dispatches = 0
         # the witness that a pipelined driver really overlapped dispatches
         self.max_inflight_dispatches = 0
@@ -422,6 +491,116 @@ class SimCluster:
     def unwedge_apply(self, r: int) -> None:
         self._wedged.discard(r)
 
+    # ---------------- the state and the device list ----------------
+
+    @property
+    def state(self):
+        """The engine's state. On a device list it is the stacked view
+        assembled from the entries' rows (a copy, rebuilt after every
+        change): read-only — a write into it raises at the next dispatch
+        rather than being lost. Assigning ``cluster.state = st`` places
+        every entry's part of ``st`` on its device (the JAX engine's
+        ``device_put``); :attr:`blocks` are the rows themselves."""
+        if self.world is None:
+            return self._state
+        with self._host_lock:
+            if self._view is None:
+                self._view = join_state(self.world.sharding, self._blocks,
+                                        device=self.device)
+                self._view_versions = _versions(self._view)
+            return self._view
+
+    @state.setter
+    def state(self, st) -> None:
+        if self.world is None:
+            self._state = st
+            return
+        with self._host_lock:
+            self._blocks = split_state(self.world.sharding, st)
+            self._view = None
+
+    @property
+    def blocks(self) -> list:
+        """A device list's per-entry state blocks, each on its device
+        (``[1, ...]``; ``[Gl, 1, ...]`` on a 2-D layout): writes into
+        them land in the engine's state."""
+        with self._host_lock:
+            self._drop_view()
+            return self._blocks
+
+    # holds-lock: _host_lock
+    def _drop_view(self) -> None:
+        v, self._view = self._view, None
+        if v is not None and _versions(v) != self._view_versions:
+            raise RuntimeError(
+                "the assembled state of a device-list engine was written "
+                "in place, and the write would be lost: assign "
+                "cluster.state = ... or write cluster.blocks")
+
+    def _guard_view(self) -> None:
+        """Refuse a dispatch after a write into the assembled view,
+        before any batch is taken."""
+        if self.world is not None:
+            with self._host_lock:
+                self._drop_view()
+
+    # holds-lock: _host_lock
+    def _live(self):
+        """What a dispatch steps: the stacked state, or the blocks."""
+        if self.world is None:
+            return self._state
+        self._drop_view()
+        return self._blocks
+
+    # holds-lock: _host_lock
+    def _store(self, st) -> None:
+        if self.world is None:
+            self._state = st
+        else:
+            self._blocks = st
+
+    # holds-lock: _host_lock
+    def _rewrite(self, fn) -> None:
+        """``fn(state, i)`` over the stacked state (``i`` None) or over
+        every entry's block on its device (entry ``i``), stored back."""
+        if self.world is None:
+            self._state = fn(self._state, None)
+        else:
+            self._drop_view()
+            self._blocks = [fn(b, i) for i, b in enumerate(self._blocks)]
+
+    def clone_live(self):
+        """A copy of what a dispatch steps (prewarm and program reports
+        run the step variants on it)."""
+        with self._host_lock:
+            if self.world is None:
+                return clone_state(self._state)
+            return [clone_state(b) for b in self._blocks]
+
+    def _on_world(self, prog):
+        """A device-list program bound to this engine's world: the
+        ``fn(state, *inputs)`` signature of the stacked builders."""
+        return functools.partial(prog, self.world)
+
+    def _fetch(self, starts: torch.Tensor, rows: int):
+        """The replay fetch: ``rows`` ring rows of every replica from
+        ``starts`` (each entry reads its own ring on a device list)."""
+        if self.world is None:
+            return fetch_window(self._state.log, starts, window_slots=rows)
+        return run_fetch(self.world, self._blocks, starts, rows)
+
+    def ring(self, replica: int) -> torch.Tensor:
+        """Replica ``replica``'s fused ring ``[n_slots, cols]``, in place
+        on its device."""
+        if self.world is None:
+            return self._state.log.buf[replica]
+        return self._blocks[replica].log.buf[0]
+
+    def close(self) -> None:
+        """Join a device list's worker threads (a no-op when stacked)."""
+        if self.world is not None:
+            self.world.close()
+
     # ---------------- stepping ----------------
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -479,6 +658,7 @@ class SimCluster:
         """Encode + dispatch one protocol step; returns the in-flight
         ticket (pass to :meth:`finish`, FIFO)."""
         timeouts = list(timeouts)
+        self._guard_view()
         prof = self.profiler
         if prof is not None:
             prof.start("host_encode")
@@ -523,7 +703,8 @@ class SimCluster:
             prof.stop("host_encode")
             prof.start("device_dispatch")
         with self._host_lock:
-            self.state, out = fn(self.state, inp)
+            st, out = fn(self._live(), inp)
+            self._store(st)
             ticket = self._enqueue(
                 StepTicket("step", out, taken, timeouts, 1, bufs))
         if prof is not None:
@@ -543,10 +724,11 @@ class SimCluster:
     def _scan_fn(self, K: int):
         fn = self._scans.get(K)
         if fn is None:
-            fn = build_sim_scan(self.cfg, self.R,
-                                replay_slots=self._scan_slots(K),
-                                fanout=self._fanout, audit=self._audit,
-                                telemetry=self._telemetry)
+            kw = dict(replay_slots=self._scan_slots(K), fanout=self._fanout,
+                      audit=self._audit, telemetry=self._telemetry)
+            fn = (build_sim_scan(self.cfg, self.R, **kw)
+                  if self.world is None else self._on_world(
+                      build_spmd_scan(self.cfg, self.R, self.mesh, **kw)))
             self._scans[K] = fn
         return fn
 
@@ -556,6 +738,7 @@ class SimCluster:
         cfg, R, B = self.cfg, self.R, self.cfg.batch_slots
         if self.last is None:
             raise RuntimeError("burst requires a stepped cluster")
+        self._guard_view()
         prof = self.profiler
         if prof is not None:
             prof.start("host_encode")
@@ -594,11 +777,12 @@ class SimCluster:
             prof.stop("host_encode")
             prof.start("device_dispatch")
         with self._host_lock:
-            self.state, outs = fn(
-                self.state, self._dev(bufs["data"]),
+            st, outs = fn(
+                self._live(), self._dev(bufs["data"]),
                 self._dev(bufs["meta"]), self._dev(count),
                 self._dev(mask), self._dev(applied),
                 self._dev(qdepth))
+            self._store(st)
             if scan:
                 self.scan_dispatches += 1
             ticket = self._enqueue(StepTicket(
@@ -785,7 +969,6 @@ class SimCluster:
         CUDA kernels (on the card), allocate the staging sets of the
         serial step and of every burst tier, and run each step variant
         and burst tier once on a copy of the live state."""
-        from rdma_paxos_tpu_torch.consensus.state import clone_state
         from rdma_paxos_tpu_torch.consensus.step import make_step_input
         if self.device.type == "cuda":
             from rdma_paxos_tpu_torch.ops import quorum
@@ -799,12 +982,12 @@ class SimCluster:
         inp = make_step_input(cfg, R, device=self.device)
         inp.peer_mask = self._dev(self.peer_mask)
         for fn in self._steps.values():
-            fn(clone_state(self.state), inp)
+            fn(self.clone_live(), inp)
         z = inp.apply_done
         for K in tiers:
             fns = [self._burst] + ([self._scan_fn(K)] if self.scan else [])
             for fn in fns:
-                fn(clone_state(self.state),
+                fn(self.clone_live(),
                    torch.zeros((K, R, B, cfg.slot_words), dtype=torch.int32,
                                device=self.device),
                    torch.zeros((K, R, B, META_W), dtype=torch.int32,
@@ -859,7 +1042,7 @@ class SimCluster:
         if delta <= 0:
             self._rebase_stalled_step(res)
             return
-        self.state = rebase_offsets(self.state, delta)
+        self._rewrite(lambda st, i: rebase_offsets(st, delta))
         self.applied -= delta
         for k in ("head", "apply", "commit", "end"):
             res[k] = res[k] - delta
@@ -883,7 +1066,7 @@ class SimCluster:
         """Range re-digest backfill of replica ``replica``'s committed
         entries ``[lo, hi)`` (raw offsets) into the ledger; serial path
         only (see :func:`run_redigest`)."""
-        return run_redigest(self, self.state.log.buf[replica], lo, hi,
+        return run_redigest(self, self.ring(replica), lo, hi,
                             group=0, rebased_total=self.rebased_total,
                             replica=replica)
 
@@ -1002,8 +1185,7 @@ class SimCluster:
                        for r in todo)
             starts = self._dev(self.applied.astype(np.int32))
             with self._host_lock:
-                wd_t, wm_t = fetch_window(self.state.log, starts,
-                                          window_slots=rows)
+                wd_t, wm_t = self._fetch(starts, rows)
             wd_all, wm_all = wd_t.cpu().numpy(), wm_t.cpu().numpy()
             for r in todo:
                 n = int(min(int(res["commit"][r]) - self.applied[r], W))

@@ -40,8 +40,17 @@ read drain, and an elastic-topology controller
 with the coordinator and observes every ``finish`` last. Both are host
 work over the unchanged step.
 
-Not ported: the multi-chip mesh engine (``mesh=``), which raises
-``NotImplementedError`` naming ROADMAP Queue 1, item 14.
+With ``mesh=(group_shards, R)`` (or a :func:`~rdma_paxos_tpu_torch.
+parallel.mesh.build_mesh_2d` layout) the engine runs over a device list
+instead (the JAX mesh engine): each entry holds ``G / group_shards``
+whole groups of one replica column (``[Gl, 1, ...]``), a
+:class:`~rdma_paxos_tpu_torch.parallel.mesh.DeviceWorld` steps every
+entry's block in one pass on its own thread, the step's seams run
+between the R entries of one group shard and never across the group
+axis, and the host bookkeeping is the stacked engine's on the stacked
+inputs and outputs. ``device=`` is then the list (None: the machine's
+cards); ``programs_used`` names the programs dispatched, one per
+variant for any G on one layout.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -58,16 +68,18 @@ from rdma_paxos_tpu_torch.config import (
     LogConfig, REBASE_STALL_STEPS, resolve_device)
 from rdma_paxos_tpu_torch.consensus.log import EntryType, M_GIDX, META_W
 from rdma_paxos_tpu_torch.consensus.state import Role
-from rdma_paxos_tpu_torch.consensus.step import StepInput, fetch_window
+from rdma_paxos_tpu_torch.consensus.step import StepInput
 from rdma_paxos_tpu_torch.obs import device as obs_device
 from rdma_paxos_tpu_torch.parallel.mesh import (
-    build_sim_group_burst, build_sim_group_scan, build_sim_group_step,
+    DeviceLayout, DeviceWorld, build_mesh_2d, build_sim_group_burst,
+    build_sim_group_scan, build_sim_group_step, build_spmd_group_burst,
+    build_spmd_group_scan, build_spmd_group_step, group_sharding,
     stack_group_states)
 from rdma_paxos_tpu_torch.runtime.hostpath import LazyReplayStream
 from rdma_paxos_tpu_torch.runtime.sim import (
     SimCluster, StagingPool, StepTicket, clamp_burst_take,
-    decode_window, pack_rows, rebase_delta_of, require_drained,
-    requeue_shortfall, run_redigest)
+    decode_window, engine_device, pack_rows, rebase_delta_of,
+    require_drained, requeue_shortfall, run_redigest)
 from rdma_paxos_tpu_torch.shard.router import KeyRouter
 
 TimeoutsLike = Union[None, Dict[int, Sequence[int]],
@@ -75,10 +87,12 @@ TimeoutsLike = Union[None, Dict[int, Sequence[int]],
 
 
 class ShardedCluster:
-    """G-group × R-replica protocol engine on one device.
+    """G-group × R-replica protocol engine, stacked on one device or
+    over a ``(group_shards, R)`` device list (``mesh=``).
 
-    Runs on the card unless ``device="cpu"`` is passed; raises when no
-    card is present and none was named."""
+    Stacked, it runs on the card unless ``device="cpu"`` is passed; with
+    ``mesh=`` it takes a device list (None: the machine's cards). Either
+    raises when a named card is absent; neither falls back."""
 
     K_TIERS = SimCluster.K_TIERS
     RES_KEYS = SimCluster.RES_KEYS
@@ -93,16 +107,40 @@ class ShardedCluster:
                  txn: bool = False, device=None):
         if n_groups < 1:
             raise ValueError("n_groups must be >= 1")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardedCluster(mesh=...): the multi-chip (group, replica) "
-                "engine is not ported (ROADMAP Queue 1, item 14)")
         if fanout not in ("gather", "psum"):
             raise ValueError(f"unknown fanout {fanout!r}")
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.R = int(n_replicas)
         self.G = int(n_groups)
+        self._host_lock = threading.RLock()
+        self._view = None
+        if mesh is not None:
+            if isinstance(mesh, tuple):
+                mesh = engine_device(
+                    device, int(mesh[0]) * int(mesh[1]), "mesh",
+                    lambda d: build_mesh_2d(*mesh, devices=d))
+            elif not isinstance(mesh, DeviceLayout):
+                raise TypeError(f"mesh must be a (group_shards, replicas) "
+                                f"tuple or a DeviceLayout, got {mesh!r}")
+            group_sharding(mesh)                 # the axis names
+            shape = mesh.shape
+            if shape[1] != self.R:
+                raise ValueError(
+                    f"mesh replica axis is {shape[1]} devices but the "
+                    f"cluster has {self.R} replicas (one replica per "
+                    f"device along the replica axis)")
+            if self.G % shape[0]:
+                raise ValueError(
+                    f"group count {self.G} must divide evenly over "
+                    f"{shape[0]} group shards")
+            self.world = DeviceWorld(mesh)
+            weakref.finalize(self, self.world.close)
+            self.device = self.world.device
+        else:
+            self.world = None
+            self.device = resolve_device(device)
+        self.mesh = mesh
+        self._mode = "sim" if mesh is None else "spmd-group"
         self.group_size = group_size or n_replicas
         self.router = router if router is not None else KeyRouter(self.G)
         self.scan = bool(scan)
@@ -128,12 +166,17 @@ class ShardedCluster:
         self.device_counters = (obs_device.zeros(self.G, self.R)
                                 if telemetry else None)
         variants = dict(audit=self._audit, telemetry=self._telemetry)
-        self._steps = {e: build_sim_group_step(cfg, self.R, fanout=fanout,
-                                               elections=e, txn=self._txn,
-                                               **variants)
-                       for e in (True, False)}
-        self._burst = build_sim_group_burst(cfg, self.R, fanout=fanout,
-                                            **variants)
+        # the functions dispatched, each with its program key: one per
+        # variant, whatever G (programs_used collects the keys)
+        self.programs_used: set = set()
+        self._keys: Dict[object, tuple] = {}
+        self._steps = {e: self._program(
+            "group", (e, self._txn), build_sim_group_step,
+            build_spmd_group_step, elections=e, txn=self._txn, **variants)
+            for e in (True, False)}
+        self._burst = self._program(
+            "group-burst", (), build_sim_group_burst, build_spmd_group_burst,
+            **variants)
         self._scans: Dict[int, object] = {}
         # guarded-by: _host_lock [writes]
         self.state = stack_group_states(cfg, self.G, self.R,
@@ -151,7 +194,6 @@ class ShardedCluster:
             [[] for _ in range(R)] for _ in range(G)]
         self._tickets: collections.deque = collections.deque()
         self._staging = StagingPool()
-        self._host_lock = threading.RLock()
         self.inflight_dispatches = 0
         self.max_inflight_dispatches = 0
         # dispatch-side clock: +1 per begin_step, +K per begin_burst
@@ -272,6 +314,18 @@ class ShardedCluster:
     # drain and the span recorder
     _dev = SimCluster._dev
     _enqueue = SimCluster._enqueue
+    # the state and the device list (see SimCluster.state)
+    state = SimCluster.state
+    blocks = SimCluster.blocks
+    _drop_view = SimCluster._drop_view
+    _guard_view = SimCluster._guard_view
+    _live = SimCluster._live
+    _store = SimCluster._store
+    _rewrite = SimCluster._rewrite
+    clone_live = SimCluster.clone_live
+    _on_world = SimCluster._on_world
+    _fetch = SimCluster._fetch
+    close = SimCluster.close
     _tiers = SimCluster._tiers
     _scan_slots = SimCluster._scan_slots
     _readback = SimCluster._readback
@@ -328,23 +382,47 @@ class ShardedCluster:
                     out[g, r] += len(t.taken[g][r])
         return out
 
+    def _program(self, kind: str, flags: tuple, sim_builder,
+                 mesh_builder, **kw):
+        """The stacked builder's function, or the device-list program
+        bound to the world, registered with its program key (the layout,
+        never G, on a device list)."""
+        if self.world is None:
+            fn = sim_builder(self.cfg, self.R, fanout=self._fanout, **kw)
+            key = ("sim-" + kind, self.cfg, self.R, self._fanout, flags,
+                   self._audit, self._telemetry)
+        else:
+            prog = mesh_builder(self.cfg, self.R, self.mesh,
+                                fanout=self._fanout, **kw)
+            fn, key = self._on_world(prog), prog.key
+        self._keys[id(fn)] = key
+        return fn
+
     def _scan_fn(self, K: int):
         fn = self._scans.get(K)
         if fn is None:
-            fn = build_sim_group_scan(self.cfg, self.R,
-                                      replay_slots=self._scan_slots(K),
-                                      fanout=self._fanout,
-                                      audit=self._audit,
-                                      telemetry=self._telemetry)
+            slots = self._scan_slots(K)
+            fn = self._program(
+                "group-scan", (K, slots), build_sim_group_scan,
+                build_spmd_group_scan, replay_slots=slots,
+                audit=self._audit, telemetry=self._telemetry)
             self._scans[K] = fn
         return fn
+
+    def ring(self, group: int, replica: int) -> torch.Tensor:
+        """Group ``group``'s replica ``replica`` fused ring ``[n_slots,
+        cols]``, in place on its device."""
+        if self.world is None:
+            return self._state.log.buf[group, replica]
+        gl = self.G // self.mesh.shape[0]
+        s, g = divmod(int(group), gl)
+        return self._blocks[s * self.R + int(replica)].log.buf[g, 0]
 
     def prewarm(self, tiers: Optional[Sequence[int]] = None) -> None:
         """Pay every first-use cost before serving: build and load the
         CUDA kernels (on the card), allocate the staging sets, and run
         each step variant and burst tier once on a copy of the live
         state — one warm-up covers every group."""
-        from rdma_paxos_tpu_torch.consensus.state import clone_state
         from rdma_paxos_tpu_torch.consensus.step import make_step_input
         if self.device.type == "cuda":
             from rdma_paxos_tpu_torch.ops import quorum
@@ -358,12 +436,12 @@ class ShardedCluster:
         inp = make_step_input(cfg, R, n_groups=G, device=self.device)
         inp.peer_mask = self._dev(self.peer_mask)
         for fn in self._steps.values():
-            fn(clone_state(self.state), inp)
+            fn(self.clone_live(), inp)
         z = inp.apply_done
         for K in tiers:
             fns = [self._burst] + ([self._scan_fn(K)] if self.scan else [])
             for fn in fns:
-                fn(clone_state(self.state),
+                fn(self.clone_live(),
                    torch.zeros((K, G, R, B, cfg.slot_words),
                                dtype=torch.int32, device=self.device),
                    torch.zeros((K, G, R, B, META_W), dtype=torch.int32,
@@ -382,6 +460,7 @@ class ShardedCluster:
         [replica, ...]}`` or an iterable of ``(group, replica)``
         pairs."""
         cfg, G, R, B = self.cfg, self.G, self.R, self.cfg.batch_slots
+        self._guard_view()
         prof = self.profiler
         if prof is not None:
             prof.start("host_encode")
@@ -434,7 +513,9 @@ class ShardedCluster:
             prof.stop("host_encode")
             prof.start("device_dispatch")
         with self._host_lock:
-            self.state, out = fn(self.state, inp)
+            st, out = fn(self._live(), inp)
+            self._store(st)
+            self.programs_used.add(self._keys[id(fn)])
             ticket = self._enqueue(
                 StepTicket("step", out, taken, tmo, 1, bufs))
         if prof is not None:
@@ -451,6 +532,7 @@ class ShardedCluster:
         cfg, G, R, B = self.cfg, self.G, self.R, self.cfg.batch_slots
         if self.last is None:
             raise RuntimeError("burst requires a stepped cluster")
+        self._guard_view()
         prof = self.profiler
         if prof is not None:
             prof.start("host_encode")
@@ -494,10 +576,12 @@ class ShardedCluster:
             prof.stop("host_encode")
             prof.start("device_dispatch")
         with self._host_lock:
-            self.state, outs = fn(
-                self.state, self._dev(bufs["data"]),
+            st, outs = fn(
+                self._live(), self._dev(bufs["data"]),
                 self._dev(bufs["meta"]), self._dev(count),
                 self._dev(mask), self._dev(applied), self._dev(qdepth))
+            self._store(st)
+            self.programs_used.add(self._keys[id(fn)])
             if scan:
                 self.scan_dispatches += 1
             ticket = self._enqueue(StepTicket(
@@ -683,8 +767,7 @@ class ShardedCluster:
                        for g, r in todo)
             starts = self._dev(self.applied.astype(np.int32))
             with self._host_lock:
-                wd_t, wm_t = fetch_window(self.state.log, starts,
-                                          window_slots=rows)
+                wd_t, wm_t = self._fetch(starts, rows)
             self.fetch_dispatches += 1
             wd_all, wm_all = wd_t.cpu().numpy(), wm_t.cpu().numpy()
             for g, r in todo:
@@ -774,18 +857,24 @@ class ShardedCluster:
         """Per-group offset subtraction, the grouped form of
         ``consensus.snapshot.rebase_offsets`` (each delta <= its group's
         min head, a multiple of n_slots): the stamped gidx column in
-        place, the offsets into fresh tensors."""
+        place, the offsets into fresh tensors — on a device list, each
+        entry's block on its device with its groups' deltas."""
         import dataclasses
 
-        state = self.state
-        d = self._dev(deltas.astype(np.int32))[:, None]         # [G, 1]
-        state.log.buf[..., state.log.slot_words + M_GIDX] -= d[..., None]
-        self.state = dataclasses.replace(
-            state,
-            head=state.head - d, apply=state.apply - d,
-            commit=state.commit - d, end=state.end - d,
-            cfg_src=torch.where(state.cfg_src >= 0, state.cfg_src - d,
-                                state.cfg_src))
+        d_gr = self._dev(np.repeat(deltas[:, None], self.R, 1)
+                         .astype(np.int32))                      # [G, R]
+
+        def rebase(state, i):
+            d = (d_gr if i is None
+                 else self.world.sharding.block(d_gr, i))
+            state.log.buf[..., state.log.slot_words + M_GIDX] -= d[..., None]
+            return dataclasses.replace(
+                state,
+                head=state.head - d, apply=state.apply - d,
+                commit=state.commit - d, end=state.end - d,
+                cfg_src=torch.where(state.cfg_src >= 0, state.cfg_src - d,
+                                    state.cfg_src))
+        self._rewrite(rebase)
 
     # ---------------- audit ----------------
 
@@ -793,7 +882,7 @@ class ShardedCluster:
         """Range re-digest backfill of ONE group's replica (raw offsets
         of that group); serial path only (see ``run_redigest``)."""
         return run_redigest(
-            self, self.state.log.buf[group, replica], lo, hi, group=group,
+            self, self.ring(group, replica), lo, hi, group=group,
             rebased_total=int(self.rebased_total[group]), replica=replica)
 
     def _ingest_audit(self, starts, digests, terms, commits) -> None:
@@ -917,7 +1006,11 @@ class ShardedCluster:
             groups.append(make_snapshot(**fields))
         return dict(schema=1, n_groups=self.G, n_replicas=self.R,
                     dispatches=self.dispatches,
-                    engine="sim", mesh=None,
+                    engine=self._mode,
+                    mesh=(None if self.mesh is None else dict(
+                        layout="%dx%d" % self.mesh.shape,
+                        group_shards=int(self.mesh.shape[0]),
+                        devices=[str(d) for d in self.mesh.entries])),
                     router=self.router.to_dict(), groups=groups,
                     audit=(self.auditor.summary()
                            if self.auditor is not None else None),

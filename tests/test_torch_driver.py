@@ -372,14 +372,22 @@ def test_auto_recovery_matches_the_jax_driver(tmp_path):
     dict(repair_opts={}), dict(mode="spmd"),
     dict(health_period=1.0), dict(alert_period=1.0)])
 def test_later_slices_raise(kw):
-    """What waits for later slices (the spmd mode) raises; the alert and
-    health plane, repair, the governor, the scan tier, the streams hub
-    and profiler captures are ported and take their settings
-    (``repair=`` alone is refused for want of ``audit=True``, as in
-    JAX)."""
+    """The later slices' settings are ported and taken: the alert and
+    health plane, repair, the governor, the scan tier, the streams hub,
+    profiler captures and the spmd mode (which takes a device list and
+    refuses a single device); ``repair=`` alone is refused for want of
+    ``audit=True``, as in JAX."""
     if set(kw) & {"mode"}:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="device list"):
             ClusterDriver(LogConfig(**GEO), 3, device="cpu", **kw)
+        d = ClusterDriver(LogConfig(**GEO), 3, device=["cpu"] * 3, **kw)
+        try:
+            d.runtimes[0].timer._deadline = 0.0
+            d.step(), d.step()
+            assert d.cluster._mode == "spmd" and d.leader() == 0
+        finally:
+            d.stop()
+        assert not any(t.is_alive() for t in d.cluster.world._threads)
         return
     if kw == dict(repair=True):
         with pytest.raises(ValueError, match="audit=True"):

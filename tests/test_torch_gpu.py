@@ -413,6 +413,59 @@ def test_lone_instance_commit_window_kernel_equals_plain():
         assert all(torch.equal(a, b) for a, b in zip(got, want)), n
 
 
+@pytest.mark.parametrize("G,gl", [(4, 1), (64, 16)])
+def test_device_list_entry_commit_window_kernel_equals_plain(G, gl):
+    """A device-list entry's call: replica r of a group shard's gl
+    groups, each instance reading its own group's acks as a row, kernel
+    against plain and against the stacked call on the card."""
+    _need_card()
+    from chip_smoke import entry_call, window_case
+    from rdma_paxos_tpu_torch.ops.quorum import (
+        commit_window_cuda, commit_window_ref)
+    rng = np.random.default_rng(G)
+    args, kw = window_case(rng, torch.device("cuda"), G=G, R=3, W=2048,
+                           n_slots=8192)
+    stacked = commit_window_ref(*args, w=2048, **kw)
+    for r in range(3):
+        call, idx = entry_call(args, kw, 3, range(G - gl, G), r)
+        got = commit_window_cuda(*call[0], w=2048, **call[1])
+        want = commit_window_ref(*call[0], w=2048, **call[1])
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), r
+        assert all(torch.equal(a, b[idx]) for a, b in zip(got, stacked))
+
+
+def test_spmd_engine_on_the_card():
+    """``SimCluster(mode="spmd")`` on ``["cuda:0"] * 3``: a few steps
+    equal to the stacked engine on the card, exactly R commit-window
+    launches per protocol step (one per entry, N = 1 each)."""
+    _need_card()
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    cfg = LogConfig(n_slots=1024, slot_bytes=128, window_slots=256,
+                    batch_slots=256)
+    a = SimCluster(cfg, 3, fanout="psum")
+    b = SimCluster(cfg, 3, mode="spmd", device=["cuda:0"] * 3,
+                   fanout="psum")
+    try:
+        for c in (a, b):
+            c.run_until_elected(0)
+        for i in range(6):
+            for c in (a, b):
+                for k in range(300):
+                    c.submit(0, b"g%d-%d" % (i, k))
+            ra = a.step()
+            n0 = commit_window.launches
+            rb = b.step()
+            assert commit_window.launches - n0 == 3
+            for k in SimCluster.RES_KEYS:
+                assert np.array_equal(ra[k], rb[k]), (i, k)
+        assert a.replayed == b.replayed
+        assert torch.equal(a.state.log.buf, b.state.log.buf)
+    finally:
+        b.close()
+
+
 def test_host_world_on_the_card(tmp_path):
     """Three ``HostReplicaDriver(device="cuda")`` ranks sharing the card
     under gloo (``chip_smoke.py`` phase 14c's drill, small geometry):

@@ -9,6 +9,7 @@ import torch
 
 import rdma_paxos_tpu.runtime.hostpath as jhp
 import rdma_paxos_tpu_torch.runtime.hostpath as thp
+from tests.test_torch_sim import jax_step_cache_restored  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -134,3 +135,83 @@ def test_stream_copy_and_extend_match_jax(materialize):
         assert copy != donor and not (copy != list(copy))
         streams.append([list(copy), list(donor), lst, list(plain)])
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# the device-list engines' replay streams and frames (tests/test_hostpath.py's
+# engine-level recorded workloads, spmd and mesh)
+# ---------------------------------------------------------------------------
+
+def _port_drive_sim():
+    """tests/test_hostpath.py's ``_drive_sim("spmd")`` on the port's spmd
+    engine (three CPU entries)."""
+    from rdma_paxos_tpu_torch.consensus.log import EntryType
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    from tests.test_hostpath import CFG, _random_take, _rng
+    c = SimCluster(_port_cfg(CFG), 3, mode="spmd", device=["cpu"] * 3)
+    try:
+        c.collect_frames = True
+        c.run_until_elected(0)
+        rng = _rng(99)
+        for i in range(12):
+            for p in _random_take(rng, 6, CFG.slot_bytes):
+                c.submit(0, p[3], EntryType(p[0] if p[0] in (2, 3, 4)
+                                            else 3),
+                         conn=p[1], req_id=p[2])
+            (c.step_burst if i % 3 else c.step)()
+        for _ in range(4):
+            c.step()
+        return ([list(c.replayed[r]) for r in range(3)],
+                [list(c.frames[r]) for r in range(3)], c.applied.copy())
+    finally:
+        c.close()
+
+
+def _port_drive_sharded(mesh):
+    """tests/test_hostpath.py's ``_drive_sharded(mesh)`` on the port's
+    mesh engine (CPU entries)."""
+    from rdma_paxos_tpu_torch.consensus.log import EntryType
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    from tests.test_hostpath import CFG, _random_take, _rng
+    c = ShardedCluster(_port_cfg(CFG), 2, 2, mesh=mesh,
+                       device=["cpu"] * (mesh[0] * mesh[1]))
+    try:
+        c.collect_frames = True
+        c.place_leaders()
+        rng = _rng(7)
+        for i in range(8):
+            for g in range(2):
+                lead = c.leader_hint(g)
+                for p in _random_take(rng, 5, CFG.slot_bytes):
+                    c.submit(g, lead, p[3], EntryType.SEND,
+                             conn=p[1], req_id=p[2])
+            (c.step_burst if i % 2 else c.step)()
+        for _ in range(4):
+            c.step()
+        return ([[list(c.replayed[g][r]) for r in range(2)]
+                 for g in range(2)],
+                [[list(c.frames[g][r]) for r in range(2)]
+                 for g in range(2)])
+    finally:
+        c.close()
+
+
+def _port_cfg(jcfg):
+    import dataclasses
+
+    from rdma_paxos_tpu_torch.config import LogConfig
+    return LogConfig(**dataclasses.asdict(jcfg))
+
+
+def test_spmd_engine_streams_and_frames_match_jax():
+    from tests.test_hostpath import _drive_sim
+    streams_j, frames_j, applied_j = _drive_sim("spmd")
+    streams_t, frames_t, applied_t = _port_drive_sim()
+    assert streams_t == streams_j
+    assert frames_t == frames_j
+    assert np.array_equal(applied_t, applied_j)
+
+
+def test_mesh_engine_streams_and_frames_match_jax():
+    from tests.test_hostpath import _drive_sharded
+    assert _port_drive_sharded((2, 2)) == _drive_sharded((2, 2))

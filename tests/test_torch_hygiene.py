@@ -266,7 +266,10 @@ def test_entry_points_need_a_card_or_an_explicit_cpu():
     from rdma_paxos_tpu_torch.shard import ShardedCluster
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ShardedCluster(cfg, 3, 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the mesh engine's default device list is the machine's cards
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match=f"need 6 devices for a 2x3 "
+                                         f"mesh, have {have}"):
         ShardedCluster(cfg, 3, 2, mesh=(2, 3))
     assert ShardedCluster(cfg, 3, 2, device="cpu").state.log.buf.shape[:2] \
         == (2, 3)
@@ -736,3 +739,31 @@ def test_node_and_elastic_copies_match_the_reference():
         jel.GroupController.__init__)
     assert params(tel.ElasticSupervisor.__init__, ("worker_device",)) == \
         params(jel.ElasticSupervisor.__init__)
+
+
+def test_device_list_copies_match_the_reference():
+    """The single-controller engines' slice: the axis names, the
+    layouts' signatures, the group builders' (the device layout in the
+    mesh's place, the flags after it) and ``cap_scan_tiers``'."""
+    import inspect
+
+    import rdma_paxos_tpu.parallel.mesh as jmesh
+    import rdma_paxos_tpu.runtime.sim as jsim
+    import rdma_paxos_tpu_torch.parallel.mesh as tmesh
+    import rdma_paxos_tpu_torch.runtime.sim as tsim
+
+    def params(fn, drop=()):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()
+                if p.name not in drop]
+    assert (tmesh.REPLICA_AXIS, tmesh.GROUP_AXIS) == (jmesh.REPLICA_AXIS,
+                                                      jmesh.GROUP_AXIS)
+    for name in ("make_replica_mesh", "build_mesh_2d", "group_sharding"):
+        assert params(getattr(tmesh, name)) == params(getattr(jmesh, name))
+    for name in ("build_spmd_group_step", "build_spmd_group_burst",
+                 "build_spmd_group_scan"):
+        tp = params(getattr(tmesh, name))
+        jp = params(getattr(jmesh, name), ("use_pallas", "interpret",
+                                           "donate"))
+        assert tp == jp, name
+    assert params(tsim.cap_scan_tiers) == params(jsim.cap_scan_tiers)

@@ -418,3 +418,40 @@ def test_driver_takes_a_link_model_and_never_idles_under_it():
         res = d.step()
     assert not res["leadership_verified"][0]
     d.stop()
+
+
+def test_mesh_engine_lease_reads_match_jax():
+    """The twin of tests/test_reads.py's mesh lease reads: per-group
+    leases on a 2×2 mesh engine, a linearizable get through the
+    leaseholders, the lease status equal to the JAX mesh engine's."""
+    from rdma_paxos_tpu.shard import ShardedCluster as JSharded
+    from rdma_paxos_tpu.shard.kvs import ShardedKVS as JKVS
+    from rdma_paxos_tpu_torch.shard import ShardedCluster, ShardedKVS
+    t = ShardedCluster(LogConfig(**GEO), 2, 2, mesh=(2, 2),
+                       device=["cpu"] * 4)
+    try:
+        j = JSharded(JCfg(**GEO), 2, 2, mesh=(2, 2))
+        got = []
+        for c, obs, reads, kvs_cls in ((j, JObs, jreads, JKVS),
+                                       (t, Observability, treads,
+                                        ShardedKVS)):
+            c.obs = obs()
+            reads.attach(c)
+            c.place_leaders()
+            for _ in range(4):
+                c.step()
+            holders = c.leases.holders()
+            assert all(h >= 0 for h in holders)
+            kvs = kvs_cls(c, cap=256)
+            key = b"meshkey"
+            g = kvs.group_of(key)
+            kvs.groups[g].put(holders[g], key, b"mv", client_id=7,
+                              req_id=1)
+            for _ in range(4):
+                c.step()
+            got.append((list(holders), kvs.get(key, linearizable=True),
+                        c.leases.status(), c.reads.status()))
+        assert got[1] == got[0]
+        assert got[1][1] == b"mv"
+    finally:
+        t.close()

@@ -283,6 +283,50 @@ def test_sharded_repair_other_groups_strictly_advance():
         assert (np.diff(fr[:, g]) > 0).all(), g
 
 
+def test_mesh_engine_repair_smoke():
+    """The twin of tests/test_repair.py's mesh smoke, on a 1×3 layout on
+    both sides: quarantine, the verified re-install into group 1's
+    replica on its entry, the backfill read from its ring, re-admit —
+    every step's outputs, the status and the ledger equal to JAX."""
+    made = []
+
+    def scenario(m):
+        kw = dict(m["kw"], mesh=(1, 3))
+        if "device" in kw:
+            kw["device"] = ["cpu"] * 3
+        sc = m["Sharded"](m["Cfg"](**GEO), 3, 2, audit=True, **kw)
+        made.append(sc)
+        ctl = m["RC"].RepairController(sc, probation_steps=3)
+        sc.place_leaders()
+        for g in range(2):
+            for i in range(5):
+                sc.submit(g, sc.leader_hint(g), b"m%d-%d" % (g, i))
+        for _ in range(4):
+            sc.step()
+            ctl.observe()
+        target = int(sc.last["commit"][1].min()) - 1
+        m["corrupt"](sc, 1, target, group=1)
+        log = []
+
+        def traffic(i=[0]):
+            lead = sc.leader_hint(0)
+            if lead >= 0:
+                sc.submit(0, lead, b"k%d" % i[0])
+            i[0] += 1
+        pump(sc, ctl, 40, traffic=traffic, log=log,
+             until=lambda: ctl.repairs_done and not ctl.states)
+        return dict(log=log, status=ctl.status(),
+                    ledger=ledger_json(sc.auditor),
+                    unrepaired=sc.auditor.summary()["unrepaired"])
+    try:
+        t = both(scenario)
+    finally:
+        for c in made:
+            getattr(c, "close", lambda: None)()
+    assert t["status"]["repairs_done"] == 1 and t["status"]["active"] == {}
+    assert t["unrepaired"] == 0
+
+
 def test_repair_mid_pipeline_requires_drain_then_reengages():
     def scenario(m):
         c, ctl, _ = audited_sim(m, probation_steps=2)

@@ -163,3 +163,49 @@ def test_engine_scan_equals_burst_and_jax():
             assert list(c.frames[r]) == list(base_c.frames[r])
         np.testing.assert_array_equal(c.applied, base_c.applied)
         _same_state(c.state, base_c.state, name)
+
+
+def test_mesh_scan_bit_identical_to_burst_and_jax():
+    """The twin of tests/test_scan.py's sharded scan ≡ burst on a 2×2
+    mesh: the port's mesh engine with the scan tier equals its burst
+    tier and the JAX mesh engine's scan, step for step, with the same
+    streams, frames and apply cursors."""
+    from rdma_paxos_tpu.shard.cluster import ShardedCluster as JSharded
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    geo = dict(n_slots=128, slot_bytes=64, window_slots=32, batch_slots=8)
+
+    def drive(c):
+        c.collect_frames = True
+        c.place_leaders()
+        outs = []
+        for i in range(8):
+            for g in range(2):
+                lead = c.leader_hint(g)
+                for j in range(12):
+                    c.submit(g, lead, b"g%d-%d-%d" % (g, i, j))
+            outs.append(c.step_burst())
+        for _ in range(4):
+            outs.append(c.step())
+        return outs
+
+    made = [ShardedCluster(LogConfig(**geo), 2, 2, scan=s, mesh=(2, 2),
+                           device=["cpu"] * 4) for s in (False, True)]
+    try:
+        jc = JSharded(JCfg(**geo), 2, 2, scan=True, mesh=(2, 2))
+        ob, os_, oj = drive(made[0]), drive(made[1]), drive(jc)
+        assert made[1].scan_dispatches == jc.scan_dispatches > 0
+        for k, (a, b, c) in enumerate(zip(ob, os_, oj)):
+            for key in SimCluster.RES_KEYS:
+                assert np.array_equal(a[key], b[key]), (k, key)
+                assert np.array_equal(np.asarray(c[key]), b[key]), (k, key)
+        for g in range(2):
+            for r in range(2):
+                assert (made[0].replayed[g][r] == made[1].replayed[g][r]
+                        == jc.replayed[g][r]), (g, r)
+                assert (list(made[0].frames[g][r])
+                        == list(made[1].frames[g][r])
+                        == list(jc.frames[g][r])), (g, r)
+        assert np.array_equal(made[1].applied, np.asarray(jc.applied))
+    finally:
+        for c in made:
+            c.close()

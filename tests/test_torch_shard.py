@@ -184,8 +184,9 @@ def writable_rebase(j):
     return j
 
 
-def run_groups(seed, *, fanout="gather", steps=44, **variants):
-    """The JAX ``ShardedCluster``, the port's and one port
+def run_groups(seed, *, fanout="gather", steps=44, mesh=None, **variants):
+    """The JAX ``ShardedCluster``, the port's (its mesh engine on a CPU
+    device list with ``mesh=``) and one port
     ``SimCluster`` twin per group through one seeded script; every
     group gets its own traffic, timeouts and partitions (gather), group
     1's replica 2 is wedged from step 8 to 30, and the dispatch mode
@@ -193,8 +194,10 @@ def run_groups(seed, *, fanout="gather", steps=44, **variants):
     pipelined bursts in flight. Compared after every dispatch."""
     j = writable_rebase(JSharded(JCfg(**GEO), R, G, fanout=fanout,
                                  **variants))
-    t = ShardedCluster(LogConfig(**GEO), R, G, fanout=fanout,
-                       device="cpu", **variants)
+    t = ShardedCluster(LogConfig(**GEO), R, G, fanout=fanout, mesh=mesh,
+                       device=("cpu" if mesh is None
+                               else ["cpu"] * (mesh[0] * mesh[1])),
+                       **variants)
     twins = [SimCluster(LogConfig(**GEO), R, fanout=fanout, device="cpu",
                         **variants) for _ in range(G)]
     for c in [j, t] + twins:
@@ -793,8 +796,17 @@ def test_sharded_state_and_bookkeeping_carry_across_both_ways():
 
 def test_unported_surfaces_raise():
     cfg = LogConfig(**GEO)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # ported since: the mesh engine, on a device list only (one device
+    # implies no list; tests/test_torch_mesh.py drives it)
+    with pytest.raises(ValueError, match="device list"):
         ShardedCluster(cfg, 3, 2, mesh=(2, 3), device="cpu")
+    msc = ShardedCluster(cfg, 3, 2, mesh=(2, 3), device=["cpu"] * 6)
+    try:
+        msc.place_leaders()
+        assert [b.log.buf.shape[:2] for b in msc.blocks] == [(1, 1)] * 6
+        assert msc.health()["mesh"]["layout"] == "2x3"
+    finally:
+        msc.close()
     sc = ShardedCluster(cfg, 3, 2, device="cpu")
     # ported since: the health document, the governor, the streams hub
     # and the topology controller, each observed by every finish

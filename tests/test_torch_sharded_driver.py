@@ -10,8 +10,9 @@
   released in submit order with status 0;
 * the run loop: pre-queued SENDs on every replica through the port's
   pipelined loop are acked once each, with status 0, in per-group order;
-* the surfaces that raise (``tests/test_pipeline.py``'s list, and the
-  ones that wait for ROADMAP Queue 1, items 13 and 14)."""
+* the surfaces that raise (``tests/test_pipeline.py``'s list), and the
+  mesh engine's construction (``tests/test_torch_mesh.py`` runs the
+  step-locked drive and the loop on it)."""
 
 import numpy as np
 import pytest
@@ -49,16 +50,30 @@ def test_key_prefix_of_cases():
     assert key_prefix_of(b"") == b""
 
 
-def make_pair(**kw):
-    jd = JDriver(JCfg(**GEO), 3, G, timeout_cfg=JTO(**TIMERS), **kw)
+def cpu_devices(mesh):
+    """The port engine's ``device=``: the CPU, or ``mesh``'s device
+    list of CPU entries."""
+    return "cpu" if mesh is None else ["cpu"] * (mesh[0] * mesh[1])
+
+
+def make_pair(mesh=None, **kw):
+    jd = JDriver(JCfg(**GEO), 3, G, timeout_cfg=JTO(**TIMERS), mesh=mesh,
+                 **kw)
     td = ShardedClusterDriver(LogConfig(**GEO), 3, G,
                               timeout_cfg=TimeoutConfig(**TIMERS),
-                              device="cpu", **kw)
+                              mesh=mesh, device=cpu_devices(mesh), **kw)
     return jd, td
 
 
 def test_step_locked_parity_with_the_jax_sharded_driver():
-    jd, td = make_pair(pipeline=0, group_timer_lo=1, group_timer_hi=2)
+    step_locked_parity()
+
+
+def step_locked_parity(mesh=None):
+    """The step-locked drive against the JAX driver (on ``mesh``'s
+    engine on both sides when given)."""
+    jd, td = make_pair(mesh, pipeline=0, group_timer_lo=1,
+                       group_timer_hi=2)
     events = []       # (group, replica, jax event, port event)
 
     def compare(jres, tres, tag):
@@ -143,7 +158,16 @@ def test_step_locked_parity_with_the_jax_sharded_driver():
 
 
 def test_pipelined_loop_acks_every_event_once_in_group_order():
-    td = ShardedClusterDriver(LogConfig(**GEO), 3, G, device="cpu",
+    pipelined_loop()
+
+
+def pipelined_loop(mesh=None):
+    """Pre-queued SENDs through the pipelined loop (of ``mesh``'s
+    engine when given): every event acked once with status 0, each
+    connection's SENDs committed in submit order; returns the driver's
+    per-group committed streams."""
+    td = ShardedClusterDriver(LogConfig(**GEO), 3, G, mesh=mesh,
+                              device=cpu_devices(mesh),
                               timeout_cfg=TimeoutConfig(**TIMERS),
                               group_timer_lo=1, group_timer_hi=2)
     try:
@@ -178,6 +202,7 @@ def test_pipelined_loop_acks_every_event_once_in_group_order():
             idx = [int(p.split(b"-")[1].split(b" ")[0]) for p in sends]
             assert idx == list(range(30)), conn
         assert len(per_conn) == 9
+        return per_conn
     finally:
         td.stop()
 
@@ -229,9 +254,21 @@ def test_sharded_driver_unsupported_surfaces_raise():
     with pytest.raises(ValueError, match="audit=True"):
         ShardedClusterDriver(LogConfig(**GEO), 3, 2, device="cpu",
                              repair=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # ported since: the mesh engine, which takes a device list
+    # (tests/test_torch_mesh.py drives it)
+    with pytest.raises(ValueError, match="device list"):
         ShardedClusterDriver(LogConfig(**GEO), 3, 2, device="cpu",
                              mesh=(2, 3))
+    md = ShardedClusterDriver(LogConfig(**GEO), 3, 2, device=["cpu"] * 6,
+                              mesh=(2, 3),
+                              timeout_cfg=TimeoutConfig(**TIMERS))
+    try:
+        md.step()
+        assert md.health()["engine"] == "spmd-group"
+        assert md.health()["mesh"]["devices"] == ["cpu"] * 6
+    finally:
+        md.stop()
+    assert not any(t.is_alive() for t in md.cluster.world._threads)
     with pytest.raises(ValueError, match="link_models"):
         ShardedClusterDriver(LogConfig(**GEO), 3, 2, device="cpu",
                              link_model=object())

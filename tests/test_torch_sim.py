@@ -59,12 +59,17 @@ def assert_engines_equal(j, t, tag):
 
 
 def run_workload(R, fanout, seed, *, rebase=None, wedge=False, scan=False,
-                 steps=60, **variants):
-    """``variants``: the ``audit=``/``telemetry=`` flags, on both."""
+                 steps=60, spmd=False, **variants):
+    """``variants``: the ``audit=``/``telemetry=`` flags, on both;
+    ``spmd=True`` runs both engines in ``mode="spmd"`` (the port's on
+    ``["cpu"] * R``)."""
     geo = dict(GEO, **({"rebase_threshold": rebase} if rebase else {}))
-    j = JSim(JCfg(**geo), R, fanout=fanout, scan=scan, **variants)
+    mode = "spmd" if spmd else "sim"
+    j = JSim(JCfg(**geo), R, fanout=fanout, scan=scan, mode=mode,
+             **variants)
     t = SimCluster(LogConfig(**geo), R, fanout=fanout, scan=scan,
-                   device="cpu", **variants)
+                   mode=mode, device=["cpu"] * R if spmd else "cpu",
+                   **variants)
     for c in (j, t):
         c.collect_frames = True
     rng = np.random.default_rng(seed)

@@ -148,3 +148,29 @@ def test_variants_off_leave_the_engine_unchanged():
             np.testing.assert_array_equal(st[k], st0[k], err_msg=k)
         for r in range(3):
             assert list(c.replayed[r]) == list(base.replayed[r])
+
+
+def test_mesh_telemetry_matches_jax_mesh_and_vmap():
+    """The twin of tests/test_device_obs.py's mesh ≡ vmap: the port's
+    2×3 mesh engine's per-(group, replica) counter vectors, through the
+    sharded script's burst, partition and failover, equal the JAX mesh
+    and vmap engines'."""
+    import dataclasses
+
+    from rdma_paxos_tpu.shard import ShardedCluster as JSharded
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    from tests.test_device_obs import CFG as JCFG, _run_sharded_script
+    t = ShardedCluster(LogConfig(**dataclasses.asdict(JCFG)), 3, 2,
+                       mesh=(2, 3), device=["cpu"] * 6, telemetry=True)
+    try:
+        vm = JSharded(JCFG, 3, 2, telemetry=True)
+        ms = JSharded(JCFG, 3, 2, mesh=(2, 3), telemetry=True)
+        for sc in (vm, ms, t):
+            _run_sharded_script(sc)
+        for j in (vm, ms):
+            np.testing.assert_array_equal(np.asarray(j.device_counters),
+                                          t.device_counters)
+            np.testing.assert_array_equal(np.asarray(j.last["telemetry"]),
+                                          t.last["telemetry"])
+    finally:
+        t.close()

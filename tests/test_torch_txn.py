@@ -193,6 +193,35 @@ def test_vote_lane_sharded_matches_jax():
     assert votes[-1] == [[TXN_CONFLICT] * R, [TXN_NONE] * R]
 
 
+def test_vote_lane_mesh_matches_jax():
+    """The twin of tests/test_txn.py's mesh ≡ vmap: the port's 2×3 mesh
+    engine threads the watch inputs and reports the JAX mesh engine's
+    stacked vote matrix; through the failover workload it equals the
+    JAX stacked engine step for step."""
+    from tests.test_txn import _vote_workload
+    mesh = ShardedCluster(LogConfig(**GEO), R, 2, txn=True, mesh=(2, 3),
+                          device=["cpu"] * 6)
+    again = ShardedCluster(LogConfig(**GEO), R, 2, txn=True, mesh=(2, 3),
+                           device=["cpu"] * 6)
+    try:
+        jm = JSharded(JCfg(**GEO), R, 2, txn=True, mesh=(2, 3))
+        for x, y in zip(_vote_workload(jm), _vote_workload(mesh)):
+            np.testing.assert_array_equal(x, y)
+        for k in ("term", "commit", "end", "apply", "role"):
+            np.testing.assert_array_equal(np.asarray(jm.last[k]),
+                                          mesh.last[k], err_msg=k)
+        jv = JSharded(JCfg(**GEO), R, 2, txn=True)
+        for i, (jr, tr) in enumerate(zip(_failover_workload(jv),
+                                         _failover_workload(again))):
+            assert set(jr) == set(tr), i
+            for k, v in tr.items():
+                np.testing.assert_array_equal(np.asarray(jr[k]), v,
+                                              err_msg=f"step {i}: {k}")
+    finally:
+        mesh.close()
+        again.close()
+
+
 def test_txn_off_outputs_equal_and_ops_unchanged():
     """A txn=False engine's outputs equal a txn=True engine's but for
     ``txn_vote``, on both engines, and its step() dispatches the PyTorch

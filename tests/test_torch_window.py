@@ -152,6 +152,26 @@ def test_window_ref_matches_jax_oracle(name):
             "no leader instance committed anything"
 
 
+@pytest.mark.parametrize("groups", [range(0, 1), range(1, 3),
+                                    range(0, 4)])
+def test_window_rows_layout_matches_jax_oracle(groups):
+    """A device-list entry's call: replica r of several groups, one
+    instance per group, each reading its own group's R acks as a row
+    (``my_ack [N * R]``); equal to the JAX oracle's instances."""
+    c = make_case(np.random.default_rng(7))
+    want = oracle(c)
+    (buf, pa, ack), kw = port_args(c)
+    acks = ack.view(-1, 3)[groups.start:groups.stop].reshape(-1)
+    for r in range(3):
+        idx = torch.tensor([g * 3 + r for g in groups])
+        args = (buf[idx].contiguous(), pa[idx].contiguous(), acks)
+        k = {n: v[idx].contiguous() for n, v in kw.items()}
+        for fn in (commit_window_ref, commit_window):
+            commit2, xpos = fn(*args, w=W, **k)
+            np.testing.assert_array_equal(commit2.numpy(), want[0][idx])
+            np.testing.assert_array_equal(xpos.numpy(), want[1][idx])
+
+
 def test_window_wrapper_checks_inputs():
     (buf, pa, ack), kw = port_args(make_case(np.random.default_rng(5)))
     assert [t.shape for t in commit_window(buf, pa, ack, w=W, **kw)] == [
