@@ -270,7 +270,25 @@ exits non-zero without its result line):
     key-prefix routed) acked once each with status 0, in per-group
     order, equal to the stacked driver's acks and streams; acked
     events/s beside the stacked driver's;
-17. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+17. graftlint and the runtime lock sanitizer: (17a) ``python -m
+    rdma_paxos_tpu_torch.analysis --json`` in a subprocess on the card's
+    machine, exit 0 with no live finding and no unused suppression;
+    (17b) with ``RP_SANITIZE=1`` for the phase (restored after),
+    ``ClusterDriver(pipeline=2)`` at geometry (a) on (6a)'s record: the
+    engine ``SimCluster+sanitized``, every event acked once with status
+    0 in order, the streams equal to unsanitized runs on the card and to
+    a sanitized serial CPU twin, ``max_inflight_dispatches >= 2``, one
+    ``commit_window`` launch per protocol step, an off-lock write of
+    ``cluster.pending`` raising ``LockDisciplineError`` (and not
+    unsanitized); acked events/s sanitized and unsanitized in
+    alternating turns; (17c) sanitized: (10f)'s sharded driver at G = 4,
+    pipelined; a streams hub on a ``SimCluster`` at (a) whose cluster,
+    read hub, hub, watch and scans are all ``+sanitized`` (session puts
+    watched once each in order, then scanned); four full batches of
+    (16a)'s spmd engine on ``[cuda:0] * 3`` — each equal to its
+    sanitized CPU twin. An exception raised on any thread fails the
+    phase; nothing falls back to the CPU or to an unsanitized run;
+18. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
 after, so a failure names its phase.
@@ -282,6 +300,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import functools
 import json
 import os
@@ -996,7 +1015,7 @@ def post_stages(pr) -> dict:
 
 def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
                      n_conns: int, pipeline: int, profile: str = "",
-                     workdir=None, **variants) -> dict:
+                     workdir=None, probe=None, **variants) -> dict:
     """The pre-queued record through the leader's shim handler of a
     ``ClusterDriver`` on ``dev`` (the JAX idiom of
     ``tests/test_pipeline.py``): elect replica 0, queue a CONNECT per
@@ -1012,7 +1031,9 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
     artifact, a run with telemetry its device counters.
     ``profile="session"`` wraps the loop in the driver's own capture
     (``start_profile``/``stop_profile``, spans sampled and host phases
-    recorded) and returns the merged timeline as ``merged``."""
+    recorded) and returns the merged timeline as ``merged``. ``probe``,
+    when given, is called with the stopped driver and its result returned
+    as ``probe``."""
     from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
     from rdma_paxos_tpu_torch.ops.quorum import commit_window
     from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
@@ -1127,7 +1148,10 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
             hist=d.obs.metrics.get("commit_latency_seconds", replica=0),
             max_inflight=d.cluster.max_inflight_dispatches,
             post_step_ms=post_s[0] * 1e3, phases=d._phase_prof.sums(),
-            streams=[list(s) for s in d.cluster.replayed])
+            streams=[list(s) for s in d.cluster.replayed],
+            engine=type(d.cluster).__name__)
+        if probe is not None:
+            out["probe"] = probe(d)
         c = d.cluster
         out["commit_abs"] = (c.last["commit"].astype(np.int64)
                              + c.rebased_total).tolist()
@@ -2947,7 +2971,8 @@ def drive_sharded_driver(dev, pipeline: int, mesh=None, conns=None,
                     steps=c.step_index - steps0, wall=wall,
                     events=len(evs), streams=streams,
                     statuses=[e.status for e in evs],
-                    max_inflight=c.max_inflight_dispatches)
+                    max_inflight=c.max_inflight_dispatches,
+                    engine=type(c).__name__)
     finally:
         d.stop()
 
@@ -6335,7 +6360,8 @@ def spmd_run(dev, geom: dict, fanout: str, n_batches: int,
                     state=convert.replica_state_to_numpy(c.state),
                     steps=c.step_index, launches=commit_window.launches,
                     scans=commit_scan.launches, rebases=int(c.rebases),
-                    scan_dispatches=c.scan_dispatches, timed=timed)
+                    scan_dispatches=c.scan_dispatches, timed=timed,
+                    engine=type(c).__name__)
     finally:
         c.close()
 
@@ -6563,6 +6589,276 @@ def phase_device_list(dev, card: str) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 17: graftlint and the runtime lock sanitizer
+# ---------------------------------------------------------------------------
+
+SAN_ENV = "RP_SANITIZE"
+SAN_PUTS = 512              # (17c) the streams hub's session puts
+SAN_SPMD_BATCHES = 4        # (17c) (16a)'s shape, four full batches
+
+
+@contextlib.contextmanager
+def sanitized(on: bool = True):
+    """``RP_SANITIZE=1`` (``on``) or unset for the engines built inside,
+    the caller's value restored on exit."""
+    old = os.environ.pop(SAN_ENV, None)
+    if on:
+        os.environ[SAN_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(SAN_ENV, None)
+        if old is not None:
+            os.environ[SAN_ENV] = old
+
+
+def lint_on_this_machine(card: str) -> None:
+    """(17a) the port's graftlint CLI in a subprocess: exit 0, no live
+    finding, no unused suppression."""
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "graftlint.json")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "rdma_paxos_tpu_torch.analysis",
+             "--json", out], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        dt = time.perf_counter() - t0
+        check(p.returncode == 0, f"(17a) graftlint exited {p.returncode}: "
+                                 f"{p.stdout[-2000:]} {p.stderr[-2000:]}")
+        with open(out, encoding="utf-8") as f:
+            doc = json.load(f)
+    check(doc["ok"] and not doc["findings"]
+          and not doc["unused_suppressions"] and doc["suppressed"],
+          f"(17a) graftlint report: {len(doc['findings'])} live, "
+          f"{len(doc['unused_suppressions'])} unused suppressions")
+    print(f"sanitizer (17a) on the card's machine ({card}): python -m "
+          f"rdma_paxos_tpu_torch.analysis exit 0, 0 live findings, "
+          f"{len(doc['suppressed'])} suppressed, 0 unused suppressions, "
+          f"{dt:.2f} s ({p.stdout.strip().splitlines()[-1]})", flush=True)
+
+
+def offlock_write_raises(d) -> bool:
+    """The deliberate race: an off-lock write of the engine's guarded
+    ``pending`` must raise; the same write under the host lock must
+    not. Only this one expected error is caught."""
+    from rdma_paxos_tpu_torch.analysis.runtime_guard import (
+        LockDisciplineError)
+    c = d.cluster
+    fresh = [[] for _ in range(R)]
+    try:
+        c.pending = fresh
+        raised = False
+    except LockDisciplineError:
+        raised = True
+    with c._host_lock:
+        c.pending = fresh
+    return raised
+
+
+def drive_sanitized_streams(dev) -> dict:
+    """(17c) a streams hub attached to a ``SimCluster`` at geometry (a)
+    with the read path and ``ReplicatedKVS(cap=4096)``: ``SAN_PUTS``
+    session puts under a whole-range watch, caught up, then a scan of
+    the range served by stepping."""
+    from rdma_paxos_tpu_torch import streams
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.models.replicated_kvs import ReplicatedKVS
+    from rdma_paxos_tpu_torch.obs import Observability
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime import reads
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, fanout = GEOMETRIES["a"]
+    c = SimCluster(LogConfig(**geom), R, fanout=fanout, device=dev)
+    c.obs = Observability()
+    reads.attach(c)
+    hub = streams.attach(c)
+    try:
+        names = [type(x).__name__ for x in (c, c.reads, hub, hub.watch,
+                                            hub.scans)]
+        kv = ReplicatedKVS(c, cap=4096)
+        commit_window.launches = 0
+        s0 = c.step_index
+        c.run_until_elected(0)
+        sub = hub.subscribe(0)
+        keys = [spread_key(b"san/", i) for i in range(SAN_PUTS)]
+        for i, k in enumerate(keys):
+            kv.put(0, k, b"v%d" % i, client_id=9, req_id=i + 1)
+        for _ in range(32):
+            c.step()
+            kv._fold(0)
+            if kv.last_req[0].get(9, 0) >= SAN_PUTS:
+                break
+        check(kv.last_req[0].get(9, 0) >= SAN_PUTS,
+              "(17c) the streams hub's puts did not commit")
+        check(hub.watch.wait_caught_up({0: hub.tails[0].length()}, 60),
+              "(17c) the watch pump never caught up")
+        events = []
+        while True:
+            got = sub.poll(4096)
+            if not got:
+                break
+            events += [(e.term, e.index, e.op, e.key, e.val) for e in got]
+        check([e[3] for e in events] == keys,
+              "(17c) the watch did not deliver every put once, in order")
+        items, _s = serve_stepping([c], lambda: hub.scan_all(
+            prefix=b"san/"))
+        check(sorted(k for k, _v in items) == sorted(keys),
+              "(17c) the scan did not return every key")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return dict(names=names, events=events, items=items,
+                    stream=list(c.replayed[0]), steps=c.step_index - s0,
+                    launches=commit_window.launches,
+                    status=hub.watch.status()["events_total"])
+    finally:
+        hub.fail_all("chip smoke (17c) done")
+
+
+def phase_sanitizer(dev, card: str) -> list:
+    """Phase 17: (17a) graftlint on the card's machine; (17b) the
+    pipelined driver on (6a)'s record under ``RP_SANITIZE=1`` against
+    unsanitized runs and a CPU twin; (17c) the sanitized sharded
+    driver, streams hub and spmd engine against their CPU twins. Any
+    error a thread raises fails the phase."""
+    cpu = torch.device("cpu")
+    raised = []
+    hook = threading.excepthook
+
+    def record(args):
+        raised.append(f"{args.thread.name}: {args.exc_type.__name__}: "
+                      f"{args.exc_value}")
+        hook(args)
+    threading.excepthook = record
+    try:
+        runs = sanitizer_runs(dev, cpu, card)
+    finally:
+        threading.excepthook = hook
+    check(not raised, f"(17) a thread raised: {raised}")
+    return runs
+
+
+def sanitizer_runs(dev, cpu, card: str) -> list:
+    lint_on_this_machine(card)
+    runs = []
+    on_card = dev.type == "cuda"
+
+    # (17b) the pipelined driver on (6a)'s record, sanitized and not, in
+    # alternating turns, and the sanitized serial CPU twin
+    geom, fanout = GEOMETRIES["a"]
+    payloads = front_record(FRONT_EVENTS, FRONT_BYTES)
+    b = {}
+    for name, d_, pl, on in (("sanitized", dev, 2, True),
+                             ("plain", dev, 2, False),
+                             ("plain 2", dev, 2, False),
+                             ("sanitized 2", dev, 2, True),
+                             ("cpu twin", cpu, 0, True)):
+        with sanitized(on):
+            b[name] = drive_front_door(d_, geom, fanout, payloads,
+                                       FRONT_CONNS, pl,
+                                       probe=offlock_write_raises)
+    ref = b["cpu twin"]
+    for name, r in b.items():
+        want = "SimCluster+sanitized" if "plain" not in name else \
+            "SimCluster"
+        check(r["engine"] == want, f"(17b) {name}: engine {r['engine']}")
+        check(r["statuses"] == [0] * FRONT_EVENTS and (r["fired"] == 1).all(),
+              f"(17b) {name}: not every event was acked once with status 0")
+        check([p for (t, _c, _q, p) in r["streams"][0] if t == 3]
+              == payloads, f"(17b) {name}: the committed SENDs are not "
+                           f"the record in order")
+        check(r["streams"] == ref["streams"],
+              f"(17b) {name}: the committed streams differ from the CPU "
+              f"twin's")
+        check(r["probe"] is ("plain" not in name),
+              f"(17b) {name}: an off-lock write of cluster.pending "
+              f"{'did not raise' if 'plain' not in name else 'raised'}")
+        if name != "cpu twin":
+            check(r["max_inflight"] >= 2,
+                  f"(17b) {name}: the pipeline never overlapped dispatches")
+            check(r["launches"] == r["steps"] > 0 or not on_card,
+                  f"(17b) {name}: {r['launches']} commit_window launches "
+                  f"in {r['steps']} protocol steps")
+    runs += [dict(launches=b[n]["launches"], steps=b[n]["steps"])
+             for n in ("sanitized", "sanitized 2")]
+    rate = {n: FRONT_EVENTS / b[n]["wall"] for n in b}
+    print(f"sanitizer (17b) on {card}, geometry (a) fanout={fanout}: "
+          f"ClusterDriver(pipeline=2) on (6a)'s record ({FRONT_EVENTS} "
+          f"SENDs of {FRONT_BYTES} B on {FRONT_CONNS} connections), "
+          f"RP_SANITIZE=1 engine {b['sanitized']['engine']}: every event "
+          f"acked once with status 0 in order, streams equal to the "
+          f"unsanitized runs and to the sanitized CPU serial twin; "
+          f"max_inflight_dispatches {b['sanitized']['max_inflight']}, "
+          f"{b['sanitized 2']['max_inflight']}; "
+          f"{b['sanitized']['launches']} commit_window launches in "
+          f"{b['sanitized']['steps']} protocol steps; an off-lock write of "
+          f"cluster.pending raised LockDisciplineError (and not "
+          f"unsanitized); acked events/s sanitized "
+          f"{rate['sanitized']:.0f}, {rate['sanitized 2']:.0f}, "
+          f"unsanitized {rate['plain']:.0f}, {rate['plain 2']:.0f} "
+          f"(alternating turns, ratio "
+          f"{(rate['sanitized'] + rate['sanitized 2']) / (rate['plain'] + rate['plain 2']):.3f}"
+          f")", flush=True)
+
+    # (17c) the sharded driver at G = 4, pipelined, (10f)'s shape
+    with sanitized():
+        sd = drive_sharded_driver(dev, pipeline=2)
+        sref = drive_sharded_driver(cpu, pipeline=0)
+    for name, r in (("card", sd), ("cpu twin", sref)):
+        check(r["engine"] == "ShardedCluster+sanitized",
+              f"(17c) sharded driver {name}: engine {r['engine']}")
+    check(sd["streams"] == sref["streams"],
+          "(17c) the sanitized sharded driver's streams differ from the "
+          "CPU twin's")
+    check(sd["launches"] == sd["steps"] > 0 or not on_card,
+          f"(17c) sharded driver: {sd['launches']} launches in "
+          f"{sd['steps']} protocol steps")
+    runs.append(dict(launches=sd["launches"], steps=sd["steps"]))
+
+    # (17c) a streams hub on a SimCluster at (a)
+    with sanitized():
+        st = drive_sanitized_streams(dev)
+        stref = drive_sanitized_streams(cpu)
+    for name, r in (("card", st), ("cpu twin", stref)):
+        check(all(n.endswith("+sanitized") for n in r["names"]),
+              f"(17c) streams {name}: {r['names']}")
+    for k in ("events", "items", "stream", "status"):
+        check(st[k] == stref[k], f"(17c) streams: {k} differ from the "
+                                 f"CPU twin's")
+    check(st["launches"] == st["steps"] > 0 or not on_card,
+          f"(17c) streams: {st['launches']} launches in {st['steps']} "
+          f"protocol steps")
+    runs.append(dict(launches=st["launches"], steps=st["steps"]))
+
+    # (17c) SimCluster(mode="spmd") on [dev] * 3, (16a)'s shape
+    with sanitized():
+        sp = spmd_run(dev, SPMD_GEOM, "psum", SAN_SPMD_BATCHES, True)
+        spref = spmd_run(cpu, SPMD_GEOM, "psum", SAN_SPMD_BATCHES, True)
+    check(sp["engine"] == spref["engine"] == "SimCluster+sanitized",
+          f"(17c) spmd: engine {sp['engine']}")
+    compare_steps("(17c) the sanitized spmd engine against its CPU twin",
+                  sp, spref)
+    check(sp["launches"] == R * sp["steps"] or not on_card,
+          f"(17c) spmd: {sp['launches']} launches in {sp['steps']} steps")
+    runs.append(dict(launches=sp["launches"], steps=sp["steps"]))
+    print(f"sanitizer (17c) on {card}, RP_SANITIZE=1: "
+          f"ShardedClusterDriver G = 4 at geometry (a), pipeline=2, "
+          f"{sd['events']} SENDs on {R * GROUP_CONNS_PER_REPLICA} "
+          f"connections acked once each with status 0, "
+          f"{sd['events'] / sd['wall']:.0f} acked events/s, "
+          f"max_inflight_dispatches {sd['max_inflight']}, "
+          f"{sd['launches']} commit_window launches in {sd['steps']} "
+          f"protocol steps; a streams hub on SimCluster at (a) "
+          f"({', '.join(st['names'])}): {SAN_PUTS} session puts watched "
+          f"once each in order and scanned, {st['steps']} protocol steps, "
+          f"{st['launches']} launches; SimCluster(mode='spmd') on "
+          f"[{dev}] * 3, {SAN_SPMD_BATCHES} full batches: {sp['steps']} "
+          f"protocol steps, {sp['launches']} launches; every stream, "
+          f"event, scan and dispatch equal to its sanitized CPU twin",
+          flush=True)
+    return runs
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
@@ -6646,6 +6942,10 @@ def main() -> int:
     with Phase(16, "the single-controller engines over a device list "
                    "(16a spmd, 16b mesh, 16c the sharded driver)"):
         main_runs += phase_device_list(dev, smi)
+    with Phase(17, "graftlint and the runtime lock sanitizer (17a the "
+                   "CLI, 17b the pipelined driver, 17c the sharded "
+                   "driver, a streams hub and the spmd engine)"):
+        main_runs += phase_sanitizer(dev, smi)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

@@ -9,6 +9,13 @@ a hand-written CUDA kernel here (``csrc/commit_scan.cu``), built with
 ``nvcc`` at first use.
 """
 
-from rdma_paxos_tpu_torch.config import LogConfig, resolve_device
-
 __all__ = ["LogConfig", "resolve_device"]
+
+
+def __getattr__(name):
+    # resolved on first use, so that importing a stdlib-only subpackage
+    # (``analysis``, whose CLI runs before anything heavy) loads no torch
+    if name in __all__:
+        from rdma_paxos_tpu_torch import config
+        return getattr(config, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -306,8 +306,8 @@ def digest_fold_np(rows: np.ndarray) -> np.ndarray:
     """The host form of :func:`digest_fold`: the reference's column
     loop in numpy u32 arithmetic (``rows [N, slot_words + META_W]``, any
     integer dtype, taken as u32 bit patterns) -> ``[N]`` u32. Used by
-    :func:`~rdma_paxos_tpu_torch.consensus.snapshot.take_snapshot` for
-    a snapshot's digest chain, and by the tests as an independent check
+    the host-side snapshot code in ``consensus/snapshot.py`` for a
+    snapshot's digest chain, and by the tests as an independent check
     of the device form."""
     rows = np.asarray(rows).astype(np.uint32)
     u32 = np.uint32

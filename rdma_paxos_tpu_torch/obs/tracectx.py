@@ -117,6 +117,8 @@ class TraceContext:
         # guarded-by: _lock [writes] — per-kind id counters
         self._seq: Dict[str, int] = {}
         self.dropped = 0                   # evicted-while-open count
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_lock", __file__)
 
     def now(self) -> float:
         """The context's clock — producers that backdate a trace start

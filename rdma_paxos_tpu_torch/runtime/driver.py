@@ -389,7 +389,8 @@ class ClusterDriver:
         # loop
         # guarded-by: _lock [writes]
         self._recover_req = None
-        self._reset_req = None
+        self._reset_req = None        # guarded-by: _lock [writes]
+        # guarded-by: _lock [writes]
         self._ckpt_req: Optional[Tuple[int, threading.Event, list]] = None
         self._lock = threading.Lock()
         # per-replica queues of (etype, conn_id, fragment_bytes, seq)
@@ -1418,7 +1419,7 @@ class ClusterDriver:
                 r, donor, ledger=ledger, min_verified=min_verified)
         self._load_donor_history(r, donor, snap, app_fresh)
 
-    # holds-lock: cluster._host_lock, with no dispatch in flight
+    # holds-lock: _host_lock (the engine's, with no dispatch in flight)
     def _install_donor_snapshot(self, r: int, donor: int, *, ledger=None,
                                 min_verified: int = 1):
         """The device half of a recovery: snapshot the donor, restore r's

@@ -155,6 +155,8 @@ class DispatchGovernor:
         # the published decision — swapped whole under the lock,
         # read lock-free by the dispatch thread
         self.decision: Decision = SERIAL       # guarded-by: _lock [writes]
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_lock", __file__)
 
     # ------------------------------------------------------------------
     # inputs

@@ -442,6 +442,10 @@ class ReadHub:
         self.served: Dict[str, int] = {PATH_LEASE: 0,
                                        PATH_READ_INDEX: 0}
         self.failed = 0    # guarded-by: _lock
+        # runtime lock sanitizer: _q is [strict] — under RP_SANITIZE=1
+        # even READS assert the hub lock (no lock-free read exists)
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_lock", __file__)
 
     def submit(self, serve_fn: Optional[Callable] = None, *,
                replica: int, group: int = 0,

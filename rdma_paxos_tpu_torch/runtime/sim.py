@@ -375,16 +375,24 @@ class SimCluster:
         # burst commits up to K*batch_slots entries at once
         self._replay_W = min(cfg.n_slots // 2,
                              max(4 * cfg.window_slots, 256))
+        # host apply cursor — single-writer: advanced in place by the
+        # finishing (readback) thread only; whole-array WRITES rebind
+        # under the lock  # guarded-by: _host_lock [writes]
         self.applied = np.zeros(n_replicas, np.int64)
         self.peer_mask = np.ones((n_replicas, n_replicas), np.int32)
         # guarded-by: _host_lock
         self.pending: List[List[Tuple[int, int, int, bytes]]] = [
             [] for _ in range(n_replicas)]
+        # pipelined dispatch (begin_*/finish): FIFO of in-flight tickets
+        # guarded-by: _host_lock
         self._tickets: collections.deque = collections.deque()
         self._staging = StagingPool()
-        self.inflight_dispatches = 0
+        self.inflight_dispatches = 0         # guarded-by: _host_lock
         # the witness that a pipelined driver really overlapped dispatches
-        self.max_inflight_dispatches = 0
+        self.max_inflight_dispatches = 0     # guarded-by: _host_lock
+        # published by pointer swap under the lock; lock-free READS see
+        # a complete (stale at worst) result dict by design
+        # guarded-by: _host_lock [writes]
         self.last: Optional[Dict[str, np.ndarray]] = None
         self.replayed: List[LazyReplayStream] = [
             LazyReplayStream() for _ in range(n_replicas)]
@@ -436,6 +444,12 @@ class SimCluster:
         # link model the same per-step randomness twice; serial callers
         # see the two clocks equal at every dispatch
         self._dispatch_clock = 0
+        # runtime lock sanitizer (analysis/runtime_guard.py): under
+        # RP_SANITIZE=1 the guarded-by declarations above become
+        # per-access lock-ownership assertions — a latent unlocked
+        # mutation fails the test at the exact access. No-op otherwise.
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_host_lock", __file__)
 
     # ---------------- client-side API ----------------
 

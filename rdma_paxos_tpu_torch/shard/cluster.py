@@ -242,6 +242,14 @@ class ShardedCluster:
         self.collect_frames = False
         self.frames: List[List[List[bytes]]] = [
             [[] for _ in range(R)] for _ in range(G)]
+        # runtime lock sanitizer: the guarded-by declarations live in
+        # runtime/sim.py (the fields are name-shared across both
+        # engines) — under RP_SANITIZE=1 they become lock-ownership
+        # assertions here too. No-op otherwise.
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        from rdma_paxos_tpu_torch.runtime import sim as _sim_mod
+        runtime_guard.maybe_guard(self, "_host_lock",
+                                  _sim_mod.__file__, __file__)
 
     # ---------------- client-side API ----------------
 

@@ -1,10 +1,8 @@
 """Log-as-product: the ``streams/`` subsystem.
 
-The port's copy of the JAX package's ``streams`` (host-only; the
-runtime lock sanitizer's ``maybe_guard`` call is left out, as in every
-copied module, ROADMAP Queue 1, item 15). ``tests/test_torch_streams.py``
-holds its scan pages, watch sequences and CDC records equal to the
-reference's.
+The port's copy of the JAX package's ``streams`` (host-only).
+``tests/test_torch_streams.py`` holds its scan pages, watch sequences
+and CDC records equal to the reference's.
 
 APUS followers replay the committed input stream into their local app
 copies — the log IS an ordered, audited, digest-verified event
@@ -103,6 +101,8 @@ class StreamHub:
         self._lock = threading.Lock()
         self._hsteps = 0          # guarded-by: _lock
         self._hstopped = False    # guarded-by: _lock
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_lock", __file__)
 
     # ---------------- engine-side (finish() tail) ----------------
 

@@ -1,8 +1,6 @@
 """Ordered range scans with consistent-cut pagination.
 
-The port's copy of the JAX package's ``streams/scan.py`` (the
-runtime lock sanitizer's ``maybe_guard`` call left out, ROADMAP Queue
-1, item 15).
+The port's copy of the JAX package's ``streams/scan.py``.
 
 A scan rides the ReadHub (``runtime/reads.py``): ONE batched
 read-index confirm per page (lease-served when the replica holds a
@@ -185,6 +183,8 @@ class ScanManager:
         self._sstep = 0       # guarded-by: _slock
         self.pages_served = 0     # guarded-by: _slock
         self.pins_expired = 0     # guarded-by: _slock
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_slock", __file__)
 
     def on_step(self) -> None:
         """Pin-expiry tick (engine finish() tail, readback thread)."""

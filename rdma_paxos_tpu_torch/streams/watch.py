@@ -1,8 +1,6 @@
 """Watch/subscribe — committed-delta fan-out with exactly-once resume.
 
-The port's copy of the JAX package's ``streams/watch.py`` (the
-runtime lock sanitizer's ``maybe_guard`` call left out, ROADMAP Queue
-1, item 15).
+The port's copy of the JAX package's ``streams/watch.py``.
 
 A :class:`WatchHub` tails each group's committed stream from its own
 pump thread (NEVER the readback thread: the engine finish() tail only
@@ -136,7 +134,6 @@ class WatchHub:
         self.cdc = cdc
         self._tails = {t.group: t for t in tails}
         self._wlock = threading.Lock()
-        self._wcv = threading.Condition(self._wlock)
         # guarded-by: _wlock
         self._wsubs: Dict[int, Subscription] = {}
         # guarded-by: _wlock
@@ -164,6 +161,13 @@ class WatchHub:
         # shows commit → pump → deliver. Only populated while the
         # trace plane samples.  # guarded-by: _wlock
         self._wkick: Dict[int, float] = {}
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_wlock", __file__)
+        # the condition is built on the lock the guard leaves in place
+        # (an ownership-tracking wrapper under RP_SANITIZE=1): built on
+        # the bare lock, a wait would reacquire it behind the wrapper's
+        # back and the waiter's next guarded write would read as unowned
+        self._wcv = threading.Condition(self._wlock)
         self._pump = threading.Thread(
             target=self._pump_loop, name="watch-pump", daemon=True)
         self._pump.start()

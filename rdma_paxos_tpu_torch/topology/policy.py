@@ -1,9 +1,7 @@
 """Load-driven topology policy — the loop that decides WHEN to split
 and merge.
 
-The port's copy of the JAX package's ``topology/policy.py`` (the
-runtime lock sanitizer's ``maybe_guard`` call left out, ROADMAP Queue
-1, item 15).
+The port's copy of the JAX package's ``topology/policy.py``.
 
 The mechanism lives in :mod:`~rdma_paxos_tpu_torch.topology.transition`;
 this module closes the loop the way every other actuator in the repo
@@ -107,6 +105,8 @@ class TopologyPolicy:
         self._mine: List[RangeRule] = []
         if ctl is not None:
             self.bind(ctl)
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_lock", __file__)
 
     def bind(self, ctl) -> None:
         self.ctl = ctl

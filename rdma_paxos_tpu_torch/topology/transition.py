@@ -1,9 +1,8 @@
 """The two-router transition window — online split/merge execution.
 
-The port's copy of the JAX package's ``topology/transition.py`` (the
-runtime lock sanitizer's ``maybe_guard`` call left out, ROADMAP Queue
-1, item 15). ``tests/test_torch_topology.py`` holds its windows, router
-and tables equal to the reference's.
+The port's copy of the JAX package's ``topology/transition.py``.
+``tests/test_torch_topology.py`` holds its windows, router and tables
+equal to the reference's.
 
 A transition migrates one key RANGE between groups with zero
 linearizability violations, while clients keep writing. The trick is
@@ -171,6 +170,8 @@ class TopologyController:
         self._gate_cv = threading.Condition()
         # guarded-by: _gate_cv [writes]
         self._frozen_range: Optional[Tuple[bytes, Optional[bytes]]] = None
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_lock", __file__)
 
     def _tracer(self):
         """The shared trace plane, or None when span sampling is off

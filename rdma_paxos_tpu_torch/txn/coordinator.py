@@ -176,6 +176,8 @@ class TxnCoordinator:
         self._terms = _epoch.TermWatch(self.G)
         self._next_tid = 1                  # guarded-by: _lock [writes]
         self._lock = threading.RLock()
+        from rdma_paxos_tpu_torch.analysis import runtime_guard
+        runtime_guard.maybe_guard(self, "_lock", __file__)
 
     # ---------------- trace plane ----------------
 

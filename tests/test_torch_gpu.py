@@ -88,6 +88,33 @@ def test_front_door_pipelined_driver_on_the_card():
     assert gpu["launches"] == gpu["steps"] > 0
 
 
+def test_sanitized_pipelined_driver_on_the_card(monkeypatch):
+    """Phase (17b) of ``chip_smoke.py`` at a small size: under
+    ``RP_SANITIZE=1`` the pipelined driver on the card runs its engine
+    sanitized, acks every event once, commits the CPU twin's streams,
+    overlaps dispatches, launches the commit-window kernel once per
+    protocol step, and an off-lock write of a guarded field raises."""
+    _need_card()
+    from chip_smoke import (
+        drive_front_door, front_record, offlock_write_raises)
+    monkeypatch.setenv("RP_SANITIZE", "1")
+    geom = dict(n_slots=1024, slot_bytes=128, window_slots=256,
+                batch_slots=256)
+    payloads = front_record(3000, 100)
+    gpu = drive_front_door(torch.device("cuda", 0), geom, "psum", payloads,
+                           4, 2, probe=offlock_write_raises)
+    cpu = drive_front_door(torch.device("cpu"), geom, "psum", payloads, 4,
+                           0, probe=offlock_write_raises)
+    for run in (gpu, cpu):
+        assert run["engine"] == "SimCluster+sanitized"
+        assert run["probe"] is True
+        assert run["statuses"] == [0] * len(payloads)
+        assert (run["fired"] == 1).all()
+    assert gpu["streams"] == cpu["streams"]
+    assert gpu["max_inflight"] >= 2
+    assert gpu["launches"] == gpu["steps"] > 0
+
+
 def test_snapshot_recovery_on_the_card():
     """Phase (7a) of ``chip_smoke.py`` at a small size: a laggard pruned
     past the ring and a fresh learner recover by snapshot install on the

@@ -87,7 +87,11 @@ def test_imports_with_jax_and_reference_blocked():
                 "topology.policy", "topology.chaos", "obs.console",
                 "obs.__main__", "obs.spans", "config", "parallel.mesh",
                 "runtime.host", "runtime.node", "runtime.launch_node",
-                "runtime.elastic", "runtime.elastic_worker"):
+                "runtime.elastic", "runtime.elastic_worker",
+                "analysis", "analysis.__main__", "analysis.engine",
+                "analysis.purity", "analysis.cachekey", "analysis.locks",
+                "analysis.determinism", "analysis.hygiene",
+                "analysis.runtime_guard"):
         assert "rdma_paxos_tpu_torch." + mod in names, mod
 
 
