@@ -5,9 +5,13 @@
 
 Phase 14c starts three more Python processes that import this file and
 call :func:`host_rank`, phase 15a three that call :func:`node_rank` and
-three launchers with their apps, phase 15b three supervisors with
-their workers and apps; every one of them is stopped before the phase
-ends.
+two sets of three launchers with their apps, phase 15b three
+supervisors with their workers and apps; every one of them is stopped
+before the phase ends. Two worker processes run CPU twins for the whole
+run (:class:`Twins`) and are stopped at its end, also when it fails.
+While this process, or a card rank of 14c or 15a, is inside a timed
+window (:func:`alone`), the twins beside it are stopped (SIGSTOP) and
+continued after, so no time the script reports is taken beside a twin.
 
 Phases, one printed line each (a failed check raises and the script
 exits non-zero without its result line):
@@ -20,8 +24,8 @@ exits non-zero without its result line):
    state: no tolerance);
 4. the replicated write path at full width, for two log geometries:
    elect, a seeded stream of SEND entries through ``step()`` then
-   ``step_burst()``, then a ``ClientSession`` workload on
-   ``ReplicatedKVS(cap=65536)``. Every acknowledged write must read back
+   ``step_burst()``, then a ``ClientSession`` workload of 1500
+   operations on ``ReplicatedKVS(cap=65536)``. Every acknowledged write must read back
    from all 3 replicas and through the leader's read-index ``get``; the
    same seeded run on the CPU must give bit-equal replay streams,
    replica state and KVS tables; the commit-window kernel must have been
@@ -41,7 +45,7 @@ exits non-zero without its result line):
    the readback thread's ``_post_step`` time per event and a cProfile of
    the serial loop's post-step stages; (6b) three
    ``native/toyserver`` apps under ``LD_PRELOAD=native/interpose.so``
-   served by the driver on the card: election by the timers, 2000 SETs
+   served by the driver on the card: election by the timers, 1000 SETs
    from 4 clients read back from both followers' apps, every replica's
    stable store holding the CONNECT/SEND/CLOSE stream, and a failover
    that serves a write to the remaining follower; requests/s and
@@ -219,23 +223,23 @@ exits non-zero without its result line):
     scan, the rollovers they cross, and a leader change (a partition
     through ``peer_mask`` under gather; a timer under psum, which refuses
     the partition), at geometry (a) under psum and gather and at (b)
-    for a few steps; every call's outputs and each rank's final row
+    for a few steps, all three in one world; every call's outputs and each rank's final row
     equal to the same script at ``device="cpu"``, ``fetch_local_window``
     returning the committed payloads, one ``commit_window`` launch per
     protocol step per rank; steps/s, committed entries/s and ms per
     exchange;
 15. the per-host daemon and the elastic plane: (15a) three ``python -m
     rdma_paxos_tpu_torch.runtime.launch_node --device cuda`` processes
-    at geometry (a), each with a toy app under ``LD_PRELOAD``, 2000
-    pipelined SETs through the leader's app read back from every app,
-    with ``RP_BURST=0`` and ``RP_BURST=1`` (requests/s, p50, p99); three
-    ``NodeDaemon(device="cuda")`` rank processes of :func:`node_rank`
-    given (6a)'s record through rank 0's ``_on_event`` (rank 0's timer
-    forced), bursts on and off, every iteration's outputs, the events'
+    each with a toy app under ``LD_PRELOAD``, 2000 pipelined SETs
+    through the leader's app read back from every app, at geometry (a)
+    with ``RP_BURST=1`` and at (b) with ``RP_BURST=0`` (requests/s, p50,
+    p99); three ``NodeDaemon(device="cuda")`` rank processes of
+    :func:`node_rank` given (6a)'s record through rank 0's ``_on_event``
+    (rank 0's timer forced) with bursts on, then a second record with
+    them off, in one world: every iteration's outputs, the events'
     statuses, the stores, the hard state, ``meta()`` and the rows equal
     to the same script at ``device="cpu"``, one ``commit_window`` launch
-    per protocol step per rank (acked events/s, iterations/s); the
-    launchers booted at geometry (b) serving a few SETs; (15b) a
+    per protocol step per rank (acked events/s, iterations/s); (15b) a
     ``GroupController`` here and three ``python -m
     rdma_paxos_tpu_torch.runtime.elastic`` supervisors whose workers run
     on the card at (a), with toy apps: acked SETs, the leader's
@@ -250,7 +254,7 @@ exits non-zero without its result line):
 16. the single-controller engines over a device list, the layouts
     repeating the one card and printed with their repeats: (16a)
     ``SimCluster(mode="spmd")`` on ``[cuda:0] * 3`` at geometry (a) with
-    a rollover point the run crosses, psum and gather: election, 32 full
+    a rollover point the run crosses, psum and gather: election, 16 full
     batches through ``step()`` (timed), a burst, a scan, the catch-up —
     every dispatch's results, the streams and the rows equal to the
     stacked engine on the card and to the same script on
@@ -266,10 +270,11 @@ exits non-zero without its result line):
     N = 16), aggregate entries/s beside the stacked engine's; one
     audit+telemetry+txn step at G = 8 equal to the stacked engine's;
     (16c) ``ShardedClusterDriver(mesh=(2, 3))`` at G = 4, geometry (a),
-    pipelined: (6a)'s shape (20480 SENDs of 100 B on 8 connections,
-    key-prefix routed) acked once each with status 0, in per-group
-    order, equal to the stacked driver's acks and streams; acked
-    events/s beside the stacked driver's;
+    pipelined: (6a)'s 20480 SENDs of 100 B on 8 connections,
+    key-prefix routed, acked once each with status 0, in per-group
+    order, equal to the stacked driver's acks and streams, two
+    dispatches in flight at once (``max_inflight_dispatches >= 2``);
+    acked events/s beside the stacked driver's;
 17. graftlint and the runtime lock sanitizer: (17a) ``python -m
     rdma_paxos_tpu_torch.analysis --json`` in a subprocess on the card's
     machine, exit 0 with no live finding and no unused suppression;
@@ -288,10 +293,28 @@ exits non-zero without its result line):
     (16a)'s spmd engine on ``[cuda:0] * 3`` — each equal to its
     sanitized CPU twin. An exception raised on any thread fails the
     phase; nothing falls back to the CPU or to an unsanitized run;
-18. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+18. the scalar host data plane (``hostpath.set_vectorized(False)``):
+    (18a) (6a)'s record, 20480 SENDs, through a pipelined
+    ``ClusterDriver`` with a workdir, the plane off and on in turns
+    (off, on, on, off): every event acked once with status 0 in order,
+    the committed streams and the stable stores' bytes equal across the
+    planes and to one serial run on the CPU, one ``commit_window``
+    launch per protocol step; acked events/s per plane, and the host ms
+    per ``step()`` of ``decode_window`` and ``pack_rows`` per plane
+    (cProfile); (18b) ``ShardedCluster(G=8)`` at (a): two steps of a
+    full batch per group with the plane off equal to the same with it
+    on; (18c) ``consensus.step.group_step`` called directly at G = 8
+    equal to ``parallel.mesh.build_sim_group_step``, one launch per
+    step each;
+19. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Each phase prints ``phase N start`` before it runs and its wall time
-after, so a failure names its phase.
+after, so a failure names its phase. The CPU twins of phases 4, 7a, 9
+(but 9c's patched run), 10b-10f, 11c, 11d, 12b, 12d, 13, 16 and 17 run
+in worker processes (:class:`Twins`) while the card runs, and
+the twin worlds of 14c and 15a beside the card's worlds at the lowest
+CPU priority; the other twins run here. Host rates printed by those
+phases are taken with a twin running beside them.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -305,6 +328,7 @@ import functools
 import json
 import os
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -337,6 +361,147 @@ def load_port():
     check(where == ROOT, f"rdma_paxos_tpu_torch imported from {where}, "
                          f"not from beside chip_smoke.py ({ROOT})")
     return rdma_paxos_tpu_torch
+
+
+# ---------------------------------------------------------------------------
+# CPU twins in worker processes
+# ---------------------------------------------------------------------------
+
+TWIN_WORKERS = 2            # processes running CPU twins beside the card
+TWIN_THREADS = 2            # torch threads of each
+TWIN_TIMEOUT = 900          # seconds a phase waits for one twin
+TWIN_NICE = 19              # CPU priority of a twin's rank processes
+PAUSE_ENV = "RP_SMOKE_PAUSE"  # pids of the twin world a card rank stops
+
+
+def _twin_init() -> None:
+    load_port()
+    torch.set_num_threads(TWIN_THREADS)
+
+
+def _twin_call(name: str, args: tuple, kw: dict, env: dict):
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        out = globals()[name](*args, **kw)
+        return out, time.perf_counter() - t0
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class Twin:
+    """A CPU twin started in a worker process; :meth:`get` waits for its
+    result (re-raising its failure) and sets ``seconds``, its own wall
+    time in the worker."""
+
+    def __init__(self, fut):
+        self.fut, self.seconds = fut, None
+
+    def get(self):
+        out, self.seconds = self.fut.result(timeout=TWIN_TIMEOUT)
+        return out
+
+
+class Twins:
+    """A pool of :data:`TWIN_WORKERS` spawned processes that run CPU twins
+    (module functions called with ``torch.device("cpu")``) while this
+    process drives the card, so a twin costs the phase its excess over
+    the card's run rather than its whole time. ``_env`` sets environment
+    switches in the worker for the call; a twin that needs a
+    monkeypatch of this process runs here. :meth:`close` stops every
+    worker."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            TWIN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_twin_init)
+
+    def submit(self, fn, *args, _env=None, **kw) -> Twin:
+        return Twin(self.pool.submit(_twin_call, fn.__name__, args, kw,
+                                     dict(_env or {})))
+
+    def pids(self) -> list:
+        return [p.pid for p in list((self.pool._processes or {}).values())]
+
+    def close(self) -> None:
+        procs = list((self.pool._processes or {}).values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for p in procs:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(p.pid, signal.SIGCONT)
+            p.terminate()
+            p.join(10)
+
+
+TWINS: Optional[Twins] = None      # set by main()
+CPU = torch.device("cpu")
+_ALONE = [0]                       # depth of the open timed windows
+
+
+def descendants(roots) -> list:
+    """``roots`` and every live process below them (one /proc walk)."""
+    kids = {}
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                stat = (d / "stat").read_text()
+            except OSError:
+                continue
+            kids.setdefault(int(stat.rsplit(")", 1)[1].split()[1]),
+                            []).append(int(d.name))
+    out, todo = [], list(roots)
+    while todo:
+        p = todo.pop()
+        out.append(p)
+        todo += kids.get(p, [])
+    return out
+
+
+def _stopped(pid: int) -> bool:
+    try:
+        state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1]
+    except OSError:
+        return True                     # gone
+    return state.split()[0] in ("T", "t")
+
+
+@contextlib.contextmanager
+def alone():
+    """A timed window of this process: every CPU twin beside it (the
+    :class:`Twins` workers here, the twin world whose pids
+    :data:`PAUSE_ENV` names in a card rank), with its children, is
+    stopped when the window opens and continued when it closes, so no
+    time reported from the window is taken beside a twin. Windows nest;
+    where no twin runs beside (in a twin itself) it does nothing."""
+    _ALONE[0] += 1
+    pids = []
+    try:
+        if _ALONE[0] == 1:
+            roots = [int(p) for p in os.environ.get(PAUSE_ENV, "").split(",")
+                     if p]
+            if TWINS is not None:
+                roots += TWINS.pids()
+            pids = descendants(roots) if roots else []
+            for p in pids:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(p, signal.SIGSTOP)
+            deadline = time.monotonic() + 2.0
+            while (not all(map(_stopped, pids))
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+        yield
+    finally:
+        _ALONE[0] -= 1
+        for p in pids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(p, signal.SIGCONT)
 
 
 # ---------------------------------------------------------------------------
@@ -578,6 +743,9 @@ def phase_window_checks(dev) -> dict:
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
+# ClientSession operations of phase 4's KVS workload
+MAIN_KVS_OPS = 1500
+
 GEOMETRIES = {
     # the repo's measured geometry (bench.py:37), psum fan-out
     "a": (dict(n_slots=8192, slot_bytes=128, window_slots=2048,
@@ -652,50 +820,51 @@ def drive(port, geo: str, dev, kvs_ops: int) -> dict:
     kv = ReplicatedKVS(c, cap=65536)
     launches0, steps0 = (commit_window.launches,
                          commit_scan.launches), c.step_index
-    t0 = time.perf_counter()
+    with alone():
+        t0 = time.perf_counter()
 
-    lead = c.run_until_elected(0)
-    sends = send_stream(c, lead, rng)
+        lead = c.run_until_elected(0)
+        sends = send_stream(c, lead, rng)
 
-    # ClientSession workload: one outstanding request per session
-    n_sess = 256
-    sessions = [kv.session(client_id=1000 + i) for i in range(n_sess)]
-    # the table's FNV-style hash mixes the LOW bits of each key word
-    # into the bucket, so the keys vary there (b"key-00001"-style keys
-    # would pile onto a few buckets and overflow the probe depth)
-    keys = [(i + 1).to_bytes(4, "little") + b"-key" for i in range(1024)]
-    counters = [(i + 1).to_bytes(4, "little") + b"-ctr" for i in range(64)]
-    outstanding, acked, issued, rounds = {}, [], 0, 0
-    while issued < kvs_ops or outstanding:
-        rounds += 1
-        check(rounds <= 4 * (kvs_ops // n_sess + 2),
-              "KVS workload stopped making progress")
-        for i, s in enumerate(sessions):
-            if i in outstanding or issued >= kvs_ops:
-                continue
-            u = rng.random()
-            if u < 0.6:
-                s.put(lead, keys[int(rng.integers(len(keys)))],
-                      b"v%d-%d" % (issued, int(rng.integers(1 << 30))))
-            elif u < 0.85:
-                s.merge(lead, OP_INCR, counters[int(rng.integers(64))],
-                        np.array([int(rng.integers(1, 100))] + [0] * 7,
-                                 "<i4").tobytes())
-            else:
-                s.remove(lead, keys[int(rng.integers(len(keys)))])
-            outstanding[i] = s.req_id
-            issued += 1
-        c.step()
-        kv.get_many(lead, [keys[0]])          # fold the leader's table
-        done = [i for i, rq in outstanding.items()
-                if kv.last_req[lead].get(1000 + i, 0) >= rq]
-        for i in done:
-            acked.append((1000 + i, outstanding.pop(i)))
-    for _ in range(3):                        # followers catch up
-        c.step()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        # ClientSession workload: one outstanding request per session
+        n_sess = 256
+        sessions = [kv.session(client_id=1000 + i) for i in range(n_sess)]
+        # the table's FNV-style hash mixes the LOW bits of each key word
+        # into the bucket, so the keys vary there (b"key-00001"-style keys
+        # would pile onto a few buckets and overflow the probe depth)
+        keys = [(i + 1).to_bytes(4, "little") + b"-key" for i in range(1024)]
+        counters = [(i + 1).to_bytes(4, "little") + b"-ctr" for i in range(64)]
+        outstanding, acked, issued, rounds = {}, [], 0, 0
+        while issued < kvs_ops or outstanding:
+            rounds += 1
+            check(rounds <= 4 * (kvs_ops // n_sess + 2),
+                  "KVS workload stopped making progress")
+            for i, s in enumerate(sessions):
+                if i in outstanding or issued >= kvs_ops:
+                    continue
+                u = rng.random()
+                if u < 0.6:
+                    s.put(lead, keys[int(rng.integers(len(keys)))],
+                          b"v%d-%d" % (issued, int(rng.integers(1 << 30))))
+                elif u < 0.85:
+                    s.merge(lead, OP_INCR, counters[int(rng.integers(64))],
+                            np.array([int(rng.integers(1, 100))] + [0] * 7,
+                                     "<i4").tobytes())
+                else:
+                    s.remove(lead, keys[int(rng.integers(len(keys)))])
+                outstanding[i] = s.req_id
+                issued += 1
+            c.step()
+            kv.get_many(lead, [keys[0]])          # fold the leader's table
+            done = [i for i, rq in outstanding.items()
+                    if kv.last_req[lead].get(1000 + i, 0) >= rq]
+            for i in done:
+                acked.append((1000 + i, outstanding.pop(i)))
+        for _ in range(3):                        # followers catch up
+            c.step()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     steps = c.step_index - steps0
     launches = (commit_window.launches - launches0[0],
                 commit_scan.launches - launches0[1])
@@ -729,7 +898,9 @@ def drive(port, geo: str, dev, kvs_ops: int) -> dict:
         tables=[convert.kv_state_to_numpy(t) for t in kv.tables])
 
 
-def phase_main_path(port, geo: str, dev, kvs_ops: int) -> dict:
+def phase_main_path(port, geo: str, dev, kvs_ops: int, twin: Twin) -> dict:
+    """Geometry ``geo``'s seeded run on the card against ``twin``, the
+    same run on the CPU."""
     from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
     commit_window.launches = commit_scan.launches = 0
     gpu = drive(port, geo, dev, kvs_ops)
@@ -738,8 +909,7 @@ def phase_main_path(port, geo: str, dev, kvs_ops: int) -> dict:
           and launches == gpu["steps"] > 0 and commit_scan.launches == 0,
           f"commit_window launched {launches} times and commit_scan "
           f"{commit_scan.launches} times in {gpu['steps']} protocol steps")
-    t0 = time.perf_counter()
-    cpu = drive(port, geo, torch.device("cpu"), kvs_ops)
+    cpu = twin.get()
     for k in ("steps", "acked", "replayed"):
         check(cpu[k] == gpu[k], f"CPU run differs in {k}")
     for k, v in gpu["state"].items():
@@ -749,7 +919,7 @@ def phase_main_path(port, geo: str, dev, kvs_ops: int) -> dict:
         for k in a:
             check(np.array_equal(a[k], b[k]),
                   f"CPU run differs in KVS table {k}")
-    same = f"bit-equal ({time.perf_counter() - t0:.1f} s on the CPU)"
+    same = f"bit-equal ({twin.seconds:.1f} s on the CPU)"
     geom, fanout = GEOMETRIES[geo]
     print(f"main path ({geo}) {geom} fanout={fanout}: "
           f"{gpu['steps']} protocol steps, {launches} commit_window "
@@ -770,12 +940,26 @@ def cuda_time_ms(fn, iters: int, warmup: int = 20) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
+    with alone():
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_events(prof) -> dict:
+    """``{name: (count, device us)}`` of what ran on the card (kernels and
+    copies) in a finished ``torch.profiler`` capture, summed from its raw
+    kineto events: the per-event Python objects that ``key_averages()``
+    builds cost seconds for a capture of a few hundred steps."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n, us = out.get(e.name(), (0, 0.0))
+            out[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return out
 
 
 def device_profile(fn):
@@ -784,19 +968,12 @@ def device_profile(fn):
     card (kernels and copies)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, alone():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            out[e.key] = (e.count, us)
-    return wall_ms, out
+    return wall_ms, device_events(prof)
 
 
 def launch_profile(fn):
@@ -822,10 +999,11 @@ def host_profile(fn, stages=HOST_STAGES) -> dict:
     import cProfile
     import pstats
     pr = cProfile.Profile()
-    pr.enable()
-    fn()
-    torch.cuda.synchronize()
-    pr.disable()
+    with alone():
+        pr.enable()
+        fn()
+        torch.cuda.synchronize()
+        pr.disable()
     out = dict.fromkeys(stages, 0.0)
     for (_file, _line, name), row in pstats.Stats(pr).stats.items():
         if name in out and "rdma_paxos_tpu_torch" in _file:
@@ -938,12 +1116,13 @@ def phase_times(dev, card: str):
         torch.cuda.synchronize()
         s0 = c.step_index
         c0 = int(c.last["commit"][lead]) + c.rebased_total
-        t0 = time.perf_counter()
-        for _ in range(n_disp):
-            feed(B if mode == "step" else 4 * B)
-            c.step() if mode == "step" else c.step_burst()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with alone():
+            t0 = time.perf_counter()
+            for _ in range(n_disp):
+                feed(B if mode == "step" else 4 * B)
+                c.step() if mode == "step" else c.step_burst()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         steps = c.step_index - s0
         committed = int(c.last["commit"][lead]) + c.rebased_total - c0
         rates[mode] = (steps / dt, committed / dt)
@@ -1015,7 +1194,8 @@ def post_stages(pr) -> dict:
 
 def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
                      n_conns: int, pipeline: int, profile: str = "",
-                     workdir=None, probe=None, **variants) -> dict:
+                     workdir=None, probe=None, stores: bool = False,
+                     **variants) -> dict:
     """The pre-queued record through the leader's shim handler of a
     ``ClusterDriver`` on ``dev`` (the JAX idiom of
     ``tests/test_pipeline.py``): elect replica 0, queue a CONNECT per
@@ -1033,7 +1213,9 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
     (``start_profile``/``stop_profile``, spans sampled and host phases
     recorded) and returns the merged timeline as ``merged``. ``probe``,
     when given, is called with the stopped driver and its result returned
-    as ``probe``."""
+    as ``probe``. ``stores`` (with a ``workdir``) waits until every
+    replica's stable store holds the whole record and returns their bytes
+    as ``stores``."""
     from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
     from rdma_paxos_tpu_torch.ops.quorum import commit_window
     from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
@@ -1100,35 +1282,42 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
             from torch.profiler import ProfilerActivity, profile as tprof
             prof = tprof(activities=[ProfilerActivity.CUDA])
             prof.__enter__()
-        t0 = time.perf_counter()
-        if pr is not None:
-            pr.enable()
-            while not evs[-1].done.is_set():
-                check(time.perf_counter() - t0 < 300, "the record stalled")
-                d.step()
-            pr.disable()
-        else:
-            d.run(period=0.001)
-        for i, e in enumerate(evs):
-            check(e.done.wait(300), f"event {i} was never acked")
-        wall = float(rel.max()) - t0
-        if prof is not None:
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-            prof.__exit__(None, None, None)
-        if session is not None:
-            t_stop = time.perf_counter()
-            d.stop_profile()
-            from rdma_paxos_tpu_torch.obs.device import merge_timeline
-            out.update(
-                stop_s=time.perf_counter() - t_stop,
-                trace_mb=sum(os.path.getsize(f) for f in
-                             session.trace_files) / 2 ** 20,
-                merged=merge_timeline(
-                    [d.obs.spans.dump()],
-                    phase_events=list(d._phase_prof.events),
-                    profiler=session))
-        time.sleep(0.2)          # let the follower frontiers settle
+        with alone():
+            t0 = time.perf_counter()
+            if pr is not None:
+                pr.enable()
+                while not evs[-1].done.is_set():
+                    check(time.perf_counter() - t0 < 300, "the record stalled")
+                    d.step()
+                pr.disable()
+            else:
+                d.run(period=0.001)
+            for i, e in enumerate(evs):
+                check(e.done.wait(300), f"event {i} was never acked")
+            wall = float(rel.max()) - t0
+            if prof is not None:
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+                prof.__exit__(None, None, None)
+            if session is not None:
+                t_stop = time.perf_counter()
+                d.stop_profile()
+                from rdma_paxos_tpu_torch.obs.device import merge_timeline
+                out.update(
+                    stop_s=time.perf_counter() - t_stop,
+                    trace_mb=sum(os.path.getsize(f) for f in
+                                 session.trace_files) / 2 ** 20,
+                    merged=merge_timeline(
+                        [d.obs.spans.dump()],
+                        phase_events=list(d._phase_prof.events),
+                        profiler=session))
+            time.sleep(0.2)          # let the follower frontiers settle
+        if stores:
+            n_rec = n_conns + len(payloads)
+            wait_for(lambda: all(len(rt.store) >= n_rec
+                                 for rt in d.runtimes),
+                     "every replica's store holding the record", 60)
+            out["stores"] = [rt.store.dump() for rt in d.runtimes]
         if hub is not None:
             check(hub.watch.wait_caught_up({0: hub.tails[0].length()}),
                   "the watch pump never caught up")
@@ -1165,14 +1354,10 @@ def drive_front_door(dev, geom: dict, fanout: str, payloads: list,
         if pr is not None:
             out["host_ms"] = post_stages(pr)
         if prof is not None:
-            kern = [(e.count, getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0))
-                    for e in prof.key_averages()]
-            names = [e.key for e in prof.key_averages()]
-            out["kernels"] = sum(n for (n, us), k in zip(kern, names)
-                                 if us > 0 and not k.startswith(
-                                     ("Memcpy", "Memset")))
-            out["busy_ms"] = sum(us for n, us in kern if us > 0) / 1e3
+            kern = device_events(prof)
+            out["kernels"] = sum(n for k, (n, _us) in kern.items()
+                                 if not k.startswith(("Memcpy", "Memset")))
+            out["busy_ms"] = sum(us for _n, us in kern.values()) / 1e3
             out["prof_wall_ms"] = prof_wall * 1e3
     finally:
         d.stop()
@@ -1331,18 +1516,27 @@ def app_get(port: int, key: str, want: bytes, timeout: float = 30.0):
     return got
 
 
+_HANDED_OUT: set = set()
+
+
 def free_ports(n: int) -> list:
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
+    """``n`` free localhost ports, none handed out before in this run (a
+    world started beside another must not draw its port)."""
+    ports: list = []
+    while len(ports) < n:
+        socks = [socket.socket() for _ in range(n - len(ports))]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        ports += [p for p in (s.getsockname()[1] for s in socks)
+                  if p not in _HANDED_OUT]
+        for s in socks:
+            s.close()
+        _HANDED_OUT.update(ports)
     return ports
 
 
 APP_CLIENTS = 4
-APP_SETS = 2000
+APP_SETS = 1000
 
 
 def front_state(d, apps, wd: str) -> str:
@@ -1544,11 +1738,13 @@ def timed(dev, fn):
     """``fn()`` and its wall ms, the card synchronized on both sides."""
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    t = time.perf_counter()
-    out = fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    return out, (time.perf_counter() - t) * 1e3
+    with alone():
+        t = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    return out, ms
 
 
 def drive_recovery(dev, geom: dict, fanout: str, n_entries: int,
@@ -1662,8 +1858,11 @@ def phase_recovery_engine(dev, card: str) -> dict:
     against the same seeded script on the CPU."""
     from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
     launches = steps = 0
-    for geo, n_entries, learner in (("a", 3 * 8192 + 1000, True),
-                                    ("b", 4 * 2048, False)):
+    cases = (("a", 3 * 8192 + 1000, True), ("b", 4 * 2048, False))
+    twins = [TWINS.submit(drive_recovery, CPU, GEOMETRIES[geo][0], "gather",
+                          n_entries, learner)
+             for geo, n_entries, learner in cases]
+    for (geo, n_entries, learner), twin in zip(cases, twins):
         geom, _ = GEOMETRIES[geo]
         commit_window.launches = commit_scan.launches = 0
         gpu = drive_recovery(dev, geom, "gather", n_entries, learner)
@@ -1674,9 +1873,7 @@ def phase_recovery_engine(dev, card: str) -> dict:
               f"{gpu['steps']} protocol steps")
         launches += commit_window.launches
         steps += gpu["steps"]
-        t = time.perf_counter()
-        cpu = drive_recovery(torch.device("cpu"), geom, "gather", n_entries,
-                             learner)
+        cpu = twin.get()
         check(cpu["steps"] == gpu["steps"]
               and cpu["catch_up"] == gpu["catch_up"],
               f"({geo}): the CPU run took {cpu['steps']} steps "
@@ -1700,7 +1897,7 @@ def phase_recovery_engine(dev, card: str) -> dict:
               f"and replay streams bit-equal to the CPU run at "
               f"{len(gpu['marks'])} marks ("
               + ", ".join(t for t, _ in gpu["marks"])
-              + f"; {time.perf_counter() - t:.1f} s on the CPU)", flush=True)
+              + f"; {twin.seconds:.1f} s on the CPU)", flush=True)
     return dict(launches=launches, steps=steps)
 
 
@@ -2342,16 +2539,17 @@ def chaos_run(dev, replay: Optional[str] = None, **kw) -> dict:
     from rdma_paxos_tpu_torch.chaos.runner import NemesisRunner
     from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
     launches0 = commit_window.launches, commit_scan.launches
-    t0 = time.perf_counter()
-    if replay is not None:
-        runner = None
-        v = NemesisRunner.replay(replay, device=dev)
-    else:
-        runner = NemesisRunner(device=dev, **kw)
-        v = runner.run()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with alone():
+        t0 = time.perf_counter()
+        if replay is not None:
+            runner = None
+            v = NemesisRunner.replay(replay, device=dev)
+        else:
+            runner = NemesisRunner(device=dev, **kw)
+            v = runner.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     out = dict(verdict={k: x for k, x in v.items() if k != "artifact"},
                artifact=v.get("artifact"), wall=wall,
                launches=commit_window.launches - launches0[0],
@@ -2375,6 +2573,7 @@ def chaos_pair(dev, tag: str, card: str, profile: bool = False,
     protocol step on the card (and in the profiler's count when
     ``profile``); prints the run's line."""
     cuda_kernels = None
+    twin = TWINS.submit(chaos_run, CPU, **kw)
     if profile:
         box = {}
         wall_ms, kprof = device_profile(lambda: box.update(
@@ -2401,8 +2600,7 @@ def chaos_pair(dev, tag: str, card: str, profile: bool = False,
     v = gpu["verdict"]
     check(v["ok"] is True and v["linearizability"]["undecided"] == [],
           f"(9) {tag}: verdict {v}")
-    t = time.perf_counter()
-    cpu = chaos_run(torch.device("cpu"), **kw)
+    cpu = twin.get()
     for k in ("verdict", "history", "ledger", "flight", "steps"):
         check(gpu[k] == cpu[k], f"(9) {tag}: the card's {k} differs from "
                                 f"the CPU run")
@@ -2422,7 +2620,7 @@ def chaos_pair(dev, tag: str, card: str, profile: bool = False,
           f"{reads['leases']['grants']}, revocations "
           f"{reads['leases']['revocations']}; verdict, history, ledger "
           f"and flight ring equal to the CPU run "
-          f"({time.perf_counter() - t:.1f} s on the CPU)", flush=True)
+          f"({twin.seconds:.1f} s on the CPU)", flush=True)
     return gpu
 
 
@@ -2442,6 +2640,8 @@ def driver_reads(dev, card: str) -> dict:
     kv = ReplicatedKVS(d.cluster, cap=256)
     d.prewarm()
     launches0 = commit_window.launches
+    window = alone()
+    window.__enter__()
     t0 = time.perf_counter()
     d.run(period=0.002)
     try:
@@ -2465,8 +2665,10 @@ def driver_reads(dev, card: str) -> dict:
         end1 = int(d.cluster.last["end"].max())
     finally:
         d.stop()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        window.__exit__(None, None, None)
     check(d.loop_error is None, f"(9a) driver: {d.loop_error!r}")
     got = [(t.status, t.value) for t in tickets]
     check(got == [("ok", b"v%d" % i) for i in range(16)],
@@ -2484,8 +2686,7 @@ def driver_reads(dev, card: str) -> dict:
           f"{paths.count('read_index')} by read-index) in {read_s:.3f} s, "
           f"every value the acknowledged put's, no ring slot (end "
           f"{end0} -> {end1}); {steps} protocol steps, {launches} "
-          f"commit_window launches in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+          f"commit_window launches in {wall:.2f} s", flush=True)
     return dict(launches=launches, steps=steps)
 
 
@@ -2610,11 +2811,13 @@ def group_sends(G: int, B: int) -> list:
     return out
 
 
-def drive_groups(dev, geom: dict, G: int, mesh=None) -> dict:
+def drive_groups(dev, geom: dict, G: int, mesh=None,
+                 batches: int = 2) -> dict:
     """(10a-10c) the group engine's main path on ``dev``: place the
-    leaders round-robin, then every group's seeded SEND stream — two
-    batches through ``step()``, two through ``step_burst()``, two
-    through the scan tier — and three catch-up steps. Returns what the
+    leaders round-robin, then every group's seeded SEND stream —
+    ``batches`` batches through ``step()``, as many through
+    ``step_burst()`` and through the scan tier — and three catch-up
+    steps. Returns what the
     caller compares (with the launches counted from 0 over the run, and
     every dispatch's results). With ``mesh=(group_shards, R)`` the
     engine is the mesh engine on a list repeating ``dev`` (16b)."""
@@ -2624,7 +2827,7 @@ def drive_groups(dev, geom: dict, G: int, mesh=None) -> dict:
     from rdma_paxos_tpu_torch.shard import ShardedCluster
     cfg = LogConfig(**geom)
     B = cfg.batch_slots
-    sends = group_sends(G, B)
+    sends = [s[:3 * batches * B] for s in group_sends(G, B)]
     c = ShardedCluster(cfg, R, G, fanout=GROUP_FANOUT, mesh=mesh,
                        device=dev if mesh is None
                        else [dev] * (mesh[0] * mesh[1]))
@@ -2636,36 +2839,38 @@ def drive_groups(dev, geom: dict, G: int, mesh=None) -> dict:
             return res
         setattr(c, name, recorded)
     commit_window.launches = commit_scan.launches = 0
-    t0 = time.perf_counter()
-    leaders = c.place_leaders()
-    n_place = c.step_index
-    check(leaders == [g % R for g in range(G)] and c.leaders() == leaders,
-          f"G={G}: leader placement gave {c.leaders()}")
+    with alone():
+        t0 = time.perf_counter()
+        leaders = c.place_leaders()
+        n_place = c.step_index
+        check(leaders == [g % R for g in range(G)] and c.leaders() == leaders,
+              f"G={G}: leader placement gave {c.leaders()}")
 
-    def feed(lo, hi):
-        for g in range(G):
-            c.submit_many(g, leaders[g], [(3, 1 + i % 64, 0, p) for i, p in
-                                          enumerate(sends[g][lo:hi], lo)])
+        def feed(lo, hi):
+            for g in range(G):
+                c.submit_many(g, leaders[g], [(3, 1 + i % 64, 0, p) for i, p in
+                                              enumerate(sends[g][lo:hi], lo)])
 
-    def busy():
-        return any(q for row in c.pending for q in row)
-    feed(0, 2 * B)
-    while busy():
-        c.step()
-    feed(2 * B, 4 * B)
-    while busy():
-        c.step_burst()
-    c.scan = True
-    feed(4 * B, 6 * B)
-    while busy():
-        c.step_burst()
-    c.scan = False
-    check(c.scan_dispatches > 0, f"G={G}: no scan dispatch")
-    for _ in range(3):
-        c.step()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        def busy():
+            return any(q for row in c.pending for q in row)
+        n = batches * B
+        feed(0, n)
+        while busy():
+            c.step()
+        feed(n, 2 * n)
+        while busy():
+            c.step_burst()
+        c.scan = True
+        feed(2 * n, 3 * n)
+        while busy():
+            c.step_burst()
+        c.scan = False
+        check(c.scan_dispatches > 0, f"G={G}: no scan dispatch")
+        for _ in range(3):
+            c.step()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches, scans = commit_window.launches, commit_scan.launches
     for g in range(G):
         s0 = list(c.replayed[g][0])
@@ -2787,12 +2992,13 @@ def group_times(dev, geom: dict, G: Optional[int], card: str,
         n_disp = 20 if mode == "step" else 5
         torch.cuda.synchronize()
         s0, c0 = c.step_index, committed()
-        t0 = time.perf_counter()
-        for _ in range(n_disp):
-            feed(B if mode == "step" else 4 * B)
-            c.step() if mode == "step" else c.step_burst()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with alone():
+            t0 = time.perf_counter()
+            for _ in range(n_disp):
+                feed(B if mode == "step" else 4 * B)
+                c.step() if mode == "step" else c.step_burst()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         rates[mode] = ((c.step_index - s0) / dt, (committed() - c0) / dt)
 
     def ten_steps():
@@ -2854,23 +3060,24 @@ def drive_group_kvs(dev) -> dict:
     c.obs = Observability()
     reads.attach(c)
     commit_window.launches = 0
-    t0 = time.perf_counter()
-    c.place_leaders()
-    kv = ShardedKVS(c, cap=4096)
-    keys = [k for ks in keys_for_groups(kv.router, GROUP_KV_PUTS // G)
-            for k in ks]
-    sess = kv.session(1)
-    want = {}
-    for k in keys:
-        g, _ = sess.put(k, b"v-" + k)
-        want[k] = (g, b"v-" + k)
-    for _ in range(4):
-        c.step()
-    vals, lin = [], []
-    for k, (g, v) in want.items():
-        vals.append([kv.groups[g].get(r, k) for r in range(R)])
-        lin.append(kv.get(k, linearizable=True))
-    wall = time.perf_counter() - t0
+    with alone():
+        t0 = time.perf_counter()
+        c.place_leaders()
+        kv = ShardedKVS(c, cap=4096)
+        keys = [k for ks in keys_for_groups(kv.router, GROUP_KV_PUTS // G)
+                for k in ks]
+        sess = kv.session(1)
+        want = {}
+        for k in keys:
+            g, _ = sess.put(k, b"v-" + k)
+            want[k] = (g, b"v-" + k)
+        for _ in range(4):
+            c.step()
+        vals, lin = [], []
+        for k, (g, v) in want.items():
+            vals.append([kv.groups[g].get(r, k) for r in range(R)])
+            lin.append(kv.get(k, linearizable=True))
+        wall = time.perf_counter() - t0
     check(all(v == [want[k][1]] * R for k, v in zip(want, vals)),
           "(10e) a put did not read back from every replica of its group")
     check(lin == [v for _, v in want.values()],
@@ -2946,11 +3153,12 @@ def drive_sharded_driver(dev, pipeline: int, mesh=None, conns=None,
             torch.cuda.synchronize()
         commit_window.launches = 0
         steps0 = d.cluster.step_index
-        t0 = time.perf_counter()
-        d.run(period=0.001)
-        for i, e in enumerate(evs):
-            check(e.done.wait(300), f"(10f) event {i} was never acked")
-        wall = float(rel.max()) - t0
+        with alone():
+            t0 = time.perf_counter()
+            d.run(period=0.001)
+            for i, e in enumerate(evs):
+                check(e.done.wait(300), f"(10f) event {i} was never acked")
+            wall = float(rel.max()) - t0
         d.stop()
         check(d.loop_error is None, f"(10f) the loop crashed: "
                                     f"{d.loop_error!r}")
@@ -2977,12 +3185,30 @@ def drive_sharded_driver(dev, pipeline: int, mesh=None, conns=None,
         d.stop()
 
 
+def shard_nemesis(dev, seed: int, **kw) -> dict:
+    """(10d) one ``ShardNemesisRunner`` run at G = 4 on ``dev``: its
+    verdict, history, ledger, protocol steps, launches and wall time."""
+    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
+    from rdma_paxos_tpu_torch.shard.chaos import ShardNemesisRunner
+    commit_window.launches = commit_scan.launches = 0
+    with alone():
+        t0 = time.perf_counter()
+        r = ShardNemesisRunner(n_replicas=R, n_groups=4, seed=seed,
+                               device=dev, **kw)
+        v = r.run()
+        wall = time.perf_counter() - t0
+    return dict(verdict=json.dumps(v, sort_keys=True),
+                history=r.history.to_jsonl(),
+                ledger=json.dumps(no_anchor(r.shard.auditor.dump()),
+                                  sort_keys=True),
+                steps=r.shard.step_index, launches=commit_window.launches,
+                scans=commit_scan.launches, wall=wall, v=v)
+
+
 def phase_groups(dev, card: str, sim_kernels: float, times: dict) -> list:
     """Phase 10: G groups of R = 3 on the card with the gather fan-out;
     returns the protocol steps and commit_window launches of its
     main-path runs."""
-    from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
-    from rdma_paxos_tpu_torch.shard.chaos import ShardNemesisRunner
     cpu = torch.device("cpu")
     geom_a, _ = GEOMETRIES["a"]
     runs = []
@@ -3016,15 +3242,16 @@ def phase_groups(dev, card: str, sim_kernels: float, times: dict) -> list:
     # (10b) G = 8 and (10c) G = 64: one launch per protocol step over
     # N = G x R, every group equal to the CPU run, one group to its twin
     per_g = {}
-    for tag, geom, G in (("10b", geom_a, 8), ("10c", SHARD_GEOM, 64)):
+    cases = (("10b", geom_a, 8), ("10c", SHARD_GEOM, 64))
+    twins = [TWINS.submit(drive_groups, cpu, geom, G) for _, geom, G in cases]
+    for (tag, geom, G), cpu_twin in zip(cases, twins):
         gpu = drive_groups(dev, geom, G)
         check(gpu["launches"] == gpu["steps"] > 0 and gpu["scans"] == 0,
               f"({tag}) {gpu['launches']} commit_window launches in "
               f"{gpu['steps']} protocol steps")
-        t0 = time.perf_counter()
-        ref = drive_groups(cpu, geom, G)
+        ref = cpu_twin.get()
         compare_runs(f"({tag}) the CPU run", gpu, ref)
-        cpu_s = time.perf_counter() - t0
+        cpu_s = cpu_twin.seconds
         tg = G - 1
         twin = drive_twin(dev, geom, tg, gpu["n_place"], gpu["sends"][tg])
         check(twin["replayed"] == gpu["replayed"][tg],
@@ -3060,24 +3287,13 @@ def phase_groups(dev, card: str, sim_kernels: float, times: dict) -> list:
           flush=True)
 
     # (10d) the shard nemesis, seeds 0 and 2, each with its CPU twin
-    for seed, kw in ((0, dict(steps=40, crash_step=15)),
-                     (2, dict(steps=36, crash_step=14))):
-        out = {}
-        for d_ in (dev, cpu):
-            commit_window.launches = commit_scan.launches = 0
-            t0 = time.perf_counter()
-            r = ShardNemesisRunner(n_replicas=R, n_groups=4, seed=seed,
-                                   device=d_, **kw)
-            v = r.run()
-            out[d_.type] = dict(
-                verdict=json.dumps(v, sort_keys=True),
-                history=r.history.to_jsonl(),
-                ledger=json.dumps(no_anchor(r.shard.auditor.dump()),
-                                  sort_keys=True),
-                steps=r.shard.step_index, launches=commit_window.launches,
-                scans=commit_scan.launches, wall=time.perf_counter() - t0,
-                v=v)
-        g, c_ = out["cuda"], out["cpu"]
+    cases = ((0, dict(steps=40, crash_step=15)),
+             (2, dict(steps=36, crash_step=14)))
+    twins = [TWINS.submit(shard_nemesis, cpu, seed, **kw)
+             for seed, kw in cases]
+    for (seed, kw), cpu_twin in zip(cases, twins):
+        g = shard_nemesis(dev, seed, **kw)
+        c_ = cpu_twin.get()
         v = g["v"]
         for k in ("verdict", "history", "ledger", "steps"):
             check(g[k] == c_[k], f"(10d) seed {seed}: {k} differs from the "
@@ -3102,8 +3318,9 @@ def phase_groups(dev, card: str, sim_kernels: float, times: dict) -> list:
               f"{c_['wall']:.2f} s on the CPU", flush=True)
 
     # (10e) ShardedKVS
+    twin = TWINS.submit(drive_group_kvs, cpu)
     kv = drive_group_kvs(dev)
-    ref = drive_group_kvs(cpu)
+    ref = twin.get()
     check(kv["steps"] == ref["steps"] and all(
         np.array_equal(a[k], b[k]) for ga, gb in zip(kv["tables"],
                                                       ref["tables"])
@@ -3120,8 +3337,9 @@ def phase_groups(dev, card: str, sim_kernels: float, times: dict) -> list:
           f"launches, {kv['wall']:.2f} s on the card", flush=True)
 
     # (10f) the sharded driver, pipelined on the card, serial on the CPU
+    twin = TWINS.submit(drive_sharded_driver, cpu, pipeline=0)
     drv = drive_sharded_driver(dev, pipeline=2)
-    ref = drive_sharded_driver(cpu, pipeline=0)
+    ref = twin.get()
     check(drv["streams"] == ref["streams"],
           "(10f) the per-group committed streams differ from the CPU run")
     check(drv["launches"] == drv["steps"] > 0,
@@ -3147,7 +3365,7 @@ def phase_groups(dev, card: str, sim_kernels: float, times: dict) -> list:
 TXN_G = 8                 # groups of (11a)/(11b), geometry (a)
 TXN_PROBES = 12           # serial 2PC commits and single-key puts (11b)
 # the merge A/B of benchmarks/run_bench.py:measure_txn (its defaults)
-TXN_MERGE = dict(n_ops=400, n_keys=48, repeats=3, seed=17)
+TXN_MERGE = dict(n_ops=400, n_keys=48, repeats=2, seed=17)
 TXN_CID = 9
 # the coordinator's host stages, for the host profile of (11b)
 TXN_STAGES = ("step", "begin_step", "finish", "note_appends", "observe",
@@ -3447,16 +3665,18 @@ def txn_nemesis(dev, seed: int) -> dict:
     from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
     from rdma_paxos_tpu_torch.txn.chaos import TxnNemesisRunner
     commit_window.launches = commit_scan.launches = 0
-    t0 = time.perf_counter()
-    r = TxnNemesisRunner(seed=seed, device=dev)
-    v = r.run()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    with alone():
+        t0 = time.perf_counter()
+        r = TxnNemesisRunner(seed=seed, device=dev)
+        v = r.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     return dict(v=v, verdict=json.dumps(v, sort_keys=True, default=str),
                 history=r.history.to_jsonl(),
                 merge=json.dumps(r._merge_summary(), sort_keys=True),
                 steps=r.shard.step_index, launches=commit_window.launches,
-                scans=commit_scan.launches, wall=time.perf_counter() - t0)
+                scans=commit_scan.launches, wall=wall)
 
 
 def drive_txn_driver(dev) -> dict:
@@ -3496,20 +3716,21 @@ def drive_txn_driver(dev) -> dict:
         commit_window.launches = commit_scan.launches = 0
         s0 = d.cluster.step_index
         keys = keys_for_groups(kv.router, 4)
-        t0 = time.perf_counter()
-        d.run(period=0.002)
-        hs = []
-        for writes in ([("put", keys[0][0], b"live-a"),
-                        ("put", keys[1][0], b"live-b")],
-                       [("incr", keys[0][2], 7), ("incr", keys[1][2], 3)]):
-            h = kv.transact(writes)
-            t1 = time.perf_counter()
-            while not h.done and time.perf_counter() - t1 < 60:
-                time.sleep(0.002)
-            check(h.committed, f"(11d) {writes[0][0]} transaction: "
-                               f"{h.state} {h.abort_reason}")
-            hs.append(time.perf_counter() - t1)
-        wall = time.perf_counter() - t0
+        with alone():
+            t0 = time.perf_counter()
+            d.run(period=0.002)
+            hs = []
+            for writes in ([("put", keys[0][0], b"live-a"),
+                            ("put", keys[1][0], b"live-b")],
+                           [("incr", keys[0][2], 7), ("incr", keys[1][2], 3)]):
+                h = kv.transact(writes)
+                t1 = time.perf_counter()
+                while not h.done and time.perf_counter() - t1 < 60:
+                    time.sleep(0.002)
+                check(h.committed, f"(11d) {writes[0][0]} transaction: "
+                                   f"{h.state} {h.abort_reason}")
+                hs.append(time.perf_counter() - t1)
+            wall = time.perf_counter() - t0
         st = d.health()
         d.stop()
         check(d.loop_error is None,
@@ -3633,10 +3854,13 @@ def phase_txn(dev, card: str) -> list:
           + ", ".join(f"{k} {v / n_h:.3f}" for k, v in host.items()),
           flush=True)
 
-    # (11c) the txn nemesis, seeds 0 and 1, each with its CPU twin
+    # (11c) the txn nemesis, seeds 0 and 1, each with its CPU twin; the
+    # twins of (11c) and (11d) start here
+    twins = [TWINS.submit(txn_nemesis, cpu, seed) for seed in (0, 1)]
+    twins.append(TWINS.submit(drive_txn_driver, cpu))
     for seed in (0, 1):
         g = txn_nemesis(dev, seed)
-        c_ = txn_nemesis(cpu, seed)
+        c_ = twins[seed].get()
         for k in ("verdict", "history", "merge", "steps"):
             check(g[k] == c_[k], f"(11c) seed {seed}: {k} differs from the "
                                  f"CPU run")
@@ -3658,7 +3882,7 @@ def phase_txn(dev, card: str) -> list:
     # (11d) the live drivers
     gpu = drive_txn_driver(dev)
     launches_ok("11d", gpu)
-    ref = drive_txn_driver(cpu)
+    ref = twins[2].get()
     check(gpu["vals"] == ref["vals"] and gpu["health"] == ref["health"],
           "(11d) values or coordinator health differ from the CPU run")
     for a, b in zip(gpu["tables"], ref["tables"]):
@@ -4014,27 +4238,28 @@ def governor_rates(dev, card: str) -> list:
             s0 = c.step_index
             c0 = int(c.last["commit"].min())
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            total = 0
-            for n in loads:
-                if n:
-                    c.submit_many(0, rows[:n])
-                    total += n
-                if gov is not None:
-                    governed_dispatch(c, gov)
-                elif mode == "burst16" and c.pending[0]:
-                    c.step_burst(max_k=max(c.K_TIERS))
-                else:
-                    c.step()
-            while int(c.last["commit"].min()) - c0 < total:
-                if gov is not None:
-                    governed_dispatch(c, gov)
-                elif mode == "burst16" and c.pending[0]:
-                    c.step_burst(max_k=max(c.K_TIERS))
-                else:
-                    c.step()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            with alone():
+                t0 = time.perf_counter()
+                total = 0
+                for n in loads:
+                    if n:
+                        c.submit_many(0, rows[:n])
+                        total += n
+                    if gov is not None:
+                        governed_dispatch(c, gov)
+                    elif mode == "burst16" and c.pending[0]:
+                        c.step_burst(max_k=max(c.K_TIERS))
+                    else:
+                        c.step()
+                while int(c.last["commit"].min()) - c0 < total:
+                    if gov is not None:
+                        governed_dispatch(c, gov)
+                    elif mode == "burst16" and c.pending[0]:
+                        c.step_burst(max_k=max(c.K_TIERS))
+                    else:
+                        c.step()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
             runs.append(dict(steps=c.step_index - s0,
                              launches=commit_window.launches,
                              scans=commit_scan.launches))
@@ -4298,11 +4523,12 @@ def phase_repair_governor(dev, card: str) -> list:
           f"run ({time.perf_counter() - t0:.1f} s both)", flush=True)
 
     # (12b) the repair nemesis, pipelined, two seeds
-    for seed in (3, 5):
-        kw = dict(seed=seed, steps=36, fault_kinds=("drop",), repair=True,
-                  corrupt_step=12, pipeline=2)
+    kws = [dict(seed=seed, steps=36, fault_kinds=("drop",), repair=True,
+                corrupt_step=12, pipeline=2) for seed in (3, 5)]
+    twins = [TWINS.submit(chaos_run, cpu, **kw) for kw in kws]
+    for seed, kw, twin in zip((3, 5), kws, twins):
         g = chaos_run(dev, **kw)
-        c_ = chaos_run(cpu, **kw)
+        c_ = twin.get()
         same(f"12b seed {seed}", g, c_, ("verdict", "history", "ledger",
                                          "steps"))
         v = g["verdict"]
@@ -4342,8 +4568,9 @@ def phase_repair_governor(dev, card: str) -> list:
 
     # (12d) the governor
     t0 = time.perf_counter()
+    twin = TWINS.submit(drive_governor, cpu)
     g = drive_governor(dev)
-    ref = drive_governor(cpu)
+    ref = twin.get()
     same("12d", g, ref, ("decisions", "log", "status", "before", "shed",
                          "held", "after", "marks", "rungs", "sstatus",
                          "replayed"))
@@ -4464,19 +4691,21 @@ def serve_stepping(clusters, fn, max_steps: int = 400):
             box["out"] = fn()
         except BaseException as exc:  # noqa: BLE001 — reraised below
             box["err"] = exc
-    t0 = time.perf_counter()
-    th = threading.Thread(target=work)
-    th.start()
-    for _ in range(max_steps):
-        for c in clusters:
-            c.step()
-        if not th.is_alive():
-            break
-    th.join(30)
+    with alone():
+        t0 = time.perf_counter()
+        th = threading.Thread(target=work)
+        th.start()
+        for _ in range(max_steps):
+            for c in clusters:
+                c.step()
+            if not th.is_alive():
+                break
+        th.join(30)
+        wall = time.perf_counter() - t0
     check(not th.is_alive(), "a scan page never completed")
     if "err" in box:
         raise box["err"]
-    return box["out"], time.perf_counter() - t0
+    return box["out"], wall
 
 
 def outs13(res) -> dict:
@@ -4542,10 +4771,12 @@ def drive_streams_engine(dev, wd: str) -> dict:
             step_both()
         step_both()
         if rnd == 3:
-            t0 = time.perf_counter()
-            check(hub.watch.wait_caught_up({0: hub.tails[0].length()}),
-                  "(13a) the watch pump never caught up")
-            lag_ms = (time.perf_counter() - t0) * 1e3
+            with alone():
+                t0 = time.perf_counter()
+                caught = hub.watch.wait_caught_up(
+                    {0: hub.tails[0].length()})
+                lag_ms = (time.perf_counter() - t0) * 1e3
+            check(caught, "(13a) the watch pump never caught up")
         if rnd in (1, 2):
             # consume part of what was delivered, then reconnect from the
             # last consumed event's token: the rest replays from retention
@@ -4590,14 +4821,15 @@ def drive_streams_engine(dev, wd: str) -> dict:
           and len(fresh) == STREAM_KEYS - 1,
           "(13a) a fresh scan does not see the new leader's writes")
     check(hub.scans.pin_count() == 0, "(13a) a scan pin was left behind")
-    t0 = time.perf_counter()
-    walk = kv.items_in_range(1, b"", None)
-    walk_ms = [(time.perf_counter() - t0) * 1e3]
-    for _ in range(2):
-        t0 = time.perf_counter()
-        check(kv.items_in_range(1, b"", None) == walk,
-              "(13a) two table walks differ")
-        walk_ms.append((time.perf_counter() - t0) * 1e3)
+    walks, walk_ms = [], []
+    for _ in range(3):
+        with alone():
+            t0 = time.perf_counter()
+            walks.append(kv.items_in_range(1, b"", None))
+            walk_ms.append((time.perf_counter() - t0) * 1e3)
+    walk = walks[0]
+    check(walks[1] == walk and walks[2] == walk,
+          "(13a) two table walks differ")
     check(walk == sorted(fresh.items()),
           "(13a) the table walk differs from the scan")
     # the CDC export: verified against the ledger, a flipped byte named
@@ -4618,11 +4850,13 @@ def drive_streams_engine(dev, wd: str) -> dict:
                           + lines[len(lines) // 2 + 1:]) + "\n")
     bad = verify_export(bad_path, [dump])
     recs = hub.tails[0].records(0)
-    t0 = time.perf_counter()
-    w = CDCWriter(os.path.join(wd, "cdc_timed.jsonl"), auditor=c.auditor)
-    w.write_records(0, recs)
-    w.close()
-    cdc_s = time.perf_counter() - t0
+    with alone():
+        t0 = time.perf_counter()
+        w = CDCWriter(os.path.join(wd, "cdc_timed.jsonl"),
+                      auditor=c.auditor)
+        w.write_records(0, recs)
+        w.close()
+        cdc_s = time.perf_counter() - t0
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return dict(log=log, ops=ops, lag_ms=lag_ms, tokens=tokens,
@@ -4679,12 +4913,14 @@ def streams_rates(dev, card: str) -> dict:
                         for i in range(8 * B)]
                 c0 = int(c.last["commit"].min())
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                c.submit_many(0, rows)
-                while int(c.last["commit"].min()) - c0 < len(rows):
-                    c.step()
-                torch.cuda.synchronize()
-                rates[mode].append(len(rows) / (time.perf_counter() - t0))
+                with alone():
+                    t0 = time.perf_counter()
+                    c.submit_many(0, rows)
+                    while int(c.last["commit"].min()) - c0 < len(rows):
+                        c.step()
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                rates[mode].append(len(rows) / dt)
                 if mode in subs:
                     hub, sub = subs[mode]
                     check(hub.watch.wait_caught_up(
@@ -4763,33 +4999,34 @@ def drive_topology(dev) -> dict:
     for direction in ("split", "merge"):
         while ctl.cooling():
             sc.step()
-        t0 = time.perf_counter()
-        w0 = sc.step_index
-        check(ctl.propose_split(rule.lo, rule.hi, rule.group)
-              if direction == "split" else ctl.propose_merge(rule),
-              f"(13c) the {direction} was refused")
-        deferred = 0
-        while ctl.in_window():
-            check(sc.step_index - w0 < 400, f"(13c) the {direction} "
-                                            f"window never closed")
-            for _ in range(TOPO_PUTS):
-                k = keys[n % len(keys)]
-                n += 1
-                if ctl.would_block(k):
-                    deferred += 1
-                    continue
-                values[k] = b"v%d:" % n + k
-                kv.put(k, values[k])
-            sc.step()
-            ctl.drive()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        windows.append(dict(direction=direction,
-                            steps=sc.step_index - w0,
-                            ms=(time.perf_counter() - t0) * 1e3,
-                            deferred=deferred,
-                            router=kv.router.to_dict(),
-                            status=ctl.status()))
+        with alone():
+            t0 = time.perf_counter()
+            w0 = sc.step_index
+            check(ctl.propose_split(rule.lo, rule.hi, rule.group)
+                  if direction == "split" else ctl.propose_merge(rule),
+                  f"(13c) the {direction} was refused")
+            deferred = 0
+            while ctl.in_window():
+                check(sc.step_index - w0 < 400, f"(13c) the {direction} "
+                                                f"window never closed")
+                for _ in range(TOPO_PUTS):
+                    k = keys[n % len(keys)]
+                    n += 1
+                    if ctl.would_block(k):
+                        deferred += 1
+                        continue
+                    values[k] = b"v%d:" % n + k
+                    kv.put(k, values[k])
+                sc.step()
+                ctl.drive()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            windows.append(dict(direction=direction,
+                                steps=sc.step_index - w0,
+                                ms=(time.perf_counter() - t0) * 1e3,
+                                deferred=deferred,
+                                router=kv.router.to_dict(),
+                                status=ctl.status()))
     for _ in range(4):
         sc.step()
     # each group's table at its leader; a key's value is its owner's
@@ -4819,12 +5056,14 @@ def topology_nemesis(dev, seed: int) -> dict:
     from rdma_paxos_tpu_torch.ops.quorum import commit_scan, commit_window
     from rdma_paxos_tpu_torch.topology.chaos import TopologyNemesisRunner
     l0 = commit_window.launches, commit_scan.launches
-    t0 = time.perf_counter()
-    runner = TopologyNemesisRunner(seed=seed, device=dev)
-    v = runner.run()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    return dict(verdict=v, wall=time.perf_counter() - t0,
+    with alone():
+        t0 = time.perf_counter()
+        runner = TopologyNemesisRunner(seed=seed, device=dev)
+        v = runner.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return dict(verdict=v, wall=wall,
                 history=runner.history.to_jsonl(),
                 steps=runner.shard.step_index,
                 launches=commit_window.launches - l0[0],
@@ -4904,34 +5143,36 @@ def drive_topology_driver(dev) -> dict:
         load(0)
         commit_window.launches = commit_scan.launches = 0
         steps0 = d.cluster.step_index
-        t0 = time.perf_counter()
-        check(ctl.propose_split(b"k", b"l", 1), "(13d) split refused")
-        while not ctl.frozen():
-            check(d.cluster.step_index - steps0 < 200,
-                  "(13d) the window never froze")
+        with alone():
+            t0 = time.perf_counter()
+            check(ctl.propose_split(b"k", b"l", 1), "(13d) split refused")
+            while not ctl.frozen():
+                check(d.cluster.step_index - steps0 < 200,
+                      "(13d) the window never froze")
+                d.step()
+            load(1)
             d.step()
-        load(1)
-        d.step()
-        check(ctl.transitions_total == 1 and not ctl.in_window(),
-              f"(13d) no cutover: {ctl.status()}")
-        failed0 = sum(1 for e in evs if e[-1].done.is_set()
-                      and e[-1].status != 0)
-        d.run(period=0.001)
-        retried = 0
-        while True:
-            check(time.perf_counter() - t0 < 300, "(13d) events stalled")
-            todo = [i for i, e in enumerate(evs) if not e[-1].done.is_set()]
-            failed = [i for i, e in enumerate(evs)
-                      if e[-1].done.is_set() and e[-1].status != 0]
-            if not todo and not failed:
-                break
-            # resend in order: the donor's conn pins were dropped, so
-            # these SENDs route under the new map
-            for i in failed:
-                send(i)
-            retried += len(failed)
-            time.sleep(0.005)
-        wall = time.perf_counter() - t0
+            check(ctl.transitions_total == 1 and not ctl.in_window(),
+                  f"(13d) no cutover: {ctl.status()}")
+            failed0 = sum(1 for e in evs if e[-1].done.is_set()
+                          and e[-1].status != 0)
+            d.run(period=0.001)
+            retried = 0
+            while True:
+                check(time.perf_counter() - t0 < 300, "(13d) events stalled")
+                todo = [i for i, e in enumerate(evs)
+                        if not e[-1].done.is_set()]
+                failed = [i for i, e in enumerate(evs)
+                          if e[-1].done.is_set() and e[-1].status != 0]
+                if not todo and not failed:
+                    break
+                # resend in order: the donor's conn pins were dropped, so
+                # these SENDs route under the new map
+                for i in failed:
+                    send(i)
+                retried += len(failed)
+                time.sleep(0.005)
+            wall = time.perf_counter() - t0
         d.stop()
         check(d.loop_error is None, f"(13d) the loop crashed: "
                                     f"{d.loop_error!r}")
@@ -4974,9 +5215,11 @@ def phase_streams_topology(dev, card: str) -> list:
     # (13a) streams on the engine
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as wd:
+        twin = TWINS.submit(drive_streams_engine, cpu,
+                            os.path.join(wd, "cpu"))
         g = drive_streams_engine(dev, os.path.join(wd, "card"))
         t_card = time.perf_counter() - t0
-        ref = drive_streams_engine(cpu, os.path.join(wd, "cpu"))
+        ref = twin.get()
     same("13a", g, ref, ("log", "tokens", "events", "items", "fresh",
                          "cdc", "verdict", "bad", "flipped"))
     # the card's step launches one kernel where the CPU runs its plain
@@ -5018,10 +5261,13 @@ def phase_streams_topology(dev, card: str) -> list:
     t0 = time.perf_counter()
     geom, fanout = GEOMETRIES["a"]
     payloads = front_record(FRONT_EVENTS, FRONT_BYTES)
+    twins = [TWINS.submit(drive_front_door, cpu, geom, fanout, payloads,
+                          FRONT_CONNS, 0, streams=True)]
+    twins += [TWINS.submit(chaos_run, cpu, seed=seed, steps=100,
+                           streams=True) for seed in (0, 1)]
     fd = drive_front_door(dev, geom, fanout, payloads, FRONT_CONNS, 2,
                           streams=True)
-    fref = drive_front_door(cpu, geom, fanout, payloads, FRONT_CONNS, 0,
-                            streams=True)
+    fref = twins[0].get()
     check(fd["statuses"] == [0] * FRONT_EVENTS and (fd["fired"] == 1).all()
           and fd["streams"][0] == fref["streams"][0],
           "(13b) the streams driver's events or committed stream")
@@ -5038,7 +5284,7 @@ def phase_streams_topology(dev, card: str) -> list:
     for seed in (0, 1):
         kw = dict(seed=seed, steps=100, streams=True)
         gv = chaos_run(dev, **kw)
-        cv = chaos_run(cpu, **kw)
+        cv = twins[1 + seed].get()
         same(f"13b seed {seed}", gv, cv, ("verdict", "history", "ledger",
                                           "steps"))
         s = gv["verdict"]["streams"]
@@ -5063,8 +5309,9 @@ def phase_streams_topology(dev, card: str) -> list:
 
     # (13c) topology on ShardedKVS
     t0 = time.perf_counter()
+    twin = TWINS.submit(drive_topology, cpu)
     g = drive_topology(dev)
-    ref = drive_topology(cpu)
+    ref = twin.get()
     same("13c", g, ref, ("log", "tables", "router", "topology", "phases",
                          "fence", "moved"))
     check(ref["ops"][0] == ref["ops"][1],
@@ -5110,9 +5357,11 @@ def phase_streams_topology(dev, card: str) -> list:
           flush=True)
 
     # (13d) the topology nemesis and the live sharded driver
+    twins = [TWINS.submit(topology_nemesis, cpu, seed) for seed in (0, 1)]
+    twins.append(TWINS.submit(drive_topology_driver, cpu))
     for seed in (0, 1):
         gv = topology_nemesis(dev, seed)
-        cv = topology_nemesis(cpu, seed)
+        cv = twins[seed].get()
         same(f"13d seed {seed}", gv, cv, ("verdict", "history", "steps"))
         v = gv["verdict"]
         check(v["ok"] and v["lease_fence"]["ok"]
@@ -5130,7 +5379,7 @@ def phase_streams_topology(dev, card: str) -> list:
               f"the CPU", flush=True)
     t0 = time.perf_counter()
     dd = drive_topology_driver(dev)
-    dref = drive_topology_driver(cpu)
+    dref = twins[2].get()
     same("13d driver", dd, dref, ("router", "transitions", "abandoned",
                                   "epoch", "final", "once", "failed0",
                                   "owner0", "owner1"))
@@ -5281,7 +5530,7 @@ def phase_profiler(dev, card: str, kernels_per_step: float) -> list:
 
 SHARDED_APP_G = 2
 SHARDED_APP_CLIENTS = 4           # request-reply clients, one connection each
-SHARDED_APP_SETS = 1000
+SHARDED_APP_SETS = 500
 SHARDED_APP_DURING = 100          # group 1's writes while group 0 fails over
 
 
@@ -5546,12 +5795,13 @@ def host_drill(hd, pid: int, fanout: str, n_batches: int, rec: dict,
     st["steps"] += 1
     check(int(res["term"]) == 1, f"rank {pid}: no election ({res})")
     ex0, exs0 = hd.world.exchanges, hd.world.exchange_s
-    t0 = time.perf_counter()
-    for _ in range(n_batches):
-        res = put("step", hd.step(batch=batch(pid == 0),
-                                  apply_done=st["applied"]))
-        st["steps"] += 1
-    wall = time.perf_counter() - t0
+    with alone():
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            res = put("step", hd.step(batch=batch(pid == 0),
+                                      apply_done=st["applied"]))
+            st["steps"] += 1
+        wall = time.perf_counter() - t0
     timed = dict(wall=wall, exchanges=hd.world.exchanges - ex0,
                  exchange_s=hd.world.exchange_s - exs0,
                  steps=n_batches, entries=n_batches * B)
@@ -5611,21 +5861,23 @@ def host_drill(hd, pid: int, fanout: str, n_batches: int, rec: dict,
     return dict(steps=st["steps"], rebases=st["rebases"], timed=timed)
 
 
-def host_rank(pid: int, port: int, device: str, geom_json: str,
-              n_batches: int, fanouts: str, out: str) -> None:
-    """A rank of (14c)'s world (run as its own process): the drill under
-    each fan-out, its outputs, final rows, protocol steps and
-    ``commit_window`` launches saved to ``out`` (npz) with the timings."""
+def host_rank(pid: int, port: int, device: str, cases_json: str,
+              out: str) -> None:
+    """A rank of (14c)'s world (run as its own process): the drill of
+    each case ``[geometry tag, geometry, batches, fan-out]`` in turn, in
+    one process group; its outputs, final rows, protocol steps and
+    ``commit_window`` launches saved to ``out`` (npz) with the timings,
+    keyed ``<tag>/<fan-out>``."""
     load_port()
     import torch.distributed as dist
     from rdma_paxos_tpu_torch.config import LogConfig
     from rdma_paxos_tpu_torch.ops.quorum import commit_window
     from rdma_paxos_tpu_torch.runtime.host import HostReplicaDriver
     torch.set_num_threads(2)
-    geom = json.loads(geom_json)
     arrays, meta = {}, {}
     try:
-        for i, fanout in enumerate(fanouts.split(",")):
+        for i, (geo, geom, n_batches, fanout) in enumerate(
+                json.loads(cases_json)):
             hd = HostReplicaDriver(
                 LogConfig(**geom), process_id=pid, num_processes=R,
                 coordinator=f"127.0.0.1:{port}", fanout=fanout,
@@ -5637,8 +5889,9 @@ def host_rank(pid: int, port: int, device: str, geom_json: str,
                               expect_rebase=geom.get("rebase_threshold",
                                                      1 << 30) < (1 << 30))
             info["launches"] = commit_window.launches
-            arrays.update({f"{fanout}/{k}": v for k, v in rec.items()})
-            meta[fanout] = info
+            arrays.update({f"{geo}/{fanout}/{k}": v for k, v in rec.items()})
+            meta[f"{geo}/{fanout}"] = info
+            del hd
         np.savez(out, **arrays)
         with open(out + ".json", "w") as f:
             json.dump(meta, f)
@@ -5648,33 +5901,49 @@ def host_rank(pid: int, port: int, device: str, geom_json: str,
             dist.destroy_process_group()
 
 
-def run_rank_world(fn: str, args: tuple, wd: str, tag: str,
-                   timeout: float, what: str) -> list:
-    """Three processes, each calling ``chip_smoke.<fn>(rank, port,
-    *args, out)`` on one free coordinator port; fails if a rank exits
-    non-zero, prints no ``RANK<r> OK`` or runs past ``timeout`` s.
-    Returns per rank ``(arrays, info, output)`` from ``out`` (npz) and
-    ``out + ".json"``."""
+def start_rank_world(fn: str, args: tuple, wd: str, tag: str,
+                     timeout: float, what: str, nice: int = 0,
+                     pause=()) -> dict:
+    """Start three processes, each calling ``chip_smoke.<fn>(rank, port,
+    *args, out)`` on one free coordinator port, at CPU priority ``nice``
+    (a CPU twin's world runs beside the card's at the lowest); rank 0,
+    which reports the world's times, stops the processes ``pause`` (the
+    twin world's) in its timed windows (:func:`alone`). Pass the handle
+    to :func:`wait_rank_world`."""
     port = free_ports(1)[0]
     outs = [os.path.join(wd, f"{tag}{r}.npz") for r in range(R)]
-    code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
-            "chip_smoke.{fn}({r}, {port}, *{args!r}, {out!r})")
+    code = ("import os, sys; os.nice({nice}); sys.path.insert(0, {root!r}); "
+            "import chip_smoke; chip_smoke.{fn}({r}, {port}, *{args!r}, "
+            "{out!r})")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code.format(root=str(ROOT), fn=fn, r=r,
-                                           port=port, args=args,
+        [sys.executable, "-c", code.format(nice=nice, root=str(ROOT), fn=fn,
+                                           r=r, port=port, args=args,
                                            out=outs[r])],
-        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=dict(os.environ, **{PAUSE_ENV: ",".join(map(str, pause))})
+        if pause and r == 0 else None)
         for r in range(R)]
+    return dict(procs=procs, outs=outs, tag=tag, what=what,
+                t0=time.perf_counter(), deadline=time.time() + timeout,
+                timeout=timeout)
+
+
+def wait_rank_world(w: dict) -> tuple:
+    """Wait for a :func:`start_rank_world`; fails if a rank exits
+    non-zero, prints no ``RANK<r> OK`` or runs past its timeout. Returns
+    per rank ``(arrays, info, output)`` from ``out`` (npz) and
+    ``out + ".json"``, and the world's seconds from its start."""
+    procs, tag, what = w["procs"], w["tag"], w["what"]
     texts = [""] * R
     try:
-        deadline = time.time() + timeout
         for r, p in enumerate(procs):
             try:
                 texts[r] = p.communicate(
-                    timeout=max(1.0, deadline - time.time()))[0].decode()
+                    timeout=max(1.0, w["deadline"] - time.time()))[0].decode()
             except subprocess.TimeoutExpired:
                 raise RuntimeError(f"check failed: {what} {tag} rank {r} "
-                                   f"ran past {timeout} s")
+                                   f"ran past {w['timeout']} s")
+        seconds = time.perf_counter() - w["t0"]
         for r, p in enumerate(procs):
             check(p.returncode == 0 and f"RANK{r} OK" in texts[r],
                   f"{what} {tag} rank {r} exited {p.returncode}:\n"
@@ -5686,75 +5955,88 @@ def run_rank_world(fn: str, args: tuple, wd: str, tag: str,
                 p.wait()
     res = []
     for r in range(R):
-        with open(outs[r] + ".json") as f:
+        with open(w["outs"][r] + ".json") as f:
             info = json.load(f)
-        res.append((dict(np.load(outs[r])), info, texts[r]))
-    return res
+        res.append((dict(np.load(w["outs"][r])), info, texts[r]))
+    return res, seconds
 
 
-def run_host_world(device: str, geom: dict, n_batches: int, fanouts: tuple,
-                   wd: str, tag: str) -> list:
-    """Three rank processes of :func:`host_rank`, bounded by
-    :data:`HOST_TIMEOUT`. Returns per rank ``(arrays, meta, output)``."""
-    return run_rank_world("host_rank", (device, json.dumps(geom), n_batches,
-                                        ",".join(fanouts)),
-                          wd, tag, HOST_TIMEOUT, "(14c)")
+def start_host_world(device: str, cases: tuple, wd: str, tag: str,
+                     nice: int = 0, pause=()) -> dict:
+    """Three rank processes of :func:`host_rank` running ``cases`` in one
+    process group, bounded by :data:`HOST_TIMEOUT` (see
+    :func:`start_rank_world`)."""
+    return start_rank_world("host_rank", (device, json.dumps(cases)),
+                            wd, tag, HOST_TIMEOUT, "(14c)", nice, pause)
+
+
+def run_host_world(device: str, cases: tuple, wd: str, tag: str) -> list:
+    """:func:`start_host_world` waited for: per rank ``(arrays, meta,
+    output)``."""
+    return wait_rank_world(start_host_world(device, cases, wd, tag))[0]
+
+
+# (14c): geometry (a) under psum and gather, (b) for a few steps
+HOST_CASES = (("a", HOST_GEOM, HOST_BATCHES, "psum"),
+              ("a", HOST_GEOM, HOST_BATCHES, "gather"),
+              ("b", GEOMETRIES["b"][0], 4, "gather"))
 
 
 def phase_host_world(card: str) -> list:
     """(14c): three ranks, each ``HostReplicaDriver(device="cuda")`` on
     the one card under gloo, at geometry (a) under psum and gather and at
-    (b) for a few steps; every rank equal to its CPU twin (the same
-    script at ``device="cpu"``), one ``commit_window`` launch per
-    protocol step per rank."""
+    (b) for a few steps, one world for all three; every rank equal to its
+    CPU twin (the same script at ``device="cpu"``), one
+    ``commit_window`` launch per protocol step per rank."""
     wd = tempfile.mkdtemp(prefix="rp-host-")
     runs = []
     try:
-        cases = (("a", HOST_GEOM, HOST_BATCHES, ("psum", "gather")),
-                 ("b", GEOMETRIES["b"][0], 4, ("gather",)))
-        for geo, geom, n, fanouts in cases:
-            t = time.perf_counter()
-            gpu = run_host_world("cuda", geom, n, fanouts, wd, f"gpu{geo}")
-            t_gpu = time.perf_counter() - t
-            t = time.perf_counter()
-            cpu = run_host_world("cpu", geom, n, fanouts, wd, f"cpu{geo}")
-            t_cpu = time.perf_counter() - t
-            backend = [ln for ln in gpu[0][2].splitlines()
-                       if ln.startswith("replica world:")]
-            for r in range(R):
-                (ga, gm, _), (ca, cm, _) = gpu[r], cpu[r]
-                check(sorted(ga) == sorted(ca) and all(
-                    ga[k].dtype == ca[k].dtype and np.array_equal(ga[k], ca[k])
-                    for k in ga), f"(14c) ({geo}) rank {r} differs from its "
-                    f"CPU twin: " + str([k for k in ga if k not in ca or
-                                         not np.array_equal(ga[k], ca[k])][:6]))
-                for f in fanouts:
-                    check(gm[f]["launches"] == gm[f]["steps"] > 0,
-                          f"(14c) ({geo}, {f}) rank {r}: "
-                          f"{gm[f]['launches']} commit_window launches in "
-                          f"{gm[f]['steps']} protocol steps")
-                    check(cm[f]["launches"] == 0,
-                          f"(14c) the CPU twin launched a kernel")
-                    runs.append(dict(launches=gm[f]["launches"],
-                                     steps=gm[f]["steps"]))
-            for f in fanouts:
-                tm = gpu[0][1][f]["timed"]
-                rate = "" if geo == "b" else (
-                    f": {tm['steps']} full batches in {tm['wall'] * 1e3:.1f} "
-                    f"ms = {tm['steps'] / tm['wall']:.1f} steps/s, "
-                    f"{tm['entries'] / tm['wall']:.0f} committed entries/s, "
-                    f"{tm['exchange_s'] / tm['exchanges'] * 1e3:.3f} ms per "
-                    f"exchange ({tm['exchanges']} exchanges, "
-                    f"{tm['exchange_s'] / tm['wall']:.2f} of the wall)")
-                print(f"host world (14c) geometry ({geo}) {f} on {card}: 3 "
-                      f"ranks on one card ({backend[0] if backend else '?'})"
-                      f"{rate}; {gpu[0][1][f]['steps']} protocol steps and "
-                      f"{gpu[0][1][f]['rebases']} rollovers per rank, one "
-                      f"commit_window launch each; outputs and rows of 3/3 "
-                      f"ranks equal to the CPU twin", flush=True)
-            print(f"host world (14c) geometry ({geo}): card world "
-                  f"{t_gpu:.1f} s, CPU twin {t_cpu:.1f} s (process start "
-                  f"included)", flush=True)
+        # the CPU twin's world beside the card's, at the lowest priority,
+        # stopped while the card's rank 0 times its batches
+        cpu_world = start_host_world("cpu", HOST_CASES, wd, "cpu",
+                                     nice=TWIN_NICE)
+        gpu, t_gpu = wait_rank_world(start_host_world(
+            "cuda", HOST_CASES, wd, "gpu",
+            pause=[p.pid for p in cpu_world["procs"]]))
+        cpu, t_cpu = wait_rank_world(cpu_world)
+        backend = [ln for ln in gpu[0][2].splitlines()
+                   if ln.startswith("replica world:")]
+        for r in range(R):
+            (ga, gm, _), (ca, cm, _) = gpu[r], cpu[r]
+            check(sorted(ga) == sorted(ca) and all(
+                ga[k].dtype == ca[k].dtype and np.array_equal(ga[k], ca[k])
+                for k in ga), f"(14c) rank {r} differs from its CPU twin: "
+                + str([k for k in ga if k not in ca or
+                       not np.array_equal(ga[k], ca[k])][:6]))
+            for geo, _g, _n, f in HOST_CASES:
+                key = f"{geo}/{f}"
+                check(gm[key]["launches"] == gm[key]["steps"] > 0,
+                      f"(14c) ({geo}, {f}) rank {r}: "
+                      f"{gm[key]['launches']} commit_window launches in "
+                      f"{gm[key]['steps']} protocol steps")
+                check(cm[key]["launches"] == 0,
+                      f"(14c) the CPU twin launched a kernel")
+                runs.append(dict(launches=gm[key]["launches"],
+                                 steps=gm[key]["steps"]))
+        for geo, _g, _n, f in HOST_CASES:
+            info = gpu[0][1][f"{geo}/{f}"]
+            tm = info["timed"]
+            rate = "" if geo == "b" else (
+                f": {tm['steps']} full batches in {tm['wall'] * 1e3:.1f} "
+                f"ms = {tm['steps'] / tm['wall']:.1f} steps/s, "
+                f"{tm['entries'] / tm['wall']:.0f} committed entries/s, "
+                f"{tm['exchange_s'] / tm['exchanges'] * 1e3:.3f} ms per "
+                f"exchange ({tm['exchanges']} exchanges, "
+                f"{tm['exchange_s'] / tm['wall']:.2f} of the wall)")
+            print(f"host world (14c) geometry ({geo}) {f} on {card}: 3 "
+                  f"ranks on one card ({backend[0] if backend else '?'})"
+                  f"{rate}; {info['steps']} protocol steps and "
+                  f"{info['rebases']} rollovers per rank, one "
+                  f"commit_window launch each; outputs and rows of 3/3 "
+                  f"ranks equal to the CPU twin", flush=True)
+        print(f"host world (14c): card world {t_gpu:.1f} s, CPU twin "
+              f"{t_cpu:.1f} s (process start included; (a) and (b) in one "
+              f"world each, the two side by side)", flush=True)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     return runs
@@ -5769,24 +6051,26 @@ NODE_TIMEOUT = 300            # seconds for one world of three processes
 NODE_TIMING = dict(elec_timeout_low=2.0, elec_timeout_high=4.0)
 DEPLOY_SETS = 2000            # pipelined SETs of a (15a) deployment run
 DEPLOY_CHUNK = 256            # SET lines per pipelined send
-DEPLOY_SETS_B = 16            # SETs of the boot check at geometry (b)
 ELASTIC_SETS = 200            # pipelined SETs per write step of (15b)
 ELASTIC_BARRIER = 80.0        # the controller's barrier budget (s)
 ELASTIC_WAIT = 180.0          # seconds for any one generation event
 
 
 def node_rank(pid: int, port: int, device: str, geom_json: str,
-              n_iters: int, n_events: int, burst: str, out: str) -> None:
+              n_iters: int, segments_json: str, out: str) -> None:
     """A rank of (15a)'s deterministic run (its own process): a
-    ``NodeDaemon`` at ``device`` under RP_BURST=``burst`` (set for the
-    CPU twin alike), the prewarm burst, rank 0's timer forced,
-    (6a)'s record through rank 0's shim handler, then ``n_iters``
-    iterations (``n_events`` of the record's SENDs). Every iteration's
-    outputs, the events' statuses, the
-    store bytes, the hard state, ``meta()`` and the final row are saved
-    to ``out`` (npz) with the counts and times."""
+    ``NodeDaemon`` at ``device``, the prewarm burst, rank 0's timer
+    forced, then one segment per ``[RP_BURST, events]`` of
+    ``segments_json`` (bursts on, then off — the switch is read at every
+    iteration, set at the same iteration on every rank and in the CPU
+    twin alike): a record of that many SENDs on fresh connections
+    through rank 0's shim handler and ``n_iters`` iterations. Every iteration's outputs,
+    the events' statuses, the store bytes, the hard state, ``meta()`` and
+    the final row are saved to ``out`` (npz) with each segment's counts
+    and times."""
     load_port()
-    os.environ["RP_BURST"] = burst
+    segments = json.loads(segments_json)
+    os.environ["RP_BURST"] = segments[0][0]
     import torch.distributed as dist
     from rdma_paxos_tpu_torch.config import LogConfig, TimeoutConfig
     from rdma_paxos_tpu_torch.ops.quorum import commit_window
@@ -5810,31 +6094,39 @@ def node_rank(pid: int, port: int, device: str, geom_json: str,
         if pid == 0:
             node.timer._deadline = 0.0
         iterate("elect")
-        evs = []
-        if pid == 0:
-            conns = [100 + i for i in range(FRONT_CONNS)]
-            evs = [node._on_event(2, c, b"") for c in conns]
-            evs += [node._on_event(3, conns[i % FRONT_CONNS], p)
-                    for i, p in enumerate(front_record(n_events,
-                                                       FRONT_BYTES))]
-            check(all(isinstance(e, PendingEvent) for e in evs),
-                  "the leader refused an event")
-        if device == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done_at = None
-        for i in range(n_iters):
-            iterate("drain")
-            if evs and done_at is None and all(e.done.is_set()
-                                               for e in evs):
-                done_at = (i + 1, time.perf_counter() - t0)
-        wall = time.perf_counter() - t0
-        if pid == 0:
-            check(done_at is not None, f"events still pending after "
-                                       f"{n_iters} iterations")
-            info.update(events=len(evs), done_iters=done_at[0],
-                        done_s=done_at[1])
-        arrays["statuses"] = np.array([e.status for e in evs], np.int32)
+        for s, (burst, n_events) in enumerate(segments):
+            os.environ["RP_BURST"] = burst
+            evs = []
+            if pid == 0:
+                conns = [100 * (s + 1) + i for i in range(FRONT_CONNS)]
+                evs = [node._on_event(2, c, b"") for c in conns]
+                evs += [node._on_event(3, conns[i % FRONT_CONNS], p)
+                        for i, p in enumerate(front_record(
+                            n_events, FRONT_BYTES, SEED + s))]
+                check(all(isinstance(e, PendingEvent) for e in evs),
+                      "the leader refused an event")
+            if device == "cuda":
+                torch.cuda.synchronize()
+            steps0, launches0 = node.steps, commit_window.launches
+            with alone():
+                t0 = time.perf_counter()
+                done_at = None
+                for i in range(n_iters):
+                    iterate(f"drain{s}")
+                    if evs and done_at is None and all(e.done.is_set()
+                                                       for e in evs):
+                        done_at = (i + 1, time.perf_counter() - t0)
+                seg = dict(burst=burst, wall=time.perf_counter() - t0,
+                           steps=node.steps - steps0,
+                           launches=commit_window.launches - launches0)
+            if pid == 0:
+                check(done_at is not None, f"events still pending after "
+                                           f"{n_iters} iterations")
+                seg.update(events=len(evs), done_iters=done_at[0],
+                           done_s=done_at[1])
+            arrays[f"statuses{s}"] = np.array([e.status for e in evs],
+                                              np.int32)
+            info[f"seg{s}"] = seg
         arrays["store"] = np.frombuffer(node.store.dump(), np.uint8)
         arrays["hard"] = np.array(node.hard.load(), np.int64)
         for k, v in node.meta().items():
@@ -5842,7 +6134,7 @@ def node_rank(pid: int, port: int, device: str, geom_json: str,
         for k, v in node.dump_row().items():
             arrays[f"row.{k}"] = v
         info.update(steps=node.steps, launches=commit_window.launches,
-                    iterations=node.iterations, wall=wall)
+                    iterations=node.iterations)
         np.savez(out, **arrays)
         with open(out + ".json", "w") as f:
             json.dump(info, f)
@@ -5853,19 +6145,19 @@ def node_rank(pid: int, port: int, device: str, geom_json: str,
             dist.destroy_process_group()
 
 
-def run_node_world(device: str, geom: dict, n_iters: int, n_events: int,
-                   burst: str, wd: str, tag: str) -> list:
-    """Three :func:`node_rank` processes, bounded by
-    :data:`NODE_TIMEOUT`. Per rank ``(arrays, info, output)``."""
-    return run_rank_world("node_rank", (device, json.dumps(geom), n_iters,
-                                        n_events, burst),
-                          wd, tag, NODE_TIMEOUT, "(15a)")
+def start_node_world(device: str, geom: dict, n_iters: int,
+                     segments: tuple, wd: str, tag: str, nice: int = 0,
+                     pause=()):
+    """Three :func:`node_rank` processes (see :func:`start_rank_world`),
+    bounded by :data:`NODE_TIMEOUT`."""
+    return start_rank_world("node_rank", (device, json.dumps(geom), n_iters,
+                                          json.dumps(segments)),
+                            wd, tag, NODE_TIMEOUT, "(15a)", nice, pause)
 
 
 def kill_group(p: subprocess.Popen) -> None:
     """SIGKILL a process started with ``start_new_session`` and everything
     in its process group (its app, its worker), then reap it."""
-    import signal
     try:
         os.killpg(p.pid, signal.SIGKILL)
     except ProcessLookupError:
@@ -5956,91 +6248,81 @@ def compare_node_worlds(tag: str, gpu: list, cpu: list) -> None:
                        f"{bad[:6]}")
 
 
+# (15a) deployments: (geometry tag, RP_BURST, SETs). Bursts off runs at
+# (b), which is also the boot check there
+DEPLOYS = (("a", "1", DEPLOY_SETS), ("b", "0", DEPLOY_SETS))
+# (15a) deterministic segments, in turn: (RP_BURST, SENDs of the record)
+NODE_SEGMENTS = (("1", FRONT_EVENTS), ("0", 8192))
+
+
 def phase_node(card: str) -> list:
     """(15a): the three-host ``NodeDaemon`` world on the one card."""
     wd = tempfile.mkdtemp(prefix="rp-node-")
     geom = GEOMETRIES["a"][0]
     runs = []
     try:
-        # deployment runs, bursts off then on
-        for burst in ("0", "1"):
-            d = deploy_world(geom, dict(RP_BURST=burst), DEPLOY_SETS,
-                             os.path.join(wd, f"deploy{burst}"))
+        for geo, burst, n_sets in DEPLOYS:
+            d = deploy_world(GEOMETRIES[geo][0], dict(RP_BURST=burst),
+                             n_sets, os.path.join(wd, f"deploy{geo}"))
             lat = d["lat"]
-            print(f"node world (15a) deployment, geometry (a) psum, "
+            print(f"node world (15a) deployment, geometry ({geo}) psum, "
                   f"RP_BURST={burst} on {card}: 3 launch_node processes "
                   f"({d['world']}) with toy apps; leader {d['lead']} after "
-                  f"{d['boot_s']:.1f} s; {DEPLOY_SETS} pipelined SETs "
+                  f"{d['boot_s']:.1f} s; {n_sets} pipelined SETs "
                   f"({DEPLOY_CHUNK} per send) in {d['wall']:.3f} s = "
-                  f"{DEPLOY_SETS / d['wall']:.1f} requests/s, latency p50 "
+                  f"{n_sets / d['wall']:.1f} requests/s, latency p50 "
                   f"{lat[len(lat) // 2] * 1e3:.2f} ms p99 "
                   f"{lat[int(len(lat) * 0.99)] * 1e3:.2f} ms; every key "
                   f"read back from 3/3 apps; world {d['total_s']:.1f} s",
                   flush=True)
-        # the deterministic run against its CPU twin, bursts on (the
-        # card's default) and off
-        for burst in ("1", "0"):
-            t = time.perf_counter()
-            gpu = run_node_world("cuda", geom, NODE_ITERS, FRONT_EVENTS,
-                                 burst, wd, f"gpu{burst}-")
-            t_gpu = time.perf_counter() - t
-            t = time.perf_counter()
-            cpu = run_node_world("cpu", geom, NODE_ITERS, FRONT_EVENTS,
-                                 burst, wd, f"cpu{burst}-")
-            t_cpu = time.perf_counter() - t
-            compare_node_worlds(f"(15a) deterministic RP_BURST={burst}",
-                                gpu, cpu)
+        # the deterministic run against its CPU twin: bursts on (the
+        # card's default), then off, in one world each; the twin's world
+        # runs beside the card's at the lowest CPU priority, stopped while
+        # the card's rank 0 times its segments
+        cpu_world = start_node_world("cpu", geom, NODE_ITERS, NODE_SEGMENTS,
+                                     wd, "cpu-", nice=TWIN_NICE)
+        gpu_world = start_node_world(
+            "cuda", geom, NODE_ITERS, NODE_SEGMENTS, wd, "gpu-",
+            pause=[p.pid for p in cpu_world["procs"]])
+        gpu, t_gpu = wait_rank_world(gpu_world)
+        cpu, t_cpu = wait_rank_world(cpu_world)
+        compare_node_worlds("(15a) deterministic", gpu, cpu)
+        for s, (burst, _n) in enumerate(NODE_SEGMENTS):
             for r in range(R):
-                gi, ci = gpu[r][1], cpu[r][1]
+                gi, ci = gpu[r][1][f"seg{s}"], cpu[r][1][f"seg{s}"]
                 check(gi["launches"] == gi["steps"] > 0,
-                      f"(15a) rank {r}: {gi['launches']} commit_window "
-                      f"launches in {gi['steps']} protocol steps")
+                      f"(15a) RP_BURST={burst} rank {r}: {gi['launches']} "
+                      f"commit_window launches in {gi['steps']} protocol "
+                      f"steps")
                 check(ci["launches"] == 0,
                       "(15a) the CPU twin launched a kernel")
-                check(not gpu[r][0]["statuses"].any(),
-                      f"(15a) rank {r}: an event failed")
+                check(not gpu[r][0][f"statuses{s}"].any(),
+                      f"(15a) RP_BURST={burst} rank {r}: an event failed")
                 runs.append(dict(launches=gi["launches"], steps=gi["steps"]))
-            g0 = gpu[0][1]
+            g0 = gpu[0][1][f"seg{s}"]
             print(f"node world (15a) deterministic, geometry (a) psum, "
-                  f"RP_BURST={burst} on {card}: (6a)'s record "
-                  f"({g0['events']} events) through rank 0's _on_event "
+                  f"RP_BURST={burst} on {card}: a record of 100-byte SENDs "
+                  f"on {FRONT_CONNS} connections ({g0['events']} events "
+                  f"with the CONNECTs) through rank 0's _on_event "
                   f"acked in {g0['done_s'] * 1e3:.1f} ms = "
                   f"{g0['events'] / g0['done_s']:.0f} acked events/s over "
                   f"{g0['done_iters']} iterations = "
                   f"{g0['done_iters'] / g0['done_s']:.2f} iterations/s "
                   f"({NODE_ITERS} iterations in {g0['wall']:.3f} s); "
                   f"{g0['steps']} protocol steps and as many commit_window "
-                  f"launches per rank; outputs, statuses, stores, hard "
-                  f"state, meta and rows of 3/3 ranks equal to the CPU twin "
-                  f"(card world {t_gpu:.1f} s, CPU twin {t_cpu:.1f} s)",
-                  flush=True)
-        # geometry (b): boot and a few SETs, checked only
-        d = deploy_world(GEOMETRIES["b"][0], {}, DEPLOY_SETS_B,
-                         os.path.join(wd, "deployb"))
-        print(f"node world (15a) geometry (b) psum on {card}: leader "
-              f"{d['lead']} after {d['boot_s']:.1f} s, {DEPLOY_SETS_B} SETs "
-              f"read back from 3/3 apps", flush=True)
+                  f"launches per rank", flush=True)
+        print(f"node world (15a) deterministic: segments (RP_BURST, SENDs) "
+              f"{NODE_SEGMENTS} in one world; outputs, statuses, stores, "
+              f"hard state, meta and rows of 3/3 ranks equal to the CPU "
+              f"twin (card world {t_gpu:.1f} s, CPU twin {t_cpu:.1f} s, "
+              f"side by side)", flush=True)
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     return runs
 
 
-def children(pid: int) -> list:
-    """Pids whose parent is ``pid`` (from /proc)."""
-    out = []
-    for d in Path("/proc").iterdir():
-        if d.name.isdigit():
-            try:
-                stat = (d / "stat").read_text()
-            except OSError:
-                continue
-            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
-                out.append(int(d.name))
-    return out
-
-
 def worker_pid(sup: subprocess.Popen) -> int:
-    for c in children(sup.pid):
+    for c in descendants([sup.pid])[1:]:
         try:
             if b"elastic_worker" in Path(f"/proc/{c}/cmdline").read_bytes():
                 return c
@@ -6058,7 +6340,6 @@ def phase_elastic(card: str) -> list:
     more SETs; that supervisor killed outright and restarted, its host
     rejoining in a later generation; every acked write read back from
     all three apps."""
-    import signal
     from rdma_paxos_tpu_torch.runtime.elastic import (
         GroupController, call, read_rowdump)
     wd = tempfile.mkdtemp(prefix="rp-elastic-")
@@ -6277,15 +6558,17 @@ class Phase:
 # phase 16: the single-controller engines over a device list
 # ---------------------------------------------------------------------------
 
-# (16a): geometry (a) with a rollover point the 32 timed batches cross
-SPMD_GEOM = dict(GEOMETRIES["a"][0], rebase_threshold=1 << 16)
-SPMD_BATCHES = 32
+# (16a): geometry (a) with a rollover point the 16 timed batches cross
+SPMD_GEOM = dict(GEOMETRIES["a"][0], rebase_threshold=1 << 15)
+SPMD_BATCHES = 16
 SPMD_B_BATCHES = 4
 # (16b): (tag, geometry, G, mesh)
 MESH_CASES = (("G=8", GEOMETRIES["a"][0], 8, (2, 3)),
               ("G=64", SHARD_GEOM, 64, (4, 3)))
-MESH_RATE_STEPS = 10
-# (16c): (6a)'s shape, 8 connections of 2560 SENDs of 100 B each
+MESH_RATE_STEPS = 4
+MESH_BATCHES = 1              # (16b) batches per dispatch kind of drive_groups
+# (16c): (6a)'s shape, 8 connections of 2560 SENDs of 100 B each, deep
+# enough that the mesh driver has two dispatches in flight
 MESH_DRIVER_CONNS = [c % R for c in range(8)]
 MESH_DRIVER_PER_CONN = 2560
 
@@ -6329,15 +6612,17 @@ def spmd_run(dev, geom: dict, fanout: str, n_batches: int,
         w = c.world
         ex0 = (w.exchanges, w.exchange_s) if spmd else (0, 0.0)
         s0, c0 = c.step_index, committed()
-        t0 = time.perf_counter()
-        for _ in range(n_batches):
-            feed(B)
-            rec(c.step())
-        sync()
-        timed = dict(wall=time.perf_counter() - t0, steps=c.step_index - s0,
-                     entries=committed() - c0,
-                     exchanges=(w.exchanges - ex0[0]) if spmd else 0,
-                     exchange_s=(w.exchange_s - ex0[1]) if spmd else 0.0)
+        with alone():
+            t0 = time.perf_counter()
+            for _ in range(n_batches):
+                feed(B)
+                rec(c.step())
+            sync()
+            timed = dict(wall=time.perf_counter() - t0,
+                         steps=c.step_index - s0,
+                         entries=committed() - c0,
+                         exchanges=(w.exchanges - ex0[0]) if spmd else 0,
+                         exchange_s=(w.exchange_s - ex0[1]) if spmd else 0.0)
         feed(4 * B)
         rec(c.step_burst())
         c.scan = True
@@ -6400,17 +6685,17 @@ def mesh_rate(dev, geom: dict, G: int, mesh) -> tuple:
         def committed():
             return int(sum(int(c.last["commit"][g, leaders[g]])
                            + int(c.rebased_total[g]) for g in range(G)))
-        for _ in range(3):
-            feed()
-            c.step()
+        feed()
+        c.step()
         torch.cuda.synchronize()
         s0, c0 = c.step_index, committed()
-        t0 = time.perf_counter()
-        for _ in range(MESH_RATE_STEPS):
-            feed()
-            c.step()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        with alone():
+            t0 = time.perf_counter()
+            for _ in range(MESH_RATE_STEPS):
+                feed()
+                c.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         return (c.step_index - s0) / dt, (committed() - c0) / dt
     finally:
         c.close()
@@ -6478,14 +6763,15 @@ def phase_device_list(dev, card: str) -> list:
 
     # (16a) SimCluster(mode="spmd") against the stacked engine and a CPU
     # twin, psum and gather at (a), gather at (b)
+    twins = {f: TWINS.submit(spmd_run, cpu, SPMD_GEOM, f, SPMD_BATCHES,
+                             True) for f in ("psum", "gather")}
     for fanout in ("psum", "gather"):
         sp = spmd_run(dev, SPMD_GEOM, fanout, SPMD_BATCHES, True)
         st = spmd_run(dev, SPMD_GEOM, fanout, SPMD_BATCHES, False)
         compare_steps(f"(16a) {fanout}: spmd against the stacked engine",
                       sp, st)
-        t0 = time.perf_counter()
-        tw = spmd_run(cpu, SPMD_GEOM, fanout, SPMD_BATCHES, True)
-        cpu_s = time.perf_counter() - t0
+        tw = twins[fanout].get()
+        cpu_s = twins[fanout].seconds
         compare_steps(f"(16a) {fanout}: the CPU twin", sp, tw)
         check(sp["launches"] == R * sp["steps"] and sp["scans"] == 0
               and st["launches"] == st["steps"],
@@ -6528,15 +6814,16 @@ def phase_device_list(dev, card: str) -> list:
 
     # (16b) the mesh engine against the stacked group engine and a CPU
     # twin
-    for tag, geom, G, mesh in MESH_CASES:
+    twins = [TWINS.submit(drive_groups, cpu, geom, G, mesh, MESH_BATCHES)
+             for _, geom, G, mesh in MESH_CASES]
+    for (tag, geom, G, mesh), twin in zip(MESH_CASES, twins):
         n_entries = mesh[0] * mesh[1]
-        ms = drive_groups(dev, geom, G, mesh)
-        vm = drive_groups(dev, geom, G)
+        ms = drive_groups(dev, geom, G, mesh, MESH_BATCHES)
+        vm = drive_groups(dev, geom, G, batches=MESH_BATCHES)
         compare_steps(f"(16b) {tag}: the mesh against the stacked engine",
                       ms, vm)
-        t0 = time.perf_counter()
-        tw = drive_groups(cpu, geom, G, mesh)
-        cpu_s = time.perf_counter() - t0
+        tw = twin.get()
+        cpu_s = twin.seconds
         compare_steps(f"(16b) {tag}: the CPU twin", ms, tw)
         check(ms["launches"] == n_entries * ms["steps"] and ms["scans"] == 0,
               f"(16b) {tag}: {ms['launches']} launches in {ms['steps']} "
@@ -6576,6 +6863,9 @@ def phase_device_list(dev, card: str) -> list:
     check(md["launches"] == 2 * R * md["steps"],
           f"(16c) {md['launches']} launches in {md['steps']} protocol "
           f"steps")
+    check(md["max_inflight"] >= 2,
+          f"(16c) the mesh driver never had two dispatches in flight "
+          f"(max_inflight_dispatches {md['max_inflight']})")
     runs.append(dict(launches=md["launches"], steps=md["steps"]))
     print(f"device list (16c) on {card}: ShardedClusterDriver(mesh=(2, 3))"
           f" G = 4 at geometry (a), pipeline 2: {md['events']} SEND events"
@@ -6748,16 +7038,25 @@ def sanitizer_runs(dev, cpu, card: str) -> list:
     geom, fanout = GEOMETRIES["a"]
     payloads = front_record(FRONT_EVENTS, FRONT_BYTES)
     b = {}
-    for name, d_, pl, on in (("sanitized", dev, 2, True),
-                             ("plain", dev, 2, False),
-                             ("plain 2", dev, 2, False),
-                             ("sanitized 2", dev, 2, True),
-                             ("cpu twin", cpu, 0, True)):
+    for name, on in (("sanitized", True), ("plain", False),
+                     ("plain 2", False), ("sanitized 2", True)):
         with sanitized(on):
-            b[name] = drive_front_door(d_, geom, fanout, payloads,
-                                       FRONT_CONNS, pl,
+            b[name] = drive_front_door(dev, geom, fanout, payloads,
+                                       FRONT_CONNS, 2,
                                        probe=offlock_write_raises)
-    ref = b["cpu twin"]
+    # the sanitized CPU twins of (17b) and (17c), in the workers, after
+    # the alternating turns and beside the card's (17c) runs
+    san = {SAN_ENV: "1"}
+    twins = dict(
+        front=TWINS.submit(drive_front_door, cpu, geom, fanout, payloads,
+                           FRONT_CONNS, 0, probe=offlock_write_raises,
+                           _env=san),
+        sharded=TWINS.submit(drive_sharded_driver, cpu, pipeline=0,
+                             _env=san),
+        streams=TWINS.submit(drive_sanitized_streams, cpu, _env=san),
+        spmd=TWINS.submit(spmd_run, cpu, SPMD_GEOM, "psum",
+                          SAN_SPMD_BATCHES, True, _env=san))
+    b["cpu twin"] = ref = twins["front"].get()
     for name, r in b.items():
         want = "SimCluster+sanitized" if "plain" not in name else \
             "SimCluster"
@@ -6803,7 +7102,7 @@ def sanitizer_runs(dev, cpu, card: str) -> list:
     # (17c) the sharded driver at G = 4, pipelined, (10f)'s shape
     with sanitized():
         sd = drive_sharded_driver(dev, pipeline=2)
-        sref = drive_sharded_driver(cpu, pipeline=0)
+    sref = twins["sharded"].get()
     for name, r in (("card", sd), ("cpu twin", sref)):
         check(r["engine"] == "ShardedCluster+sanitized",
               f"(17c) sharded driver {name}: engine {r['engine']}")
@@ -6818,7 +7117,7 @@ def sanitizer_runs(dev, cpu, card: str) -> list:
     # (17c) a streams hub on a SimCluster at (a)
     with sanitized():
         st = drive_sanitized_streams(dev)
-        stref = drive_sanitized_streams(cpu)
+    stref = twins["streams"].get()
     for name, r in (("card", st), ("cpu twin", stref)):
         check(all(n.endswith("+sanitized") for n in r["names"]),
               f"(17c) streams {name}: {r['names']}")
@@ -6833,7 +7132,7 @@ def sanitizer_runs(dev, cpu, card: str) -> list:
     # (17c) SimCluster(mode="spmd") on [dev] * 3, (16a)'s shape
     with sanitized():
         sp = spmd_run(dev, SPMD_GEOM, "psum", SAN_SPMD_BATCHES, True)
-        spref = spmd_run(cpu, SPMD_GEOM, "psum", SAN_SPMD_BATCHES, True)
+    spref = twins["spmd"].get()
     check(sp["engine"] == spref["engine"] == "SimCluster+sanitized",
           f"(17c) spmd: engine {sp['engine']}")
     compare_steps("(17c) the sanitized spmd engine against its CPU twin",
@@ -6859,11 +7158,281 @@ def sanitizer_runs(dev, cpu, card: str) -> list:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the scalar host data plane
+# ---------------------------------------------------------------------------
+
+PLANE_G = 8                 # (18b) groups of the sharded step and group_step
+PLANE_STAGES = ("step", "begin_step", "pack_rows", "finish",
+                "_replay_committed", "decode_window")
+
+
+@contextlib.contextmanager
+def host_plane(vectorized: bool):
+    """The port's host data plane switched for the block, restored
+    after (the switch is module-global)."""
+    from rdma_paxos_tpu_torch.runtime import hostpath
+    prev = hostpath.set_vectorized(vectorized)
+    try:
+        yield
+    finally:
+        hostpath.set_vectorized(prev)
+
+
+def plane_host_ms(dev) -> dict:
+    """(18a) per plane, the host ms per ``step()`` of
+    :data:`PLANE_STAGES` (cProfile, :func:`host_profile`) over four full
+    batches of 100-byte SENDs at geometry (a), the planes in turns
+    (scalar, vectorized, vectorized, scalar) on one cluster; returns the
+    two turns of each plane and the launches in its protocol steps."""
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    geom, fanout = GEOMETRIES["a"]
+    cfg = LogConfig(**geom)
+    B = cfg.batch_slots
+    c = SimCluster(cfg, R, fanout=fanout, device=dev)
+    lead = c.run_until_elected(0)
+    payloads = front_record(B, FRONT_BYTES)
+
+    def four_steps():
+        for _ in range(4):
+            c.submit_many(lead, [(3, 1 + i % FRONT_CONNS, 0, p)
+                                 for i, p in enumerate(payloads)])
+            c.step()
+    four_steps()                                  # warm
+    out = {False: [], True: []}
+    commit_window.launches, s0 = 0, c.step_index
+    for vec in (False, True, True, False):
+        with host_plane(vec):
+            ms = host_profile(four_steps, PLANE_STAGES)
+        out[vec].append({k: v / 4 for k, v in ms.items()})
+    torch.cuda.synchronize()
+    return dict(ms=out, launches=commit_window.launches,
+                steps=c.step_index - s0)
+
+
+def plane_group_steps(dev) -> dict:
+    """(18b) ``ShardedCluster(G=8)`` at geometry (a): leaders placed, one
+    full batch per group, two steps, once with the scalar plane and once
+    with the vectorized one (each on its own cluster); results, streams,
+    frames and state of the two, and the launches per protocol step."""
+    from rdma_paxos_tpu_torch import convert
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.shard import ShardedCluster
+    cfg = LogConfig(**GEOMETRIES["a"][0])
+    sends = group_sends(PLANE_G, cfg.batch_slots)
+    out = {}
+    for vec in (False, True):
+        c = ShardedCluster(cfg, R, PLANE_G, fanout=GROUP_FANOUT, device=dev)
+        c.collect_frames = True
+        leaders = c.place_leaders()
+        for g in range(PLANE_G):
+            c.submit_many(g, leaders[g], [
+                (3, 1 + i % 64, 0, p)
+                for i, p in enumerate(sends[g][:cfg.batch_slots])])
+        commit_window.launches, s0 = 0, c.step_index
+        with host_plane(vec):
+            res = [c.step(), c.step()]
+        torch.cuda.synchronize()
+        out[vec] = dict(
+            res=[{k: np.array(v) for k, v in r.items()} for r in res],
+            replayed=[[list(x) for x in row] for row in c.replayed],
+            frames=[[list(x) for x in row] for row in c.frames],
+            state=convert.replica_state_to_numpy(c.state),
+            launches=commit_window.launches, steps=c.step_index - s0)
+        c.close()
+    a, b = out[False], out[True]
+    for i, (x, y) in enumerate(zip(a["res"], b["res"])):
+        check(set(x) == set(y) and all(np.array_equal(v, y[k])
+                                       for k, v in x.items()),
+              f"(18b) step {i}: the scalar plane's results differ")
+    check(a["replayed"] == b["replayed"] and a["frames"] == b["frames"],
+          "(18b) the scalar plane's streams or frames differ")
+    check(all(np.array_equal(v, b["state"][k]) for k, v in a["state"].items()),
+          "(18b) the scalar plane's state differs")
+    check(sum(len(x) for x in a["replayed"][0]) >= cfg.batch_slots,
+          "(18b) group 0 committed nothing")
+    for r in (a, b):
+        check(r["launches"] == r["steps"] == 2,
+              f"(18b) {r['launches']} commit_window launches in "
+              f"{r['steps']} protocol steps")
+    return a
+
+
+def plane_group_step_direct(dev) -> dict:
+    """(18c) ``consensus.step.group_step`` called directly at G = 8,
+    geometry (a): an election step (one timer per group) and a full-batch
+    step, against ``parallel.mesh.build_sim_group_step`` on a copy of the
+    same state; outputs and state equal, one launch per step each."""
+    from rdma_paxos_tpu_torch import convert
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.consensus.log import M_LEN, M_TYPE, META_W
+    from rdma_paxos_tpu_torch.consensus.state import clone_state
+    from rdma_paxos_tpu_torch.consensus.step import (
+        OUTPUT_FIELDS, StepInput, group_step)
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.parallel.mesh import (
+        build_sim_group_step, stack_group_states)
+    cfg = LogConfig(**GEOMETRIES["a"][0])
+    G, B = PLANE_G, cfg.batch_slots
+    rng = np.random.default_rng(SEED + 18)
+    st = {"group_step": stack_group_states(cfg, G, R, R, device=dev)}
+    st["build_sim_group_step"] = clone_state(st["group_step"])
+    fns = {"group_step": group_step(cfg=cfg, n_replicas=R),
+           "build_sim_group_step": build_sim_group_step(cfg, R)}
+
+    def inputs(elect: bool) -> StepInput:
+        z = torch.zeros((G, R), dtype=torch.int32, device=dev)
+        tmo = z.clone()
+        if elect:
+            tmo[torch.arange(G), torch.arange(G) % R] = 1
+        count = z.clone()
+        meta = torch.zeros((G, R, B, META_W), dtype=torch.int32,
+                           device=dev)
+        if not elect:
+            count[torch.arange(G), torch.arange(G) % R] = B
+            meta[..., M_TYPE] = 3                             # SEND
+            meta[..., M_LEN] = torch.from_numpy(rng.integers(
+                1, cfg.slot_bytes + 1, (G, R, B)).astype(np.int32)).to(dev)
+        data = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (G, R, B, cfg.slot_words)).astype(
+                np.int32)).to(dev)
+        return StepInput(batch_data=data, batch_meta=meta,
+                         batch_count=count, timeout_fired=tmo,
+                         peer_mask=torch.ones((G, R, R), dtype=torch.int32,
+                                              device=dev),
+                         apply_done=z, queue_depth=z)
+    outs = {k: [] for k in fns}
+    launched = {}
+    for elect in (True, False):
+        inp = inputs(elect)
+        for k, fn in fns.items():
+            n0 = commit_window.launches
+            st[k], o = fn(st[k], inp)
+            launched[k] = launched.get(k, 0) + commit_window.launches - n0
+            outs[k].append({f: getattr(o, f).cpu().numpy()
+                            for f in OUTPUT_FIELDS})
+    torch.cuda.synchronize()
+    a, b = outs["group_step"], outs["build_sim_group_step"]
+    check(all(np.array_equal(x[f], y[f]) for x, y in zip(a, b)
+              for f in OUTPUT_FIELDS),
+          "(18c) group_step's outputs differ from build_sim_group_step's")
+    sa, sb = (convert.replica_state_to_numpy(st[k]) for k in fns)
+    check(all(np.array_equal(v, sb[k]) for k, v in sa.items()),
+          "(18c) group_step's state differs from build_sim_group_step's")
+    check((a[0]["role"][np.arange(G), np.arange(G) % R] == 3).all()
+          and (a[1]["commit"].max(1) >= B).all(),
+          "(18c) the groups did not elect and commit a batch")
+    check(launched == dict.fromkeys(fns, 2),
+          f"(18c) commit_window launches {launched} in 2 steps each")
+    return dict(launches=launched["group_step"], steps=2)
+
+
+def phase_host_plane(dev, card: str) -> list:
+    """Phase 18: the scalar host data plane on the card. (18a) (6a)'s
+    record (:data:`FRONT_EVENTS` SENDs) through a pipelined
+    ``ClusterDriver`` with a workdir, the planes in turns (scalar,
+    vectorized, vectorized, scalar), against one serial run on the CPU;
+    the planes' host ms per step. (18b) a G = 8 sharded step with the
+    plane off against on. (18c) ``group_step`` called directly."""
+    geom, fanout = GEOMETRIES["a"]
+    payloads = front_record(FRONT_EVENTS, FRONT_BYTES)
+    wd = tempfile.mkdtemp(prefix="rp-plane-")
+    runs, b = [], {}
+    try:
+        for name, d_, pl, vec in (("scalar", dev, 2, False),
+                                  ("vectorized", dev, 2, True),
+                                  ("vectorized 2", dev, 2, True),
+                                  ("scalar 2", dev, 2, False),
+                                  ("cpu twin", torch.device("cpu"), 0, True)):
+            run_wd = os.path.join(wd, name.replace(" ", ""))
+            os.makedirs(run_wd)
+            with host_plane(vec):
+                b[name] = drive_front_door(
+                    d_, geom, fanout, payloads, FRONT_CONNS, pl,
+                    workdir=run_wd, stores=True)
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    ref = b["cpu twin"]
+    check(all(x == ref["stores"][0] for x in ref["stores"]),
+          "(18a) the CPU twin's replica stores differ")
+    for name, r in b.items():
+        check(r["statuses"] == [0] * FRONT_EVENTS and (r["fired"] == 1).all(),
+              f"(18a) {name}: not every event was acked once with status 0")
+        check([p for (t, _c, _q, p) in r["streams"][0] if t == 3]
+              == payloads, f"(18a) {name}: the committed SENDs are not the "
+                           f"record in order")
+        check(r["streams"] == ref["streams"] and r["stores"] == ref["stores"],
+              f"(18a) {name}: the committed streams or store bytes differ "
+              f"from the CPU twin's")
+        if name != "cpu twin":
+            check(r["launches"] == r["steps"] > 0,
+                  f"(18a) {name}: {r['launches']} commit_window launches in "
+                  f"{r['steps']} protocol steps")
+            runs.append(dict(launches=r["launches"], steps=r["steps"]))
+    rate = {n: FRONT_EVENTS / b[n]["wall"] for n in b}
+    hp = plane_host_ms(dev)
+    check(hp["launches"] == hp["steps"] == 16,
+          f"(18a) host profile: {hp['launches']} commit_window launches in "
+          f"{hp['steps']} protocol steps")
+    runs.append(dict(launches=hp["launches"], steps=hp["steps"]))
+
+    def ms(vec, k):
+        return ", ".join(f"{t[k]:.2f}" for t in hp["ms"][vec])
+    scalar = rate["scalar"] + rate["scalar 2"]
+    vector = rate["vectorized"] + rate["vectorized 2"]
+    print(f"host plane (18a) on {card}, geometry (a) fanout={fanout}: "
+          f"ClusterDriver(pipeline=2) with a workdir on (6a)'s record, "
+          f"{FRONT_EVENTS} SENDs of {FRONT_BYTES} B on {FRONT_CONNS} "
+          f"connections, the host data plane in turns: every event acked "
+          f"once with status 0 in order, the committed streams and "
+          f"{sum(map(len, ref['stores']))} store bytes of 3/3 replicas "
+          f"equal across the planes and to the CPU serial twin; acked "
+          f"events/s scalar {rate['scalar']:.0f}, {rate['scalar 2']:.0f}, "
+          f"vectorized {rate['vectorized']:.0f}, "
+          f"{rate['vectorized 2']:.0f} (vectorized / scalar "
+          f"{vector / scalar:.3f}); "
+          f"{sum(b[n]['launches'] for n in b if n != 'cpu twin')} "
+          f"commit_window launches in as many protocol steps", flush=True)
+    print(f"host plane (18a) host profile on {card} (cProfile, inclusive ms "
+          f"per step() of a full batch of {GEOMETRIES['a'][0]['batch_slots']}"
+          f" 100-byte SENDs, two turns per plane; inflates Python-heavy "
+          f"code, the scalar loops most): decode_window scalar "
+          f"{ms(False, 'decode_window')}, vectorized "
+          f"{ms(True, 'decode_window')}; pack_rows scalar "
+          f"{ms(False, 'pack_rows')}, vectorized {ms(True, 'pack_rows')}; "
+          f"step scalar {ms(False, 'step')}, vectorized {ms(True, 'step')}",
+          flush=True)
+    g = plane_group_steps(dev)
+    runs.append(dict(launches=2 * g["launches"], steps=2 * g["steps"]))
+    d = plane_group_step_direct(dev)
+    runs.append(dict(launches=2 * d["launches"], steps=2 * d["steps"]))
+    print(f"host plane (18b, 18c) on {card}: ShardedCluster(G={PLANE_G}) at"
+          f" geometry (a) {GROUP_FANOUT}, two steps of a full batch per "
+          f"group with the scalar plane equal to the vectorized plane "
+          f"(results, streams, frames, state), one commit_window launch per "
+          f"protocol step; group_step called directly at G = {PLANE_G}: an "
+          f"election and a full-batch step equal to build_sim_group_step's"
+          f" (outputs, state), one launch per step each", flush=True)
+    return runs
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    global TWINS
+    TWINS = Twins()
+    try:
+        return run_phases()
+    finally:
+        TWINS.close()
+
+
+def run_phases() -> int:
     with Phase(1, "the device"):
         port = load_port()
         dev = torch.device("cuda", 0)
@@ -6893,7 +7462,9 @@ def main() -> int:
         checks = dict(commit_scan=phase_kernel_checks(dev),
                       commit_window=phase_window_checks(dev))
     with Phase(4, "the main path at geometries (a) and (b)"):
-        main_runs = [phase_main_path(port, g, dev, kvs_ops=3000)
+        twins = {g: TWINS.submit(drive, None, g, CPU, MAIN_KVS_OPS)
+                 for g in GEOMETRIES}
+        main_runs = [phase_main_path(port, g, dev, MAIN_KVS_OPS, twins[g])
                      for g in GEOMETRIES]
     with Phase(5, "times"):
         times = phase_kernel_times(dev, smi)
@@ -6946,6 +7517,10 @@ def main() -> int:
                    "CLI, 17b the pipelined driver, 17c the sharded "
                    "driver, a streams hub and the spmd engine)"):
         main_runs += phase_sanitizer(dev, smi)
+    with Phase(18, "the scalar host data plane (18a the pipelined driver "
+                   "and the host profile, 18b a sharded step, 18c "
+                   "group_step)"):
+        main_runs += phase_host_plane(dev, smi)
 
     launches = dict(commit_window=sum(m["launches"] for m in main_runs),
                     commit_scan=0)

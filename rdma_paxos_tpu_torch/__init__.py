@@ -9,6 +9,8 @@ a hand-written CUDA kernel here (``csrc/commit_scan.cu``), built with
 ``nvcc`` at first use.
 """
 
+__version__ = "0.1.0"
+
 __all__ = ["LogConfig", "resolve_device"]
 
 

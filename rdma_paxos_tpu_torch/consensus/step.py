@@ -767,6 +767,37 @@ def replica_step(state: ReplicaState, inp: StepInput, *, cfg,
     return new_state, out
 
 
+def group_step(*, cfg, n_replicas: int, fanout: str = "gather",
+               elections: bool = True, audit: bool = False,
+               telemetry: bool = False, txn: bool = False):
+    """The group-batched protocol step: ``fn(state, inp) -> (state,
+    out)`` advances G independent consensus groups of R replicas, every
+    tensor shaped ``[G, R, ...]``, in one pass of :func:`replica_step`.
+    No value crosses the group axis; the ring work runs on the N = G·R
+    instances as rows, with one ``commit_window`` launch over all N per
+    step. G is not bound: any stack of groups sharing ``cfg`` runs
+    through the same function.
+
+    Unlike the JAX ``group_step`` it takes no ``axis_name``,
+    ``use_pallas`` or ``interpret``: the replica axis is a tensor
+    dimension, and the tensors' device picks the route —
+    ``commit_window``'s CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors, never one in place of the other."""
+    if fanout not in ("gather", "psum"):
+        raise ValueError(f"unknown fanout {fanout!r}")
+
+    def fn(state: ReplicaState, inp: StepInput
+           ) -> Tuple[ReplicaState, StepOutput]:
+        if state.term.dim() != 2 or state.term.shape[1] != n_replicas:
+            raise ValueError(
+                f"group_step takes [G, {n_replicas}, ...] tensors, got a "
+                f"state of shape {tuple(state.term.shape)}")
+        return replica_step(state, inp, cfg=cfg, n_replicas=n_replicas,
+                            fanout=fanout, elections=elections,
+                            audit=audit, telemetry=telemetry, txn=txn)
+    return fn
+
+
 # per-replica scalar outputs the host rules consume, packed into ONE
 # [..., len(SCAN_KEYS)] i32 matrix; ``accepted`` is cumulative across a
 # scan. Order is part of the host contract — append only.

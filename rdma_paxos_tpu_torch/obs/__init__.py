@@ -7,16 +7,16 @@ driver reads, all host-side and stdlib-only:
   gauges and fixed-bucket histograms with per-replica labels;
 * :mod:`~rdma_paxos_tpu_torch.obs.trace` — a bounded ring of typed
   protocol events, dumpable on failure;
-* :mod:`~rdma_paxos_tpu_torch.obs.spans` — sampled command spans and
-  the step-phase profiler (the Chrome-trace export and its CLI are not
-  copied yet);
+* :mod:`~rdma_paxos_tpu_torch.obs.spans` — sampled command spans, the
+  step-phase profiler, the Chrome-trace export and its CLI;
 * :mod:`~rdma_paxos_tpu_torch.obs.clock` — the ``(monotonic, wall)``
   anchor every dump is stamped with;
 * :mod:`~rdma_paxos_tpu_torch.obs.audit` — the audit ledger, flight
   recorder, artifacts and first-divergence CLI of the ``audit=`` step
   variant;
-* :mod:`~rdma_paxos_tpu_torch.obs.device` — the counter half of the
-  device telemetry (the ``telemetry=`` step variant's host side);
+* :mod:`~rdma_paxos_tpu_torch.obs.device` — the device telemetry: the
+  ``telemetry=`` step variant's host side, the ``torch.profiler``
+  capture manager, the merged timeline and the dispatch reports;
 * :mod:`~rdma_paxos_tpu_torch.obs.alerts` — declarative SLO alert
   rules (digest mismatch, leaderless, latency burn rates, election
   storms, repair escalation) evaluated by the drivers' host loops;
@@ -33,9 +33,6 @@ driver reads, all host-side and stdlib-only:
 * :mod:`~rdma_paxos_tpu_torch.obs.console` — the fleet table and the
   postmortem bundles (``python -m rdma_paxos_tpu_torch.obs.console``),
   and ``python -m rdma_paxos_tpu_torch.obs`` (``merge``, ``blame``).
-
-The profiler half of ``device`` and the span breakdown CLI come with
-ROADMAP Queue 1, item 13.
 
 Nothing here runs inside the replica step.
 """
@@ -112,8 +109,27 @@ def default() -> Observability:
     return _default
 
 
+# ``audit`` and ``device`` need numpy and torch: resolved on first use,
+# so that the stdlib-only modules above import without them
+_LAZY = {"audit": ("audit", None), "device": ("device", None),
+         "AuditLedger": ("audit", "AuditLedger"),
+         "FlightRecorder": ("audit", "FlightRecorder"),
+         "ProfilerSession": ("device", "ProfilerSession")}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        mod, attr = _LAZY[name]
+        m = importlib.import_module(f"{__name__}.{mod}")
+        return m if attr is None else getattr(m, attr)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = ["Observability", "MetricsRegistry", "TraceRing",
            "HealthReporter", "SpanRecorder", "StepPhaseProfiler",
-           "AlertEngine", "TimeSeriesStore", "OpsExporter",
+           "AuditLedger", "FlightRecorder", "AlertEngine",
+           "ProfilerSession", "TimeSeriesStore", "OpsExporter",
            "TraceContext", "default", "metrics", "trace", "health",
-           "spans", "clock", "alerts", "series", "export", "tracectx"]
+           "spans", "clock", "audit", "alerts", "device", "series",
+           "export", "tracectx"]

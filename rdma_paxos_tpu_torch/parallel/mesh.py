@@ -60,8 +60,8 @@ from rdma_paxos_tpu_torch.consensus.log import Log, extract_window
 from rdma_paxos_tpu_torch.consensus.state import (
     STATE_FIELDS, ReplicaState, make_replica_state, map_state)
 from rdma_paxos_tpu_torch.consensus.step import (
-    OUTPUT_FIELDS, VARIANT_FIELDS, StepInput, StepOutput, replica_step,
-    scan_readback)
+    OUTPUT_FIELDS, VARIANT_FIELDS, StepInput, StepOutput, group_step,
+    replica_step, scan_readback)
 
 
 def stack_states(cfg, n_replicas: int, group_size: int, *, device
@@ -102,45 +102,46 @@ def build_sim_step(cfg, n_replicas: int, *, fanout: str = "gather",
         elections=elections, audit=audit, telemetry=telemetry, txn=txn)
 
 
-def _burst_steps(cfg, n_replicas, fanout, audit, telemetry, exchange,
-                 state, datas, metas, counts, peer_mask, applied, qdepth):
-    """The K stable steps of a burst: no timeouts fire, the host apply
-    cursors ``applied`` stay frozen (the host cannot replay mid-burst),
-    ``qdepth`` is the backlog remaining beyond the burst."""
+def _stable_step(cfg, n_replicas, fanout, audit, telemetry, exchange):
+    """The replica step a burst or scan repeats: ``elections=False``."""
+    return functools.partial(
+        replica_step, cfg=cfg, n_replicas=n_replicas, fanout=fanout,
+        elections=False, audit=audit, telemetry=telemetry,
+        exchange=exchange)
+
+
+def _burst_steps(step, state, datas, metas, counts, peer_mask, applied,
+                 qdepth):
+    """The K stable steps of a burst, each ``step(state, inp)``: no
+    timeouts fire, the host apply cursors ``applied`` stay frozen (the
+    host cannot replay mid-burst), ``qdepth`` is the backlog remaining
+    beyond the burst."""
     zeros_r = torch.zeros_like(applied)
     for k in range(datas.shape[0]):
         inp = StepInput(batch_data=datas[k], batch_meta=metas[k],
                         batch_count=counts[k], timeout_fired=zeros_r,
                         peer_mask=peer_mask, apply_done=applied,
                         queue_depth=qdepth)
-        state, out = replica_step(state, inp, cfg=cfg,
-                                  n_replicas=n_replicas, fanout=fanout,
-                                  elections=False, audit=audit,
-                                  telemetry=telemetry, exchange=exchange)
+        state, out = step(state, inp)
         yield state, out
 
 
-def _build_burst(cfg, n_replicas, fanout, audit, telemetry, exchange):
+def _build_burst(step):
     def burst(state, datas, metas, counts, peer_mask, applied, qdepth):
         outs = []
-        for state, out in _burst_steps(cfg, n_replicas, fanout, audit,
-                                       telemetry, exchange, state, datas,
-                                       metas, counts, peer_mask, applied,
-                                       qdepth):
+        for state, out in _burst_steps(step, state, datas, metas, counts,
+                                       peer_mask, applied, qdepth):
             outs.append(out)
         return state, _stack_outputs(outs)
     return burst
 
 
-def _build_scan(cfg, n_replicas, replay_slots, fanout, audit, telemetry,
-                exchange):
+def _build_scan(step, replay_slots, audit, telemetry):
     def scan(state, datas, metas, counts, peer_mask, applied, qdepth):
         acc = torch.zeros_like(applied)
         ys = []
-        for state, out in _burst_steps(cfg, n_replicas, fanout, audit,
-                                       telemetry, exchange, state, datas,
-                                       metas, counts, peer_mask, applied,
-                                       qdepth):
+        for state, out in _burst_steps(step, state, datas, metas, counts,
+                                       peer_mask, applied, qdepth):
             acc = acc + out.accepted
             ys.append(scan_readback(out, acc, audit=audit,
                                     telemetry=telemetry))
@@ -158,7 +159,8 @@ def build_sim_burst(cfg, n_replicas: int, *, fanout: str = "gather",
     qdepth [R]) -> (state, outs)`` with every output field stacked
     ``[K, ...]`` (the ``audit=``/``telemetry=`` fields of every step
     too, when on)."""
-    return _build_burst(cfg, n_replicas, fanout, audit, telemetry, None)
+    return _build_burst(_stable_step(cfg, n_replicas, fanout, audit,
+                                     telemetry, None))
 
 
 def build_sim_scan(cfg, n_replicas: int, *, replay_slots: int,
@@ -170,22 +172,25 @@ def build_sim_scan(cfg, n_replicas: int, *, replay_slots: int,
     replica from the PRE-scan apply cursors of the post-scan log
     (``replay_data``/``replay_meta``), plus every step's audit windows
     and telemetry vectors ``[K, ...]`` when those variants are on."""
-    return _build_scan(cfg, n_replicas, replay_slots, fanout, audit,
-                       telemetry, None)
+    return _build_scan(_stable_step(cfg, n_replicas, fanout, audit,
+                                    telemetry, None),
+                       replay_slots, audit, telemetry)
 
 
 def build_sim_group_step(cfg, n_replicas: int, *, fanout: str = "gather",
                          elections: bool = True, audit: bool = False,
                          telemetry: bool = False, txn: bool = False):
     """``fn(state, inp) -> (state, out)``: one protocol step of every
-    group of a ``[G, R, ...]`` state, in one pass (the G count is not
-    bound: any stack of groups sharing ``cfg`` runs through it). With
-    ``txn=True`` the input carries ``txn_watch``/``txn_term`` ``[G, R]``
-    (each group's watch repeated over its replicas) and the output the
-    ``[G, R]`` vote matrix; bursts and scans never carry the lane."""
-    return build_sim_step(cfg, n_replicas, fanout=fanout,
-                          elections=elections, audit=audit,
-                          telemetry=telemetry, txn=txn)
+    group of a ``[G, R, ...]`` state, in one pass
+    (:func:`~rdma_paxos_tpu_torch.consensus.step.group_step`; the G count
+    is not bound: any stack of groups sharing ``cfg`` runs through it).
+    With ``txn=True`` the input carries ``txn_watch``/``txn_term``
+    ``[G, R]`` (each group's watch repeated over its replicas) and the
+    output the ``[G, R]`` vote matrix; bursts and scans never carry the
+    lane."""
+    return group_step(cfg=cfg, n_replicas=n_replicas, fanout=fanout,
+                      elections=elections, audit=audit,
+                      telemetry=telemetry, txn=txn)
 
 
 def build_sim_group_burst(cfg, n_replicas: int, *, fanout: str = "gather",
@@ -193,9 +198,10 @@ def build_sim_group_burst(cfg, n_replicas: int, *, fanout: str = "gather",
     """:func:`build_sim_burst` over every group: ``burst(state, datas
     [K,G,R,B,sw], metas [K,G,R,B,MW], counts [K,G,R], peer_mask
     [G,R,R], applied [G,R], qdepth [G,R])`` — the single-group burst's
-    contract applied per group, one pass per protocol step."""
-    return build_sim_burst(cfg, n_replicas, fanout=fanout, audit=audit,
-                           telemetry=telemetry)
+    contract applied per group, one ``group_step`` per protocol step."""
+    return _build_burst(group_step(
+        cfg=cfg, n_replicas=n_replicas, fanout=fanout, elections=False,
+        audit=audit, telemetry=telemetry))
 
 
 def build_sim_group_scan(cfg, n_replicas: int, *, replay_slots: int,
@@ -204,8 +210,9 @@ def build_sim_group_scan(cfg, n_replicas: int, *, replay_slots: int,
     """:func:`build_sim_scan` over every group (inputs as
     :func:`build_sim_group_burst`; the readback's axes gain ``G`` after
     ``K``, the replay rows are ``[G, R, replay_slots, ...]``)."""
-    return build_sim_scan(cfg, n_replicas, replay_slots=replay_slots,
-                          fanout=fanout, audit=audit, telemetry=telemetry)
+    return _build_scan(group_step(
+        cfg=cfg, n_replicas=n_replicas, fanout=fanout, elections=False,
+        audit=audit, telemetry=telemetry), replay_slots, audit, telemetry)
 
 
 # ---------------------------------------------------------------------------
@@ -356,7 +363,8 @@ def build_spmd_burst(cfg, n_replicas: int, world, *,
         _check_layout(world, n_replicas, (REPLICA_AXIS,))
         return _burst_program("spmd-burst", cfg, n_replicas, world,
                               fanout, audit, telemetry)
-    return _build_burst(cfg, n_replicas, fanout, audit, telemetry, world)
+    return _build_burst(_stable_step(cfg, n_replicas, fanout, audit,
+                                     telemetry, world))
 
 
 def build_spmd_scan(cfg, n_replicas: int, world, *,
@@ -372,8 +380,9 @@ def build_spmd_scan(cfg, n_replicas: int, world, *,
         _check_layout(world, n_replicas, (REPLICA_AXIS,))
         return _scan_program("spmd-scan", cfg, n_replicas, world,
                              replay_slots, fanout, audit, telemetry)
-    return _build_scan(cfg, n_replicas, replay_slots, fanout, audit,
-                       telemetry, world)
+    return _build_scan(_stable_step(cfg, n_replicas, fanout, audit,
+                                    telemetry, world),
+                       replay_slots, audit, telemetry)
 
 
 # ---------------------------------------------------------------------------
@@ -814,8 +823,8 @@ _BURST_LEADS = (1, 1, 1, 0, 0, 0)
 def _burst_program(kind, cfg, n_replicas, layout, fanout, audit,
                    telemetry) -> DeviceListProgram:
     def body(block, *args, exchange):
-        return _build_burst(cfg, n_replicas, fanout, audit, telemetry,
-                            exchange)(block, *args)
+        return _build_burst(_stable_step(cfg, n_replicas, fanout, audit,
+                                         telemetry, exchange))(block, *args)
     return _program(kind, cfg, n_replicas, layout,
                     (fanout, audit, telemetry), body, _BURST_LEADS,
                     lambda sh, outs, dev: _join_output(sh, outs, 1, dev))
@@ -824,8 +833,9 @@ def _burst_program(kind, cfg, n_replicas, layout, fanout, audit,
 def _scan_program(kind, cfg, n_replicas, layout, replay_slots, fanout,
                   audit, telemetry) -> DeviceListProgram:
     def body(block, *args, exchange):
-        return _build_scan(cfg, n_replicas, replay_slots, fanout, audit,
-                           telemetry, exchange)(block, *args)
+        return _build_scan(_stable_step(cfg, n_replicas, fanout, audit,
+                                        telemetry, exchange),
+                           replay_slots, audit, telemetry)(block, *args)
 
     def join(sh, outs, dev):
         return {k: sh.join([o[k] for o in outs],

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from rdma_paxos_tpu_torch.config import LogConfig, resolve_device
-from rdma_paxos_tpu_torch.consensus.log import Log, M_GEN, META_W
+from rdma_paxos_tpu_torch.consensus.log import Log, META_W
 from rdma_paxos_tpu_torch.consensus.snapshot import export_row, rebase_offsets
 from rdma_paxos_tpu_torch.consensus.state import STATE_FIELDS
 from rdma_paxos_tpu_torch.consensus.step import (
@@ -193,10 +193,8 @@ class HostReplicaDriver:
         Returns the number of rows written (the caller's dirty count;
         rows are assumed pre-zeroed)."""
         du8 = data.view(np.uint8).reshape(data.shape[0], -1)
-        n = pack_window(du8, meta, list(batch)[:data.shape[0]],
-                        self.cfg.slot_bytes)
-        meta[:n, M_GEN] = gen
-        return n
+        return pack_window(du8, meta, list(batch)[:data.shape[0]],
+                           self.cfg.slot_bytes, gen=gen)
 
     def step(self, **kw) -> Dict[str, np.ndarray]:
         """One collective protocol step; every process must call this in

@@ -10,8 +10,11 @@ plans each replica's apply from those batches (:func:`plan_segment`):
 the own-entry ack frontier and the remote replay ops, with consecutive
 same-connection SENDs coalesced. Byte for byte the JAX package's
 ``runtime/hostpath.py``; the log constants are this package's own copy.
-Only the vectorized paths are kept: the JAX package's scalar replay
-plan is the reference the tests hold this one against. numpy only.
+Every operation keeps its scalar reference loop beside the vectorized
+one, and the module-wide :data:`VECTORIZED` switch (:func:`set_vectorized`)
+selects between them. Both planes give the same bytes, so flipping the
+switch (from any thread, even while a driver's dispatch and readback
+threads run) changes no result, only the host time. numpy only.
 """
 
 from __future__ import annotations
@@ -22,6 +25,21 @@ import numpy as np
 
 from rdma_paxos_tpu_torch.consensus.log import (
     EntryType, M_CONN, M_GEN, M_GIDX, M_LEN, M_REQID, M_TERM, M_TYPE)
+
+# module-wide switch between the vectorized hot path and the scalar
+# reference loops: a pure performance knob, never a semantics one (the
+# two planes are pinned byte-identical)
+VECTORIZED = True
+
+
+def set_vectorized(flag: bool) -> bool:
+    """Select the vectorized (True) or scalar-reference (False) host
+    data plane; returns the previous setting."""
+    global VECTORIZED
+    prev = VECTORIZED
+    VECTORIZED = bool(flag)
+    return prev
+
 
 def ragged_arange(lens: np.ndarray) -> np.ndarray:
     """``concatenate([arange(l) for l in lens])`` without the loop."""
@@ -34,14 +52,43 @@ def ragged_arange(lens: np.ndarray) -> np.ndarray:
 
 
 def pack_window(du8: np.ndarray, meta: np.ndarray,
-                take: Sequence[Tuple], slot_bytes: int) -> int:
+                take: Sequence[Tuple], slot_bytes: int,
+                gen: Optional[int] = None) -> int:
     """Pack ``take`` rows of ``(etype, conn, req, payload)`` into one
     window's staging buffers (``du8``: the ``[B, slot_bytes]`` u8 view
     of the payload words, ``meta``: ``[B, META_W]`` i32), assumed
-    pre-zeroed. Returns the number of rows written."""
+    pre-zeroed, stamping ``gen`` into ``M_GEN`` when given. Returns the
+    number of rows written."""
     n = len(take)
     if not n:
         return 0
+    if VECTORIZED:
+        _pack_vec(du8, meta, take, slot_bytes, gen)
+    else:
+        _pack_scalar(du8, meta, take, slot_bytes, gen)
+    return n
+
+
+def _pack_scalar(du8, meta, take, slot_bytes, gen) -> None:
+    """The per-entry loop: the bit-identity reference."""
+    for i, (t, conn, req, payload) in enumerate(take):
+        ln = len(payload)
+        if ln > slot_bytes:
+            raise ValueError("payload exceeds slot capacity; "
+                             "fragment first")
+        if ln:
+            du8[i, :ln] = np.frombuffer(payload, np.uint8)
+        row = meta[i]
+        row[M_TYPE] = t
+        row[M_CONN] = conn
+        row[M_REQID] = req
+        row[M_LEN] = ln
+        if gen is not None:
+            row[M_GEN] = gen
+
+
+def _pack_vec(du8, meta, take, slot_bytes, gen) -> None:
+    n = len(take)
     cols = np.array([(t, c, q) for (t, c, q, _p) in take], np.int32)
     payloads = [p for (_t, _c, _q, p) in take]
     lens = np.fromiter(map(len, payloads), np.int64, count=n)
@@ -51,13 +98,14 @@ def pack_window(du8: np.ndarray, meta: np.ndarray,
     meta[:n, M_CONN] = cols[:, 1]
     meta[:n, M_REQID] = cols[:, 2]
     meta[:n, M_LEN] = lens
+    if gen is not None:
+        meta[:n, M_GEN] = gen
     if int(lens.sum()):
         src = np.frombuffer(b"".join(payloads), np.uint8)
         row = du8.shape[1]
         pos = (np.repeat(np.arange(n, dtype=np.int64) * row, lens)
                + ragged_arange(lens))
         du8.reshape(-1)[pos] = src
-    return n
 
 
 class ReplayBatch:
@@ -140,12 +188,50 @@ def decode_batch(wm: np.ndarray, wd: np.ndarray, n: int,
     """Decode the first ``n`` fetched entries of a window into a
     :class:`ReplayBatch` of its CLIENT entries (CONNECT/SEND/CLOSE);
     None when there are none. ``rebase`` is added to ``M_GIDX`` so the
-    batch carries absolute log indices."""
+    batch carries absolute log indices, by either plane."""
     if n <= 0:
         return None
+    if VECTORIZED:
+        return _decode_vec(wm, wd, n, rebase)
+    return _decode_scalar(wm, wd, n, rebase)
+
+
+def _client_rows(wm, n):
     types = wm[:n, M_TYPE]
-    idxs = np.nonzero((types >= int(EntryType.CONNECT))
-                      & (types <= int(EntryType.CLOSE)))[0]
+    client = ((types >= int(EntryType.CONNECT))
+              & (types <= int(EntryType.CLOSE)))
+    return types, np.nonzero(client)[0]
+
+
+def _decode_scalar(wm, wd, n, rebase=0) -> Optional[ReplayBatch]:
+    """Per-entry reference decode: one bytes slice per entry, joined."""
+    _types, idxs = _client_rows(wm, n)
+    if not idxs.size:
+        return None
+    raw = np.ascontiguousarray(wd[:n]).view(np.uint8).reshape(n, -1)
+    row = raw.shape[1]
+    buf = raw.tobytes()
+    parts, lens = [], []
+    for j in idxs:
+        ln = min(int(wm[j, M_LEN]), row)
+        o = int(j) * row
+        parts.append(buf[o:o + ln])
+        lens.append(ln)
+    lens_a = np.asarray(lens, np.int64)
+    offs = np.zeros(len(idxs) + 1, np.int64)
+    np.cumsum(lens_a, out=offs[1:])
+    return ReplayBatch(
+        wm[idxs, M_TYPE].astype(np.int32),
+        wm[idxs, M_CONN].astype(np.int32),
+        wm[idxs, M_REQID].astype(np.int32),
+        wm[idxs, M_GEN].astype(np.int32),
+        lens_a, b"".join(parts), offs,
+        wm[idxs, M_TERM].astype(np.int64),
+        wm[idxs, M_GIDX].astype(np.int64) + int(rebase))
+
+
+def _decode_vec(wm, wd, n, rebase=0) -> Optional[ReplayBatch]:
+    _types, idxs = _client_rows(wm, n)
     if not idxs.size:
         return None
     raw = np.ascontiguousarray(wd[:n]).view(np.uint8).reshape(n, -1)
@@ -278,7 +364,40 @@ def replay_plan(seg, own_mask: np.ndarray, want_ops: bool = True
         own_idx = np.flatnonzero(own_mask)
         return (int(seg.reqs[own_idx[-1]]) if own_idx.size else -1,
                 [])
-    return _plan_vec(seg, own_mask)
+    if VECTORIZED:
+        return _plan_vec(seg, own_mask)
+    return _plan_scalar(seg, own_mask)
+
+
+def _plan_scalar(seg, own_mask):
+    """The per-entry release loop, as a pure plan: the bit-identity
+    reference."""
+    own_max = -1
+    ops: list = []
+    run_conn = -1
+    run_parts: list = []
+
+    def flush():
+        nonlocal run_conn, run_parts
+        if run_conn >= 0 and run_parts:
+            ops.append((int(EntryType.SEND), run_conn,
+                        b"".join(run_parts)))
+        run_conn, run_parts = -1, []
+
+    for i, (etype, conn, req, payload) in enumerate(seg.tuples()):
+        if not own_mask[i]:
+            if etype == int(EntryType.SEND):
+                if conn != run_conn:
+                    flush()
+                    run_conn = conn
+                run_parts.append(payload)
+            else:
+                flush()
+                ops.append((etype, conn, payload))
+        else:
+            own_max = req
+    flush()
+    return own_max, ops
 
 
 def _plan_vec(seg, own_mask):
@@ -339,3 +458,10 @@ def plan_segment(seg, own_of, want_ops: bool = True
     own = own_of(batch.conns, batch.gens)
     own_max, ops = replay_plan(batch, own, want_ops)
     return own_max, ops, int(n - own.sum())
+
+
+__all__ = [
+    "LazyReplayStream", "ReplayBatch", "VECTORIZED", "decode_batch",
+    "extend_stream", "frames_from_cols", "pack_window", "plan_segment",
+    "ragged_arange", "replay_plan", "set_vectorized", "stream_copy",
+]

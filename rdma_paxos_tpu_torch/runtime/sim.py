@@ -99,6 +99,26 @@ def cap_tiers(k_tiers: Sequence[int],
         or tuple(k_tiers[:1])
 
 
+# Built device functions shared across engines, keyed like the JAX
+# package's ``STEP_CACHE``. The port compiles nothing and each engine binds
+# its own step functions, so the only entries are the re-digest passes of
+# :func:`redigest_fn`: the dict spares rebuilding their closures.
+STEP_CACHE: Dict[tuple, object] = {}
+
+
+def redigest_fn(cfg: LogConfig, window_slots: int):
+    """The range re-digest pass (``consensus/step.py:build_redigest``),
+    built once per ``(cfg, window_slots)``. Its key carries a distinct
+    ``"redigest"`` marker, and only :func:`run_redigest` builds one, so a
+    repair-off cluster adds no key."""
+    key = (cfg, "redigest", int(window_slots))
+    fn = STEP_CACHE.get(key)
+    if fn is None:
+        fn = STEP_CACHE[key] = build_redigest(
+            cfg, window_slots=window_slots)
+    return fn
+
+
 def run_redigest(cluster, buf_row, lo: int, hi: int, *, group: int,
                  rebased_total: int, replica: int) -> int:
     """Digest the committed entries ``[lo, hi)`` (raw offsets) of one
@@ -117,7 +137,7 @@ def run_redigest(cluster, buf_row, lo: int, hi: int, *, group: int,
     if hi <= lo:
         return 0
     W = cluster._replay_W
-    fn = build_redigest(cluster.cfg, window_slots=W)
+    fn = redigest_fn(cluster.cfg, W)
     done = 0
     start = lo
     while start < hi:
@@ -273,6 +293,22 @@ def pack_rows(bufs: dict, idx: tuple, take: Sequence[Tuple],
     at ``idx`` (``(r,)`` or ``(k, r)``)."""
     hostpath.pack_window(bufs["data_u8"][idx], bufs["meta"][idx],
                          take, slot_bytes)
+
+
+def assemble_frames(types, conns, lens, raw, idxs) -> bytes:
+    """Store-ready framed blob ``([u32 len][u8 etype][u32 conn]
+    [payload])*`` of the client entries at ``idxs`` of a decoded window
+    (``raw``: its ``[n, slot_bytes]`` u8 rows; lengths clipped to the
+    slot width), built by ``hostpath.frames_from_cols`` over the
+    compacted payloads."""
+    row = raw.shape[1]
+    cl = np.minimum(lens[idxs].astype(np.int64), row)
+    keep = np.arange(row, dtype=np.int64) < cl[:, None]
+    blob = raw[idxs][keep].tobytes()
+    offs = np.zeros(idxs.size + 1, np.int64)
+    np.cumsum(cl, out=offs[1:])
+    return hostpath.frames_from_cols(types[idxs], conns[idxs], cl,
+                                     blob, offs)
 
 
 class SimCluster:

@@ -188,6 +188,44 @@ def test_group_step_on_the_card():
     assert crep == grep
 
 
+def test_scalar_host_plane_on_the_card():
+    """``SimCluster`` on the card with the scalar host data plane
+    (``set_vectorized(False)``): replay streams, frames and apply
+    cursors equal the vectorized plane's on the card and the CPU run's,
+    with one ``commit_window`` launch per protocol step."""
+    _need_card()
+    from rdma_paxos_tpu_torch.config import LogConfig
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from rdma_paxos_tpu_torch.runtime import hostpath
+    from rdma_paxos_tpu_torch.runtime.sim import SimCluster
+    cfg = LogConfig(n_slots=256, slot_bytes=64, window_slots=32,
+                    batch_slots=16)
+
+    def run(dev, vec):
+        prev = hostpath.set_vectorized(vec)
+        try:
+            c = SimCluster(cfg, 3, device=dev)
+            c.collect_frames = True
+            c.run_until_elected(0)
+            rng = np.random.default_rng(8)
+            before, steps = commit_window.launches, c.step_index
+            for i in range(10):
+                for _ in range(int(rng.integers(1, 24))):
+                    c.submit(0, bytes(rng.integers(
+                        0, 256, int(rng.integers(0, 65)), dtype=np.uint8)),
+                        conn=int(rng.integers(1, 5)))
+                (c.step_burst if i % 3 else c.step)()
+            return ([list(s) for s in c.replayed],
+                    [list(f) for f in c.frames], c.applied.tolist(),
+                    commit_window.launches - before, c.step_index - steps)
+        finally:
+            hostpath.set_vectorized(prev)
+    off, on, cpu = run("cuda", False), run("cuda", True), run("cpu", False)
+    assert off[:3] == on[:3] == cpu[:3]
+    assert off[3] == off[4] and on[3] == on[4]
+    assert sum(map(len, off[0])) > 0
+
+
 def test_vote_lane_on_the_card():
     """The ``txn=`` lane on the card: G = 4 groups with every group's
     watch armed on a committed entry (PREPARED), a wrong term
@@ -502,17 +540,15 @@ def test_host_world_on_the_card(tmp_path):
     import chip_smoke
     geom = dict(n_slots=256, slot_bytes=128, window_slots=32,
                 batch_slots=32, rebase_threshold=512)
-    fanouts = ("psum", "gather")
-    gpu = chip_smoke.run_host_world("cuda", geom, 24, fanouts, str(tmp_path),
-                                    "gpu")
-    cpu = chip_smoke.run_host_world("cpu", geom, 24, fanouts, str(tmp_path),
-                                    "cpu")
+    cases = [("s", geom, 24, f) for f in ("psum", "gather")]
+    gpu = chip_smoke.run_host_world("cuda", cases, str(tmp_path), "gpu")
+    cpu = chip_smoke.run_host_world("cpu", cases, str(tmp_path), "cpu")
     for (ga, gm, _), (ca, _cm, _) in zip(gpu, cpu):
         assert sorted(ga) == sorted(ca)
         for k in ga:
             np.testing.assert_array_equal(ga[k], ca[k], err_msg=k)
-        for f in fanouts:
-            assert gm[f]["launches"] == gm[f]["steps"] > 0
+        for f in ("psum", "gather"):
+            assert gm[f"s/{f}"]["launches"] == gm[f"s/{f}"]["steps"] > 0
 
 
 def test_profiler_capture_holds_commit_window_kernels(tmp_path):

@@ -124,6 +124,58 @@ def audited_sim(m, n=8, **ctl_kw):
 
 
 # ---------------------------------------------------------------------------
+# the re-digest pass: built once, keyed apart, backfill equal to JAX's
+# ---------------------------------------------------------------------------
+
+def test_redigest_fn_built_once_and_backfill_matches_jax(monkeypatch):
+    """``redigest_fn`` builds the pass once per ``(cfg, W)`` under a
+    ``"redigest"`` key; a repair-off cluster adds no key; the backfill
+    (count, ledger) equals the JAX package's."""
+    from rdma_paxos_tpu_torch.runtime import sim as tsim
+    geo = dict(n_slots=32, slot_bytes=64, window_slots=8, batch_slots=8)
+    built = []
+    build = tsim.build_redigest
+    monkeypatch.setattr(tsim, "build_redigest", lambda *a, **kw: (
+        built.append(kw["window_slots"]) or build(*a, **kw)))
+    before = set(tsim.STEP_CACHE)
+
+    def plain_run(m):
+        c = m["Sim"](m["Cfg"](**geo), 3, **m["kw"])
+        c.run_until_elected(0)
+        c.submit(0, b"z")
+        c.step()
+
+    def scenario(m):
+        plain_run(m)
+        if m is SIDES["t"]:
+            assert set(tsim.STEP_CACHE) == before     # repair-off: no key
+        c = m["Sim"](m["Cfg"](**geo), 3, audit=True, **m["kw"])
+        c.run_until_elected(0)
+        for i in range(6):
+            c.submit(0, b"r%d" % i)
+        for _ in range(4):
+            c.step()
+        commit = int(c.last["commit"].min())
+        n = [c.redigest(1, 0, commit), c.redigest(2, 1, commit)]
+        return dict(n=n, commit=commit, backfilled=c.auditor.backfilled,
+                    findings=list(c.auditor.findings),
+                    ledger=ledger_json(c.auditor))
+    try:
+        t = both(scenario)
+        assert t["n"] == [t["commit"], t["commit"] - 1] and not t["findings"]
+        added = set(tsim.STEP_CACHE) - before
+        assert [k[1:] for k in added] == [("redigest", built[0])], added
+        assert built == [built[0]]            # one build for both calls
+        key = next(iter(added))
+        assert tsim.redigest_fn(key[0], key[2]) is tsim.STEP_CACHE[key]
+        plain_run(SIDES["t"])
+        assert set(tsim.STEP_CACHE) - before == added and len(built) == 1
+    finally:
+        for k in set(tsim.STEP_CACHE) - before:
+            del tsim.STEP_CACHE[k]
+
+
+# ---------------------------------------------------------------------------
 # the full loop
 # ---------------------------------------------------------------------------
 

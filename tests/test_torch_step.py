@@ -3,8 +3,11 @@ JAX package's ``build_sim_step`` on seeded multi-step schedules —
 elections (full and stable programs), partitions and asymmetric links
 via ``peer_mask``, CONFIG entries, a wedged apply that forces pruning,
 both fan-outs. Every StepOutput field and the whole post-state are
-compared after every step, with exact equality."""
+compared after every step, with exact equality. ``group_step`` over
+``[G, R, ...]`` tensors against the JAX ``group_step`` under its
+``vmap``, with its variants off and on."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,15 +15,21 @@ import torch
 
 from rdma_paxos_tpu.config import LogConfig as JCfg
 from rdma_paxos_tpu.consensus.step import StepInput as JInput
+from rdma_paxos_tpu.consensus.step import group_step as j_group_step
 from rdma_paxos_tpu.parallel.mesh import (
-    build_sim_step as j_build_step, stack_states as j_stack)
+    build_sim_step as j_build_step, stack_group_states as j_stack_groups,
+    stack_states as j_stack)
 from rdma_paxos_tpu_torch.config import LogConfig
 from rdma_paxos_tpu_torch.consensus.log import EntryType, M_LEN, M_TYPE, META_W
 from rdma_paxos_tpu_torch.consensus.state import ConfigState, clone_state
 from rdma_paxos_tpu_torch.consensus.step import (
-    OUTPUT_FIELDS, VARIANT_FIELDS, StepInput, make_step_input, replica_step)
+    I32_MIN, OUTPUT_FIELDS, VARIANT_FIELDS, StepInput, group_step,
+    make_step_input, replica_step)
 from rdma_paxos_tpu_torch.convert import replica_state_to_numpy
-from rdma_paxos_tpu_torch.parallel.mesh import build_sim_step, stack_states
+from rdma_paxos_tpu_torch.consensus import step as step_mod
+from rdma_paxos_tpu_torch.parallel.mesh import (
+    build_sim_group_burst, build_sim_group_step, build_sim_step,
+    stack_group_states, stack_states)
 
 # tiny tensors: one intra-op thread per process keeps parallel test
 # workers from oversubscribing the cores
@@ -166,3 +175,141 @@ def test_unported_flags_raise():
     assert on.audit_digest.shape == (R, CFG.window_slots)
     assert on.telemetry.shape == (R, 8)
     assert on.txn_vote.tolist() == [0] * R         # no watch: TXN_NONE
+
+
+# ---------------------------------------------------------------------------
+# group_step: G groups of R replicas, [G, R, ...]
+# ---------------------------------------------------------------------------
+
+def _as_u32(x) -> np.ndarray:
+    """A u32 output (digests, counters) of either package as u32."""
+    a = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return a.view(np.uint32) if a.dtype == np.int32 else a.astype(np.uint32)
+
+
+def group_input(rng, G, R, commit, applied, epochs, txn, term):
+    """Each group's :func:`random_input`, stacked ``[G, R, ...]``; with
+    ``txn`` a watch per group (at, below or past its commit, sometimes
+    none) under the group's newest term ``term [G]`` or a wrong one,
+    repeated over its replicas."""
+    per = [random_input(rng, R, "gather", commit[g], applied[g], set(),
+                        epochs[g]) for g in range(G)]
+    inp = {k: np.stack([p[k] for p in per]) for k in INPUT_FIELDS}
+    if txn:
+        watch = np.where(rng.random(G) < 0.2, -1,
+                         commit.max(1) + rng.integers(-4, 3, G))
+        inp["txn_watch"] = np.repeat(watch[:, None], R, 1).astype(np.int32)
+        wrong = rng.random(G) < 0.4
+        inp["txn_term"] = np.repeat(
+            np.where(wrong, term + 1, term)[:, None], R, 1).astype(np.int32)
+    return inp
+
+
+@pytest.mark.parametrize("G", [2, 3])
+@pytest.mark.parametrize("variants", [False, True])
+def test_group_step_matches_jax(G, variants, monkeypatch):
+    """``group_step`` against the JAX ``group_step`` (both vmaps, jitted)
+    on the same numpy-made state and inputs: the full and the stable
+    program, with ``audit``, ``telemetry`` and ``txn`` all off or all
+    on; every output and the whole ``[G, R, ...]`` state equal after
+    every step, and one ``commit_window`` call per step over N = G·R."""
+    R = 3
+    flags = dict(audit=variants, telemetry=variants, txn=variants)
+    rng = np.random.default_rng(20 + G + 10 * variants)
+    jsteps = {e: jax.jit(j_group_step(cfg=JCFG, n_replicas=R,
+                                      elections=e, **flags))
+              for e in (True, False)}
+    tsteps = {e: group_step(cfg=CFG, n_replicas=R, elections=e, **flags)
+              for e in (True, False)}
+    jst = j_stack_groups(JCFG, G, R, R)
+    tst = stack_group_states(CFG, G, R, R, device="cpu")
+    commit = np.zeros((G, R), np.int64)
+    applied = np.zeros((G, R), np.int64)
+    epochs = [[0] for _ in range(G)]
+    names = INPUT_FIELDS + (("txn_watch", "txn_term") if variants else ())
+    calls, votes = [], set()
+    window = step_mod.commit_window
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[0])              # N instances
+        return window(*args, **kw)
+    monkeypatch.setattr(step_mod, "commit_window", counted)
+    term = np.zeros(G, np.int64)
+    for step in range(20):
+        inp = group_input(rng, G, R, commit, applied, epochs, variants,
+                          term)
+        if step == 0:
+            inp["timeout_fired"][:] = 0
+            inp["timeout_fired"][:, step % R] = 1
+        elections = bool(inp["timeout_fired"].any()) or rng.random() < 0.3
+        jin = JInput(**{k: jnp.asarray(inp[k]) for k in names})
+        tin = StepInput(**{k: torch.from_numpy(inp[k]) for k in names})
+        jst, jout = jsteps[elections](jst, jin)
+        tst, tout = tsteps[elections](tst, tin)
+        tag = f"G={G} step {step} el={elections}"
+        assert_same(jst, jout, tst, tout, tag)
+        for k in VARIANT_FIELDS:
+            jv, tv = getattr(jout, k), getattr(tout, k)
+            assert (jv is None) == (tv is None) == (not variants), (tag, k)
+            if tv is not None:
+                same = (_as_u32(tv), _as_u32(jv)) if k in (
+                    "audit_digest", "telemetry") else (tv.numpy(),
+                                                       np.asarray(jv))
+                np.testing.assert_array_equal(*same, err_msg=f"{tag}: {k}")
+        assert tout.term.shape == (G, R)
+        if variants:
+            votes |= set(tout.txn_vote.flatten().tolist())
+        commit = tout.commit.numpy().astype(np.int64)
+        term = tout.term.numpy().max(1)
+    assert calls == [G * R] * 20
+    assert commit.max() >= 2 * CFG.window_slots, "schedule never committed"
+    if variants:                 # NONE, PENDING, PREPARED and CONFLICT
+        assert votes == {0, 1, 2, 3}, votes
+
+
+def test_group_builders_run_group_step():
+    """``build_sim_group_step`` is ``group_step`` (equal results on one
+    stacked state), its burst repeats the stable ``group_step``, and a
+    state without its group axis is refused."""
+    R, G = 3, 2
+    rng = np.random.default_rng(5)
+    a = stack_group_states(CFG, G, R, R, device="cpu")
+    inp = make_step_input(CFG, R, device="cpu")
+    tin = StepInput(**{k: getattr(inp, k).expand(
+        (G,) + tuple(getattr(inp, k).shape)).clone() for k in INPUT_FIELDS})
+    tin.timeout_fired[:, 0] = 1
+    b = clone_state(a)
+    a, oa = group_step(cfg=CFG, n_replicas=R)(a, tin)
+    b, ob = build_sim_group_step(CFG, R)(b, tin)
+    for k in OUTPUT_FIELDS:
+        assert torch.equal(getattr(oa, k), getattr(ob, k)), k
+    assert oa.role.tolist() == [[3, 1, 1]] * G      # 0 leads each group
+    K = 2
+    datas = torch.from_numpy(rng.integers(
+        -9, 9, (K, G, R, CFG.batch_slots, CFG.slot_words)).astype(np.int32))
+    metas = torch.zeros((K, G, R, CFG.batch_slots, META_W), dtype=torch.int32)
+    metas[..., M_TYPE] = int(EntryType.SEND)
+    counts = torch.zeros((K, G, R), dtype=torch.int32)
+    counts[:, :, 0] = CFG.batch_slots
+    zeros = torch.zeros((G, R), dtype=torch.int32)
+    c = clone_state(a)
+    a, outs = build_sim_group_burst(CFG, R)(
+        a, datas, metas, counts, tin.peer_mask, zeros, zeros)
+    stable = group_step(cfg=CFG, n_replicas=R, elections=False)
+    for k in range(K):
+        c, ok = stable(c, StepInput(
+            batch_data=datas[k], batch_meta=metas[k], batch_count=counts[k],
+            timeout_fired=zeros, peer_mask=tin.peer_mask, apply_done=zeros,
+            queue_depth=zeros))
+        for f in OUTPUT_FIELDS:
+            assert torch.equal(getattr(outs, f)[k], getattr(ok, f)), (k, f)
+    sa, sc = replica_state_to_numpy(a), replica_state_to_numpy(c)
+    for k in sa:
+        np.testing.assert_array_equal(sa[k], sc[k], err_msg=k)
+    with pytest.raises(ValueError, match="group_step takes"):
+        group_step(cfg=CFG, n_replicas=R)(
+            stack_states(CFG, R, R, device="cpu"),
+            make_step_input(CFG, R, device="cpu"))
+    with pytest.raises(ValueError, match="fanout"):
+        group_step(cfg=CFG, n_replicas=R, fanout="ring")
+    assert I32_MIN == int(np.iinfo(np.int32).min)
