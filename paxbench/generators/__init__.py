@@ -1,0 +1,47 @@
+"""Traffic generators, one module per ``kind`` of traffic file. Each has
+``make(traffic, seed) -> Pool``: every request's bytes made from the
+seed before the window opens."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Pool:
+    """Pre-made requests, handed out in order (wrapping past the end):
+    ``payloads[k]`` is request k's bytes."""
+
+    payloads: List[bytes]
+
+    def __len__(self) -> int:
+        return len(self.payloads)
+
+
+def rng_for(seed: int, stream: int) -> np.random.Generator:
+    """An independent generator per (seed, stream); any whole seed."""
+    return np.random.default_rng([int(seed) & (2 ** 64 - 1), stream])
+
+
+def split_rows(mat: np.ndarray, lens: np.ndarray) -> List[bytes]:
+    """Rows of a padded ``[n, width]`` u8 matrix, each cut to its length,
+    as bytes objects (one join, then slices)."""
+    keep = np.arange(mat.shape[1]) < lens[:, None]
+    blob = mat[keep].tobytes()
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    o = offs.tolist()
+    return [blob[o[i]:o[i + 1]] for i in range(len(lens))]
+
+
+def decimal_digits(values: np.ndarray, width: int) -> np.ndarray:
+    """``[n, width]`` ASCII digits of non-negative ints, zero-padded."""
+    v = values.astype(np.uint64)
+    out = np.empty((len(v), width), np.uint8)
+    for j in range(width - 1, -1, -1):
+        out[:, j] = (v % np.uint64(10)).astype(np.uint8) + ord("0")
+        v //= np.uint64(10)
+    return out
