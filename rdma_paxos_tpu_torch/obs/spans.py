@@ -542,33 +542,49 @@ class StepPhaseProfiler:
         self.fence = fence
         self.replica = replica
         self.acc: Dict[str, Tuple[int, float, float]] = {}
-        self._open: Dict[str, int] = {}
+        # open stamps per (thread, phase): the driver's dispatch and
+        # readback threads run the same phase at once
+        self._open: Dict[Tuple[int, str], int] = {}
+        # guards acc, events and events_dropped across threads; an
+        # RLock, since a collection can start inside the locked update
+        # and a gc.callbacks hook stop a phase on the same thread
+        self._lock = threading.RLock()
         # opt-in timestamped phase slices (enable_events): the
         # host-phase TRACK of the merged device timeline
         # (obs.device.merge_timeline) — histograms alone cannot place
         # a phase on a wall-clock axis
         self.events: Optional[collections.deque] = None
+        self.events_dropped = 0          # slices the full ring pushed out
 
     def enable_events(self, capacity: int = 65536) -> None:
         """Record ``(phase, t0_monotonic, t1_monotonic)`` triples in a
         bounded ring alongside the histograms (off by default — one
-        extra clock read per stop)."""
-        self.events = collections.deque(maxlen=capacity)
+        extra clock read per stop). A full ring drops its oldest slice
+        and counts it in ``events_dropped``."""
+        with self._lock:
+            self.events = collections.deque(maxlen=capacity)
+            self.events_dropped = 0
 
     def start(self, phase: str) -> None:
-        self._open[phase] = time.perf_counter_ns()
+        self._open[(threading.get_ident(), phase)] = time.perf_counter_ns()
 
-    def stop(self, phase: str) -> None:
-        t0 = self._open.pop(phase, None)
+    def stop(self, phase: str, observe: bool = True) -> None:
+        """Close ``phase`` on the calling thread; ``observe=False``
+        keeps it out of the ``step_phase_us`` histogram."""
+        t0 = self._open.pop((threading.get_ident(), phase), None)
         if t0 is None:
             return
         us = (time.perf_counter_ns() - t0) / 1e3
-        n, tot, mx = self.acc.get(phase, (0, 0.0, 0.0))
-        self.acc[phase] = (n + 1, tot + us, max(mx, us))
-        if self.events is not None:
-            t1m = time.monotonic()
-            self.events.append((phase, t1m - us / 1e6, t1m))
-        if self.metrics is not None:
+        with self._lock:
+            n, tot, mx = self.acc.get(phase, (0, 0.0, 0.0))
+            self.acc[phase] = (n + 1, tot + us, max(mx, us))
+            ev = self.events
+            if ev is not None:
+                if len(ev) == ev.maxlen:
+                    self.events_dropped += 1
+                t1m = time.monotonic()
+                ev.append((phase, t1m - us / 1e6, t1m))
+        if observe and self.metrics is not None:
             self.metrics.observe("step_phase_us", us,
                                  buckets=self.BUCKETS_US, phase=phase,
                                  replica=self.replica)

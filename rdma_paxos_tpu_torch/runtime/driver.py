@@ -84,6 +84,7 @@ Differences from the JAX driver, each failing loudly:
 from __future__ import annotations
 
 import collections
+import gc
 import os
 import queue as _queue
 import shutil
@@ -118,11 +119,27 @@ from rdma_paxos_tpu_torch.proxy.stablestore import (
 from rdma_paxos_tpu_torch.runtime.hostpath import plan_segment
 from rdma_paxos_tpu_torch.runtime.sim import SimCluster, require_drained
 from rdma_paxos_tpu_torch.runtime.timers import ElectionTimer
-from rdma_paxos_tpu_torch.utils.debug import ReplicaLog, StepTimer
+from rdma_paxos_tpu_torch.utils.debug import ReplicaLog
 from rdma_paxos_tpu_torch.utils.codec import fragment
 
 # the origin replica lives in the conn id's bits 24+ (ProxyServer)
 CONN_ORIGIN_SHIFT = 24
+
+# StepPhaseProfiler phases of the driver's two threads beyond the
+# engine's (obs/spans.py, and runtime/sim.py's finish_rules), so that
+# every moment of both is named. Only intake_lock_wait and store_sync
+# nest (in submit_pump, ack_release and apply_replay_ack); gc overlaps
+# whatever its thread was doing.
+PHASE_PIPELINE_WAIT = "pipeline_wait"    # dispatch: tickets in flight
+PHASE_SUBMIT_PUMP = "submit_pump"        # dispatch: intake -> pending
+PHASE_INTAKE_LOCK_WAIT = "intake_lock_wait"  # acquiring the intake lock
+PHASE_IDLE_PARK = "idle_park"            # dispatch: parked, no work
+PHASE_READBACK_IDLE = "readback_idle"    # readback: waiting for a ticket
+PHASE_POST_STEP_RULES = "post_step_rules"  # _post_step's host rules
+PHASE_CADENCE = "cadence"                # alerts, series, health files
+PHASE_STORE_SYNC = "store_sync"          # the stable store's fdatasync
+PHASE_GC = "gc"                          # one collection (gc.callbacks)
+
 
 def conn_origin(conn_id):
     """Origin replica/host encoded in a connection id (scalar
@@ -215,7 +232,6 @@ class ClusterDriver:
         # driver (isolated by default — pass a shared facade to
         # aggregate across drivers). All of it is host-side.
         self.obs = obs if obs is not None else Observability()
-        self._timer_obs = StepTimer(metrics=self.obs.metrics)
         # step-phase wall-time attribution. fence keeps its default
         # (False) in production: fencing waits for the card right after
         # dispatch so device time lands in its own device_sync
@@ -649,7 +665,11 @@ class ClusterDriver:
         locked extend per replica. Holds the engine's host lock too:
         the pipelined readback thread requeues ring-full shortfalls
         into the same lists concurrently."""
+        prof = self._phase_prof
+        prof.start(PHASE_SUBMIT_PUMP)
+        prof.start(PHASE_INTAKE_LOCK_WAIT)
         with self._lock, self.cluster._host_lock:
+            prof.stop(PHASE_INTAKE_LOCK_WAIT)
             for r in range(self.R):
                 q = self._submitq[r]
                 if q:
@@ -657,6 +677,7 @@ class ClusterDriver:
                         r, [(etype, conn, seq, frag)
                             for etype, conn, frag, seq in q])
                     q.clear()
+        prof.stop(PHASE_SUBMIT_PUMP)
 
     def step(self) -> Dict:
         """One host-loop iteration (public for deterministic tests).
@@ -699,10 +720,8 @@ class ClusterDriver:
                 and self._leader_view >= 0 and self.cluster.last is not None
                 and self._backlog() and not self._txn_live()
                 and (dec is None or dec.max_k > 1)):
-            self._timer_obs.start("device_step")
             res = self.cluster.step_burst(
                 max_k=dec.max_k if dec is not None else None)
-            self._timer_obs.stop("device_step")
         else:
             timeouts = []
             last = self.cluster.last
@@ -726,9 +745,7 @@ class ClusterDriver:
                         rt.fired_leader = (int(last["leader_id"][r])
                                            if last is not None else -1)
                         rt.fired_countdown = 50
-            self._timer_obs.start("device_step")
             res = self.cluster.step(timeouts=timeouts)
-            self._timer_obs.stop("device_step")
         return self._post_step(res)
 
     def _backlog(self) -> int:
@@ -750,7 +767,11 @@ class ClusterDriver:
         view, durable election state, timer beats, store/replay/ack
         release, detectors and observability export. Serial ``step()``
         runs it inline; the pipelined loop runs it on the READBACK
-        thread."""
+        thread. Timed as ``post_step_rules``, apart from the store,
+        replay and ack release (``apply_replay_ack``) and the cadenced
+        observability (``cadence``)."""
+        prof = self._phase_prof
+        prof.start(PHASE_POST_STEP_RULES)
         self._update_leader_view(res)
 
         for r, rt in enumerate(self.runtimes):
@@ -770,7 +791,9 @@ class ClusterDriver:
                     # timeout -> widen adaptively (to_adjust_cb analog)
                     rt.timer.false_positive()
                     rt.fired_countdown = 0
+            prof.stop(PHASE_POST_STEP_RULES)
             self._apply_new_entries(r, rt)
+            prof.start(PHASE_POST_STEP_RULES)
             if res["role"][r] != int(Role.LEADER):
                 with self._lock:
                     # lost leadership with blocked app threads: fail them
@@ -823,6 +846,8 @@ class ClusterDriver:
                     rt.log.info_wtime("AUTO-RECOVERY FAILED: %s" % exc)
                 self.cluster.need_recovery.discard(r)
         self._observe_step(res)
+        prof.stop(PHASE_POST_STEP_RULES)
+        self._cadence_observe()
         return res
 
     # ------------------------------------------------------------------
@@ -863,14 +888,14 @@ class ClusterDriver:
                                       delta=delta)
         # cluster-level leader view (the leaderless alert's input)
         m.set("cluster_leader", self._leader_view)
-        self._cadence_observe()
 
     def _cadence_observe(self) -> None:
         """The wall-cadenced observability work (alert evaluation and
         series sampling, profiler expiry, health files), shared by the
         per-step observe pass and the idle-quiescence branch, so a
         parked poll loop keeps its alerts and health files fresh while
-        skipping dispatches."""
+        skipping dispatches. Timed as ``cadence``."""
+        self._phase_prof.start(PHASE_CADENCE)
         now = time.monotonic()
         if now - self._alert_last >= self._alert_period:
             self._alert_last = now
@@ -889,6 +914,7 @@ class ClusterDriver:
                 # vanished workdir or a full disk costs the snapshot,
                 # not the poll loop
                 pass
+        self._phase_prof.stop(PHASE_CADENCE)
 
     def _health_snapshots(self, res) -> Dict[int, Dict]:
         """Per-replica health dicts (the obs.health schema plus store /
@@ -1553,7 +1579,9 @@ class ClusterDriver:
             # OS-buffered store write
             now = time.monotonic()
             if now - rt.last_sync > self.sync_period:
+                self._phase_prof.start(PHASE_STORE_SYNC)
                 rt.store.sync()
+                self._phase_prof.stop(PHASE_STORE_SYNC)
                 rt.last_sync = now
         if replaying and n_replayed:
             self.obs.metrics.inc("replayed_entries_total",
@@ -1564,7 +1592,9 @@ class ClusterDriver:
             # commits are matched exactly even across leadership churn
             self._phase_prof.start("ack_release")
             releases = []
+            self._phase_prof.start(PHASE_INTAKE_LOCK_WAIT)
             with self._lock:
+                self._phase_prof.stop(PHASE_INTAKE_LOCK_WAIT)
                 while rt.inflight and rt.inflight[0][1] <= own_max:
                     ev, seq = rt.inflight.popleft()
                     releases.append((ev, seq))
@@ -1771,7 +1801,9 @@ class ClusterDriver:
         wait = min(self._idle_backoff, self._idle_margin() / 2)
         self._idle_backoff = min(self._idle_backoff * 2,
                                  self._idle_backoff_max)
+        self._phase_prof.start(PHASE_IDLE_PARK)
         self._wake.wait(timeout=max(wait, 0.0005))
+        self._phase_prof.stop(PHASE_IDLE_PARK)
         self._wake.clear()
 
     def _drain_pipeline(self) -> bool:
@@ -1793,8 +1825,11 @@ class ClusterDriver:
         dispatch (FIFO) order and run every post-step host rule —
         including observability export — OFF the dispatch path."""
         self._bind_device()
+        prof = self._phase_prof
         while True:
+            prof.start(PHASE_READBACK_IDLE)
             ticket = self._pl_queue.get()
+            prof.stop(PHASE_READBACK_IDLE)
             if ticket is None:
                 return
             try:
@@ -1811,6 +1846,7 @@ class ClusterDriver:
                 self._pl_cv.notify_all()
 
     def _dispatch_loop(self, period: float) -> None:
+        prof = self._phase_prof
         while not self._stop.is_set():
             if self.loop_error is not None:
                 return
@@ -1819,7 +1855,10 @@ class ClusterDriver:
                 # rebase / idle heartbeat): drain first — the engine's
                 # FIFO finish contract forbids a fused step() while
                 # tickets are in flight
-                if not self._drain_pipeline():
+                prof.start(PHASE_PIPELINE_WAIT)
+                drained = self._drain_pipeline()
+                prof.stop(PHASE_PIPELINE_WAIT)
+                if not drained:
                     return
                 if self._stop.is_set():
                     return
@@ -1836,13 +1875,17 @@ class ClusterDriver:
                     self._handle_loop_crash(exc)
                     return
                 if not self._busy() and period:
+                    prof.start(PHASE_IDLE_PARK)
                     self._wake.wait(timeout=period)
+                    prof.stop(PHASE_IDLE_PARK)
                 self._wake.clear()
                 continue
             # ---- pipelined fast path: encode + dispatch only ----
             with self._pl_cv:
                 if self._pl_pending >= self.pipeline:
+                    prof.start(PHASE_PIPELINE_WAIT)
                     self._pl_cv.wait(timeout=0.05)
+                    prof.stop(PHASE_PIPELINE_WAIT)
                     continue
             self._pump_submitq()
             dec = (self.governor.decision if self.governor is not None
@@ -1858,7 +1901,6 @@ class ClusterDriver:
                     buckets=LATENCY_BUCKETS_US)
                 self._pump_submitq()
             try:
-                self._timer_obs.start("device_step")
                 # dec.max_k can flip to 1 (SLO shed) between
                 # _pipeline_ready and here: honor it with a no-take
                 # heartbeat dispatch, never a burst; the next iteration
@@ -1873,7 +1915,6 @@ class ClusterDriver:
                     # bursts only, so shortfall requeues cannot reorder
                     # against in-flight dispatches)
                     ticket = self.cluster.begin_step(take_batch=False)
-                self._timer_obs.stop("device_step")
             except Exception as exc:  # noqa: BLE001
                 self._handle_loop_crash(exc)
                 return
@@ -1892,8 +1933,12 @@ class ClusterDriver:
         path runs DOUBLE-BUFFERED: the dispatch thread encodes and
         enqueues batch k+1 while batch k is still on the card, and the
         readback thread waits for outputs and runs the post-step host
-        rules. ``pipeline=0`` (or 1) keeps the fully serial loop."""
+        rules. ``pipeline=0`` (or 1) keeps the fully serial loop.
+        While it runs, each collection of the cyclic garbage collector
+        is timed as the ``gc`` phase."""
         self._pl_pending = 0
+        if self._on_gc not in gc.callbacks:
+            gc.callbacks.append(self._on_gc)
         self._rb_thread = threading.Thread(target=self._readback_loop,
                                            daemon=True)
         self._rb_thread.start()
@@ -1906,6 +1951,17 @@ class ClusterDriver:
                 self._pl_queue.put(None)     # retire the readback side
         self._thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()
+
+    def _on_gc(self, phase: str, _info) -> None:
+        """``gc.callbacks`` hook: one collection, on whichever thread
+        ran it, as the ``gc`` phase — two clock reads and an ``acc``
+        update (and a ring slice while events are on), never a
+        histogram observation: young collections come by the
+        thousand a second."""
+        if phase == "start":
+            self._phase_prof.start(PHASE_GC)
+        else:
+            self._phase_prof.stop(PHASE_GC, observe=False)
 
     def prewarm(self) -> None:
         """Build and load the CUDA kernels, allocate every staging tier
@@ -1923,6 +1979,8 @@ class ClusterDriver:
         # teardown — the second call must not touch closed native handles
         if getattr(self, "_stopped", False):
             return
+        if self._on_gc in gc.callbacks:
+            gc.callbacks.remove(self._on_gc)
         self._stop.set()
         self._wake.set()
         # the ops exporter and series log are independent of the poll

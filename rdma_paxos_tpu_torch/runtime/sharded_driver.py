@@ -69,7 +69,9 @@ from rdma_paxos_tpu_torch.obs.health import (
 from rdma_paxos_tpu_torch.obs.spans import span_trace_id
 from rdma_paxos_tpu_torch.obs.tracectx import health_blame as _health_blame
 from rdma_paxos_tpu_torch.proxy.proxy import PendingEvent
-from rdma_paxos_tpu_torch.runtime.driver import ClusterDriver, conn_origin
+from rdma_paxos_tpu_torch.runtime.driver import (
+    PHASE_INTAKE_LOCK_WAIT, PHASE_POST_STEP_RULES, PHASE_STORE_SYNC,
+    PHASE_SUBMIT_PUMP, ClusterDriver, conn_origin)
 from rdma_paxos_tpu_torch.runtime.hostpath import plan_segment
 from rdma_paxos_tpu_torch.runtime.timers import GroupStepTimer
 from rdma_paxos_tpu_torch.shard.cluster import ShardedCluster
@@ -295,7 +297,11 @@ class ShardedClusterDriver(ClusterDriver):
         of a group whose leadership vanished since enqueue land on a
         non-leader and are dropped by design (the leadership-change
         sweep fails their waiters)."""
+        prof = self._phase_prof
+        prof.start(PHASE_SUBMIT_PUMP)
+        prof.start(PHASE_INTAKE_LOCK_WAIT)
         with self._lock, self.cluster._host_lock:
+            prof.stop(PHASE_INTAKE_LOCK_WAIT)
             views = self._group_views
             for r in range(self.R):
                 if not self._submitq[r]:
@@ -307,6 +313,7 @@ class ShardedClusterDriver(ClusterDriver):
                     q = views[g] if views[g] >= 0 else 0
                     self.cluster.submit_many(g, q, rows)
                 self._submitq[r].clear()
+        prof.stop(PHASE_SUBMIT_PUMP)
 
     # ------------------------------------------------------------------
     # stepping
@@ -375,14 +382,10 @@ class ShardedClusterDriver(ClusterDriver):
                 and all(v >= 0 for v in self._group_views)
                 and self._backlog() and not self._txn_live()
                 and (dec is None or dec.max_k > 1)):
-            self._timer_obs.start("device_step")
             res = c.step_burst(max_k=dec.max_k if dec is not None
                                else None)
-            self._timer_obs.stop("device_step")
         else:
-            self._timer_obs.start("device_step")
             res = c.step(timeouts=timeouts)
-            self._timer_obs.stop("device_step")
         return self._post_step(res)
 
     def _pipeline_ready(self) -> bool:
@@ -495,6 +498,8 @@ class ShardedClusterDriver(ClusterDriver):
                                   replica=rt.idx, count=n, site=site)
 
     def _post_step(self, res) -> Dict:
+        prof = self._phase_prof
+        prof.start(PHASE_POST_STEP_RULES)
         self._update_leader_view(res)
         for g in range(self.G):
             if self._group_views[g] >= 0:
@@ -506,6 +511,8 @@ class ShardedClusterDriver(ClusterDriver):
         if self.repair is not None:
             self.repair.observe()
         self._observe_step(res)
+        prof.stop(PHASE_POST_STEP_RULES)
+        self._cadence_observe()
         return res
 
     # ------------------------------------------------------------------
@@ -522,6 +529,9 @@ class ShardedClusterDriver(ClusterDriver):
         def own_of(conns, _gens):
             return conn_origin(conns) == r
 
+        # post_step_rules (opened by _post_step) pauses for the
+        # apply_replay_ack phase and times the drain, sync and release
+        self._phase_prof.stop(PHASE_POST_STEP_RULES)
         self._phase_prof.start("apply_replay_ack")
         for g in range(self.G):
             stream = c.replayed[g][r]
@@ -548,7 +558,9 @@ class ShardedClusterDriver(ClusterDriver):
                         rt.replay.apply(etype, conn, payload)
             if own_max >= 0:
                 self._phase_prof.start("ack_release")
+                self._phase_prof.start(PHASE_INTAKE_LOCK_WAIT)
                 with self._lock:
+                    self._phase_prof.stop(PHASE_INTAKE_LOCK_WAIT)
                     dq = self._inflight_g[r][g]
                     while dq and dq[0][1] <= own_max:
                         releases.append(dq.popleft())
@@ -557,12 +569,15 @@ class ShardedClusterDriver(ClusterDriver):
                                                own_max))
                 self._phase_prof.stop("ack_release")
         self._phase_prof.stop("apply_replay_ack")
+        self._phase_prof.start(PHASE_POST_STEP_RULES)
         if progressed and replaying:
             rt.replay.drain_responses()
         if progressed and rt.store is not None:
             now = time.monotonic()
             if now - rt.last_sync > self.sync_period:
+                self._phase_prof.start(PHASE_STORE_SYNC)
                 rt.store.sync()
+                self._phase_prof.stop(PHASE_STORE_SYNC)
                 rt.last_sync = now
         if releases:
             acked = {req: conn for conn, req in sampled}
@@ -588,7 +603,6 @@ class ShardedClusterDriver(ClusterDriver):
             m.set("inflight_waiters",
                   sum(len(dq) for dq in self._inflight_g[r]), replica=r)
         m.set("cluster_leader", self._leader_view)
-        self._cadence_observe()
 
     def _health_snapshots(self, res) -> Dict[int, Dict]:
         snaps = {}

@@ -189,6 +189,12 @@ def engine_device(device, n_entries: int, axes: str, build):
     return build(device)
 
 
+# the StepPhaseProfiler phase of finish()'s host rules outside
+# quorum_wait and apply (stamping, requeue, rebase, span frontiers,
+# leases, reads, governor, staging): opened and closed twice a finish
+PHASE_FINISH_RULES = "finish_rules"
+
+
 def _versions(state) -> tuple:
     return (state.log.buf._version,) + tuple(
         getattr(state, f.name)._version
@@ -913,6 +919,7 @@ class SimCluster:
         res, var = self._readback(ticket)
         if prof is not None:
             prof.stop("quorum_wait")
+            prof.start(PHASE_FINISH_RULES)
         fused = ticket.kind != "step"
         if self._audit:
             # ingest BEFORE _maybe_rebase: the windows carry raw
@@ -959,6 +966,7 @@ class SimCluster:
         for note in txn_notes:
             self.txn.note_appends(*note)
         if prof is not None:
+            prof.stop(PHASE_FINISH_RULES)
             prof.start("apply")
         self._replay_committed(
             res, scan_rows=((out["replay_data"], out["replay_meta"],
@@ -966,6 +974,7 @@ class SimCluster:
                             if ticket.kind == "scan" else None))
         if prof is not None:
             prof.stop("apply")
+            prof.start(PHASE_FINISH_RULES)
         if self._audit:
             self._record_flight(res, ticket.taken, ticket.timeouts,
                                 burst_k=ticket.K)
@@ -1001,6 +1010,8 @@ class SimCluster:
                      for r, t in enumerate(ticket.taken)
                      for k in range(-(-len(t) // B) if t else 0)]
         self._staging.release(ticket.bufs, dirty)
+        if prof is not None:
+            prof.stop(PHASE_FINISH_RULES)
         return res
 
     def drain(self) -> Optional[Dict[str, np.ndarray]]:

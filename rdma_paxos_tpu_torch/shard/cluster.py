@@ -77,9 +77,9 @@ from rdma_paxos_tpu_torch.parallel.mesh import (
     stack_group_states)
 from rdma_paxos_tpu_torch.runtime.hostpath import LazyReplayStream
 from rdma_paxos_tpu_torch.runtime.sim import (
-    SimCluster, StagingPool, StepTicket, clamp_burst_take,
-    decode_window, engine_device, pack_rows, rebase_delta_of,
-    require_drained, requeue_shortfall, run_redigest)
+    PHASE_FINISH_RULES, SimCluster, StagingPool, StepTicket,
+    clamp_burst_take, decode_window, engine_device, pack_rows,
+    rebase_delta_of, require_drained, requeue_shortfall, run_redigest)
 from rdma_paxos_tpu_torch.shard.router import KeyRouter
 
 TimeoutsLike = Union[None, Dict[int, Sequence[int]],
@@ -616,6 +616,7 @@ class ShardedCluster:
         res, var = self._readback(ticket)
         if prof is not None:
             prof.stop("quorum_wait")
+            prof.start(PHASE_FINISH_RULES)
         fused = ticket.kind != "step"
         if self._audit:
             # ingest BEFORE the rollover: raw offsets and each group's
@@ -664,6 +665,7 @@ class ShardedCluster:
             if self.topology is not None:
                 self.topology.note_appends(*note)
         if prof is not None:
+            prof.stop(PHASE_FINISH_RULES)
             prof.start("apply")
         self._replay_committed(
             res, scan_rows=((out["replay_data"], out["replay_meta"],
@@ -671,6 +673,7 @@ class ShardedCluster:
                             if ticket.kind == "scan" else None))
         if prof is not None:
             prof.stop("apply")
+            prof.start(PHASE_FINISH_RULES)
         if self._audit:
             self._record_flight(res, ticket.taken, ticket.timeouts,
                                 burst_k=ticket.K)
@@ -705,6 +708,8 @@ class ShardedCluster:
             dirty = [((g, r), len(ticket.taken[g][r]))
                      for g in range(G) for r in range(R)]
         self._staging.release(ticket.bufs, dirty)
+        if prof is not None:
+            prof.stop(PHASE_FINISH_RULES)
         return res
 
     def step(self, timeouts: TimeoutsLike = ()) -> Dict[str, np.ndarray]:
