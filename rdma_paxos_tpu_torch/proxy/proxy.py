@@ -5,7 +5,7 @@ SEND / CLOSE) is tagged with a cluster-wide connection id
 (``node_id << 8 | counter`` — proxy.c:101-106), queued for the driver to
 batch into the consensus step, and the shim's blocking ack is released only
 once the entry is committed + applied (the spin at proxy.c:160, here a
-``threading.Event``).
+``PendingEvent``'s callback or its ``threading.Event``).
 
 Follower side: committed events whose connection id originates at another
 node are replayed into the local unmodified app over loopback TCP
@@ -26,7 +26,6 @@ import struct
 import sys
 import threading
 import time
-from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 from rdma_paxos_tpu_torch.consensus.log import EntryType
@@ -65,49 +64,103 @@ _OP_TO_ETYPE = {
 }
 
 
-@dataclass
+# One lock for every commit waiter: it orders a waiter's release against
+# its callback's attach and the first ask for ``done``, whichever threads
+# they come from, without a lock object per request.
+_WAITER_LOCK = threading.Lock()
+
+
 class PendingEvent:
     """One shim event awaiting commit (the blocked app thread's handle).
 
-    Two completion surfaces: ``done`` (a threading.Event for in-process
-    waiters) and an optional ``on_done`` callback the ProxyServer
-    attaches to send the seq-tagged wire response — the pipelined-shim
-    contract, where the link thread never blocks on a commit."""
+    Two completion surfaces: an optional ``on_done`` callback the
+    ProxyServer attaches to send the seq-tagged wire response — the
+    pipelined-shim contract, where the link thread never blocks on a
+    commit — and ``done``, a threading.Event for in-process waiters.
 
+    A waiter is one slotted object. ``done`` is made only when a thread
+    first asks for it (already set if the release came first), so a
+    waiter seen only through ``attach`` allocates nothing more. The first
+    ``release`` wins; the callback runs exactly once, outside the lock,
+    with the released status, however ``attach``, ``release`` and the
+    first ``done`` interleave across threads."""
+
+    __slots__ = ("etype", "conn_id", "payload", "status", "on_done", "t0",
+                 "seq", "_released", "_event")
     etype: EntryType
     conn_id: int
     payload: bytes
-    done: threading.Event = field(default_factory=threading.Event)
-    status: int = 0
-    on_done: Optional[Callable[[int], None]] = None
-    _cb_lock: threading.Lock = field(default_factory=threading.Lock)
+    status: int
+    on_done: Optional[Callable[[int], None]]
     # creation timestamp (perf_counter): release-site instrumentation
     # measures intake→commit-release as the client-visible commit
     # latency (obs commit_latency_seconds histogram)
-    t0: float = field(default_factory=time.perf_counter)
+    t0: float
+    # the driver's submit sequence of the event's last fragment: the
+    # ack release matches commits on it
+    seq: int
 
-    def release(self, status: int = 0) -> None:
-        self.status = status
-        self.done.set()
-        self._fire()
+    def __init__(self, etype: EntryType, conn_id: int, payload: bytes,
+                 seq: int = 0):
+        self.etype = etype
+        self.conn_id = conn_id
+        self.payload = payload
+        self.status = 0
+        self.on_done = None
+        self.t0 = time.perf_counter()
+        self.seq = seq
+        self._released = False
+        self._event: Optional[threading.Event] = None
+
+    def __repr__(self) -> str:
+        return "PendingEvent(%s, conn=%d, seq=%d, %s)" % (
+            self.etype, self.conn_id, self.seq,
+            "status=%d" % self.status if self._released else "pending")
+
+    @property
+    def done(self) -> threading.Event:
+        ev = self._event
+        if ev is None:
+            with _WAITER_LOCK:
+                ev = self._event
+                if ev is None:
+                    ev = self._event = threading.Event()
+                    if self._released:
+                        ev.set()
+        return ev
+
+    def release(self, status: int = 0) -> bool:
+        """Complete the event with ``status`` (a later release is
+        ignored). Returns True when a thread had asked for ``done``, so
+        the release set an Event; False when only the callback sees it."""
+        with _WAITER_LOCK:
+            if self._released:
+                return False
+            self.status = status
+            self._released = True
+            cb, self.on_done = self.on_done, None
+            ev = self._event
+        if ev is not None:
+            ev.set()
+        if cb is not None:
+            _call(cb, status)
+        return ev is not None
 
     def attach(self, cb: Callable[[int], None]) -> None:
         """Attach the wire-response callback (fires immediately if the
         event already completed — release/attach may race)."""
-        with self._cb_lock:
-            self.on_done = cb
-        if self.done.is_set():
-            self._fire()
-
-    def _fire(self) -> None:
-        with self._cb_lock:
-            if not self.done.is_set() or self.on_done is None:
+        with _WAITER_LOCK:
+            if not self._released:
+                self.on_done = cb
                 return
-            cb, self.on_done = self.on_done, None
-        try:
-            cb(self.status)
-        except OSError:
-            pass                     # link died: the shim fell back
+        _call(cb, self.status)
+
+
+def _call(cb: Callable[[int], None], status: int) -> None:
+    try:
+        cb(status)
+    except OSError:
+        pass                         # link died: the shim fell back
 
 
 class ProxyServer:

@@ -173,8 +173,9 @@ class _ReplicaRuntime:
         # durable (term, voted_term, voted_for) — persisted every step the
         # pair changes (election safety across crashes)
         self.hard = HardState(store_path + ".hs") if store_path else None
-        # (event, last_fragment_seq) FIFO awaiting commit — every access
-        # must hold the driver lock (link threads append, poll thread pops)
+        # PendingEvent FIFO awaiting commit, each stamped with its last
+        # fragment's seq — every access must hold the driver lock (link
+        # threads append, poll thread pops)
         self.inflight: collections.deque = collections.deque()
         self.submit_seq = 0       # monotone per-fragment sequence; stamped
                                   # into the entry's req_id so ack release
@@ -607,12 +608,13 @@ class ClusterDriver:
         blocked app thread's PendingEvent (caller holds ``_lock``)."""
         frags = (fragment(payload, self.cfg.slot_bytes)
                  if etype == int(EntryType.SEND) else [payload])
-        ev = PendingEvent(EntryType(etype), conn_id, payload)
         for f in frags:
             rt.submit_seq += 1
             self._submitq[r].append((etype, conn_id, f,
                                      rt.submit_seq))
-        rt.inflight.append((ev, rt.submit_seq))
+        ev = PendingEvent(EntryType(etype), conn_id, payload,
+                          rt.submit_seq)
+        rt.inflight.append(ev)
         self.obs.metrics.inc("proxy_events_total", replica=r)
         self.obs.trace.record(obs_trace.PROXY_ENQUEUE,
                               replica=r, etype=etype,
@@ -1097,6 +1099,17 @@ class ClusterDriver:
     # -> fail_count >= threshold -> CONFIG removal, dare_server.c:1189)
     # ------------------------------------------------------------------
 
+    def _count_released(self, r: int, n: int, n_event: int) -> None:
+        """Count ``n`` released commit waiters of replica ``r`` by how
+        their completion was seen: ``event`` for the ``n_event`` a thread
+        asked ``done`` of, ``callback`` for the rest (no Event made)."""
+        if n_event:
+            self.obs.metrics.inc("commit_waiters_released_total", n_event,
+                                 replica=r, path="event")
+        if n > n_event:
+            self.obs.metrics.inc("commit_waiters_released_total",
+                                 n - n_event, replica=r, path="callback")
+
     # holds-lock: _lock
     def _fail_inflight_locked(self, rt: _ReplicaRuntime,
                               site: str) -> None:
@@ -1111,10 +1124,11 @@ class ClusterDriver:
                 "APP DIRTY: %d speculated events failed at %s"
                 % (len(rt.inflight), site))
         n = len(rt.inflight)
+        n_event = 0
         while rt.inflight:
-            ev, _ = rt.inflight.popleft()
-            ev.release(-1)
+            n_event += rt.inflight.popleft().release(-1)
         if n:
+            self._count_released(rt.idx, n, n_event)
             self.obs.metrics.inc("inflight_failed_total", n,
                                  replica=rt.idx)
             self.obs.trace.record(obs_trace.INFLIGHT_FAILED,
@@ -1595,9 +1609,8 @@ class ClusterDriver:
             self._phase_prof.start(PHASE_INTAKE_LOCK_WAIT)
             with self._lock:
                 self._phase_prof.stop(PHASE_INTAKE_LOCK_WAIT)
-                while rt.inflight and rt.inflight[0][1] <= own_max:
-                    ev, seq = rt.inflight.popleft()
-                    releases.append((ev, seq))
+                while rt.inflight and rt.inflight[0].seq <= own_max:
+                    releases.append(rt.inflight.popleft())
             # spans first so the latency observe below can attach the
             # SAMPLED releases' span ids as histogram exemplars
             sampled = {}
@@ -1608,8 +1621,10 @@ class ClusterDriver:
                 sampled = {req: conn for conn, req
                            in self.obs.spans.ack_release(r, own_max)}
             now = time.perf_counter()
-            for ev, seq in releases:
-                ev.release(0)
+            n_event = 0
+            for ev in releases:
+                n_event += ev.release(0)
+                seq = ev.seq
                 # intake→release is the client-visible commit latency
                 # (the spin at proxy.c:160, measured instead of spun)
                 self.obs.metrics.observe(
@@ -1618,6 +1633,8 @@ class ClusterDriver:
                     exemplar=(span_trace_id(sampled[seq], seq)
                               if seq in sampled else None),
                     replica=r)
+            if releases:
+                self._count_released(r, len(releases), n_event)
             self._phase_prof.stop("ack_release")
         self._phase_prof.stop("apply_replay_ack")
 
