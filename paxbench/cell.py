@@ -7,7 +7,9 @@ with ``run()`` and its defaults (leases, alert cadence and idle
 quiescence on), electing its first leader by itself, with its stores
 under the run's work directory. The window drives the leader's shim
 intake handler (``_make_handler(r)``, the call the proxy's link threads
-make)."""
+make). A configuration with ``groups`` G > 1 runs the sharded driver
+instead (``shard.py``): every group led, clients that route by key, the
+program's outputs read and judged group by group."""
 
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from paxbench import reference, spec
+from paxbench import reference, shard, spec
 from paxbench.generators import Pool
 from paxbench.loop import ClosedLoop
 
@@ -78,6 +80,7 @@ def run(cell: dict, *, seed: int, seconds: float, trace: bool, device,
         drain_s: float = 60.0, trace_s: float = 10.0) -> Dict:
     conf, traffic = cell["config"], cell["traffic"]
     R = int(conf["replicas"])
+    G = int(conf.get("groups", 1))
     slot = int(conf["log"]["slot_bytes"])
     marks: Dict[str, float] = {}
     tick = [time.perf_counter()]
@@ -89,7 +92,8 @@ def run(cell: dict, *, seed: int, seconds: float, trace: bool, device,
     mark("start")
     pool: Pool = spec.generator(traffic["kind"]).make(traffic, seed)
     mark("traffic")
-    d = build_driver(conf, device, workdir)
+    d = (shard.build_driver if G > 1 else build_driver)(conf, device,
+                                                         workdir)
     loop = None
     try:
         d.prewarm()
@@ -98,13 +102,22 @@ def run(cell: dict, *, seed: int, seconds: float, trace: bool, device,
             warm_profiler()
         mark("prewarm")
         d.run()
-        _stable_leader(d, LEADER_HOLD_S, 60)
+        if G > 1:
+            shard.stable_leaders(d, LEADER_HOLD_S, 60)
+        else:
+            _stable_leader(d, LEADER_HOLD_S, 60)
         mark("election")
         cap = int(float(traffic["max_rate"]) * (seconds + 60))
-        loop = ClosedLoop(pool.payloads, int(traffic["clients"]),
-                          int(traffic["outstanding"]),
-                          [d._make_handler(r) for r in range(R)],
-                          d.leader, cap)
+        handlers = [d._make_handler(r) for r in range(R)]
+        if G > 1:
+            loop = shard.ShardedLoop(
+                pool.payloads, shard.route(pool, d.router), G,
+                int(traffic["clients"]), int(traffic["outstanding"]),
+                handlers, cap)
+        else:
+            loop = ClosedLoop(pool.payloads, int(traffic["clients"]),
+                              int(traffic["outstanding"]), handlers,
+                              d.leader, cap)
         opened = loop.connect_all()
         _wait(lambda: all(loop.fired[k] for k in opened), 60,
               "a CONNECT was never committed")
@@ -124,6 +137,7 @@ def run(cell: dict, *, seed: int, seconds: float, trace: bool, device,
         t0 = time.perf_counter()
         setup_s = t0 - t_start
         s0, ph0 = d.cluster.step_index, dict(prof.acc)
+        cpu0 = time.process_time()
         gst0, term0 = gc.get_stats(), _terms(d)
         gcs = _GcClock() if trace else None
         dt = tr_s0 = tr_s1 = None
@@ -148,6 +162,7 @@ def run(cell: dict, *, seed: int, seconds: float, trace: bool, device,
             tr_s1 = d.cluster.step_index
         t1 = time.perf_counter()
         s1, gst1, term1 = d.cluster.step_index, gc.get_stats(), _terms(d)
+        cpu1 = time.process_time()
         loop.close()
         # ---- after the window: wait for every answer, then settle ----
         try:
@@ -156,8 +171,9 @@ def run(cell: dict, *, seed: int, seconds: float, trace: bool, device,
         except TimeoutError:
             say(f"{loop.n_sent - loop.answered()} requests never answered")
         loop.join(5)
+        settled = shard.settled if G > 1 else _settled
         try:
-            _wait(lambda: _settled(d.cluster.replayed), SETTLE_S,
+            _wait(lambda: settled(d.cluster.replayed), SETTLE_S,
                   "replicas did not settle", poll=0.01)
         except TimeoutError:
             say("the replicas' streams did not reach one length")
@@ -167,7 +183,7 @@ def run(cell: dict, *, seed: int, seconds: float, trace: bool, device,
         dispatches = (ph_mid.get("device_dispatch", (0,))[0]
                       - ph0.get("device_dispatch", (0,))[0])
         max_inflight = d.cluster.max_inflight_dispatches
-        streams = list(d.cluster.replayed)
+        streams = None if G > 1 else list(d.cluster.replayed)
     finally:
         if loop is not None and not loop.closing:
             loop.close()
@@ -182,15 +198,23 @@ def run(cell: dict, *, seed: int, seconds: float, trace: bool, device,
     sent_win = req & (t_send >= t0) & (t_send < t1)
     failed = int((sent_win & ~acked).sum())
     stores = [f"{workdir}/replica{r}.db" for r in range(R)]
-    buf = d.cluster.state.log.buf
-    ends = np.asarray(d.cluster.state.end.cpu()).ravel()
     t_ref = time.perf_counter()
     notes: List[str] = []
-    checks = reference.judge(
-        notes=notes, conns=conns, pidx=pidx, status=status, fired=fired,
-        order=loop.order[:n], payloads=pool.payloads, slot_bytes=slot,
-        streams=streams, stores=stores, logs=[buf[r] for r in range(R)],
-        ends=ends)
+    if G > 1:
+        streams, logs, ends = shard.outputs(d.cluster)
+        checks = reference.judge_groups(
+            notes=notes, conns=conns, pidx=pidx, status=status,
+            fired=fired, order=loop.order[:n], groups=loop.group[:n],
+            payloads=pool.payloads, slot_bytes=slot, streams=streams,
+            stores=stores, logs=logs, ends=ends)
+    else:
+        buf = d.cluster.state.log.buf
+        ends = np.asarray(d.cluster.state.end.cpu()).ravel()
+        checks = reference.judge(
+            notes=notes, conns=conns, pidx=pidx, status=status,
+            fired=fired, order=loop.order[:n], payloads=pool.payloads,
+            slot_bytes=slot, streams=streams, stores=stores,
+            logs=[buf[r] for r in range(R)], ends=ends)
     checks["overflow"] = int(loop.overflow)
     mid = acked & (t_ack >= t0) & (t_ack < t_mid)
     ctx = dict(window_s=t1 - t0, acked=int(in_win.sum()), steps=s1 - s0,
@@ -209,7 +233,13 @@ def run(cell: dict, *, seed: int, seconds: float, trace: bool, device,
                 terms=[term0, term1], reconnects=loop.reconnects,
                 refused=int((req & (fired > 0) & (status != 0)).sum()),
                 trace_aligned_by=dt.aligned_by if dt else None,
-                setup_parts_s=marks)
+                setup_parts_s=marks,
+                phase_us={k: int(v) for k, v in phases.items()},
+                cpu_s=round(cpu1 - cpu0, 3))
+    if G > 1:
+        by_group = np.bincount(loop.group[:n][in_win], minlength=G)
+        diag["acked_by_group"] = by_group.tolist()
+        checks["groups_unacked"] = int((by_group == 0).sum())
     for m in notes:
         say(m)
     return dict(diag=diag, setup_s=setup_s, window_s=t1 - t0,

@@ -5,13 +5,17 @@ Each is a function of the running driver, applied once set-up is done
 and before the first timed request:
 
 * ``store_drop_followers`` (the control): every replica but the front
-  end persists nothing, which breaks the configuration's guarantee that
-  an acknowledged request is in every replica's store;
+  end (replica 0 where every replica fronts, as in a sharded
+  deployment) persists nothing, which breaks the configuration's
+  guarantee that an acknowledged request is in every replica's store;
 * ``state_unchanged``: every protocol step hands back the state it was
   given, so nothing new is appended or committed;
 * ``half_batch``: half of every batch the front end queues is left out;
 * ``altered_answer``: one byte of a committed request is changed where
-  the engine decodes it.
+  the engine decodes it;
+* ``misroute`` (``GROUP_FAULTS``, a sharded deployment only): the
+  driver routes the keys of group 1 to group 0, so that group's rows
+  ride another group's log.
 
 A cell on one chip has no exchange between chips, so that fault does
 not apply here."""
@@ -52,7 +56,7 @@ def altered_answer(d) -> None:
         out = replay(*a, **k)
         if done:
             return out
-        for s in c.replayed:
+        for s in _streams(c.replayed):
             segs = [b for b in s.segments_from(0) if hasattr(b, "blob")]
             if segs and segs[-1].blob:
                 b = segs[-1]
@@ -65,7 +69,26 @@ def altered_answer(d) -> None:
     c._replay_committed = altered
 
 
+def _streams(replayed):
+    """Every replica's stream: ``replayed[r]``, or ``replayed[g][r]``
+    over G groups."""
+    for s in replayed:
+        yield from (s if isinstance(s, list) else (s,))
+
+
+def misroute(d) -> None:
+    router = d.router
+    group_of = router.group_of
+
+    def wrong(key):
+        g = group_of(key)
+        return 0 if g == 1 else g
+    router.group_of = wrong
+
+
 FAULTS: Dict[str, Callable] = dict(
     store_drop_followers=store_drop_followers,
     state_unchanged=state_unchanged, half_batch=half_batch,
     altered_answer=altered_answer)
+
+GROUP_FAULTS: Dict[str, Callable] = dict(misroute=misroute)

@@ -15,7 +15,10 @@ committed log of every replica (so in a majority's), fragmented at the
 slot width, in its connection's order, exactly once, with its bytes
 unchanged, and nothing else is; all replicas hold one order; every
 replica's stable store holds exactly its committed stream, record for
-record.
+record. Over G groups (``judge_groups``) all of this holds group by
+group, every connection's rows ride the one group the client sent them
+to, and a CONNECT, which the sharded driver holds until its
+connection's first SEND, is expected with that SEND.
 """
 
 from __future__ import annotations
@@ -245,4 +248,92 @@ def judge(*, conns: np.ndarray, pidx: np.ndarray, status: np.ndarray,
                     for r, path in enumerate(stores))
     out.update(stream_mismatch=stream_bad, order_divergence=order_bad,
                store_mismatch=store_bad, log_mismatch=log_bad)
+    return out
+
+
+# ---- a sharded deployment: G groups, each with its own committed log ----
+
+def expected_held(conns: np.ndarray, pidx: np.ndarray, status: np.ndarray,
+                  payloads: Sequence[bytes], slot_bytes: int
+                  ) -> Dict[int, List[Tuple[int, bytes, bool]]]:
+    """``expected_streams`` where each CONNECT is held until its
+    connection's first SEND: it is expected just before that SEND, with
+    that SEND's fate (optional where the SEND was refused or failed),
+    and not at all on a connection that never sent."""
+    first: Dict[int, bool] = {}          # conn -> its first SEND optional
+    for c, p, s in zip(conns.tolist(), pidx.tolist(), status.tolist()):
+        if p >= 0 and c not in first:
+            first[c] = s != 0
+    exp = expected_streams(conns, pidx, status, payloads, slot_bytes)
+    out: Dict[int, List[Tuple[int, bytes, bool]]] = {}
+    for c, rows in exp.items():
+        rest = [e for e in rows if e[0] != CONNECT]
+        if c in first:
+            rest.insert(0, (CONNECT, b"", first[c]))
+        if rest:
+            out[c] = rest
+    return out
+
+
+def judge_groups(*, conns: np.ndarray, pidx: np.ndarray,
+                 status: np.ndarray, fired: np.ndarray, order: np.ndarray,
+                 groups: np.ndarray, payloads: Sequence[bytes],
+                 slot_bytes: int, streams: Sequence[Sequence],
+                 stores: Sequence[str], logs: Sequence[Sequence] = (),
+                 ends=(), notes: Optional[List[str]] = None
+                 ) -> Dict[str, int]:
+    """``judge`` over G groups. ``groups[i]`` is the group of row i's
+    connection (the one the client sent it on); ``streams[g][r]``,
+    ``logs[g][r]`` and ``ends[g][r]`` are group g's on replica r;
+    ``stores[r]`` is replica r's one store file, which holds all its
+    groups' records.
+
+    Every connection's rows must lie in its own group's stream, on
+    every replica: a row found in another group's counts under
+    ``route_mismatch`` (and is missing from its own). The stream, order
+    and log numbers are taken for each group and summed. A store record
+    names no group, but its connection does: each group's records in a
+    replica's store, in store order, must be that group's committed
+    stream on that replica; a record of no connection sent counts under
+    ``store_mismatch``."""
+    notes = notes if notes is not None else []
+    out = ack_errors(conns, order, fired)
+    exp = expected_held(conns, pidx, status, payloads, slot_bytes)
+    group_of = dict(zip(conns.tolist(), groups.tolist()))
+    G = len(streams)
+    exp_g: List[Dict] = [{} for _ in range(G)]
+    for c, rows in exp.items():
+        exp_g[group_of[c]][c] = rows
+    route_bad = stream_bad = order_bad = log_bad = store_bad = 0
+    got: List[List[List[Entry]]] = []
+    for g, row in enumerate(streams):
+        got.append([])
+        for r, s in enumerate(row):
+            entries, idx = stream_entries(s)
+            if logs:
+                log_bad += log_errors(logs[g][r], int(ends[g][r]),
+                                      entries, idx)
+            own = [e for e in entries if group_of.get(e[1], g) == g]
+            if len(own) != len(entries):
+                route_bad += len(entries) - len(own)
+                _note(notes, f"group {g} replica {r}: "
+                      f"{len(entries) - len(own)} entries of other groups")
+            n = len(notes)
+            stream_bad += stream_errors(own, exp_g[g], notes)
+            notes[n:] = [f"group {g} replica {r}: {m}" for m in notes[n:]]
+            if r:
+                order_bad += divergence(got[g][0], entries)
+            got[g].append(entries)
+    for r, path in enumerate(stores):
+        per_g: List[List[Entry]] = [[] for _ in range(G)]
+        for e in store_entries(path):
+            g = group_of.get(e[1])
+            if g is None:
+                store_bad += 1
+            else:
+                per_g[g].append(e)
+        store_bad += sum(divergence(got[g][r], per_g[g]) for g in range(G))
+    out.update(stream_mismatch=stream_bad, order_divergence=order_bad,
+               store_mismatch=store_bad, log_mismatch=log_bad,
+               route_mismatch=route_bad)
     return out

@@ -1,12 +1,15 @@
 """Each cell through the harness's own path on the CPU at a tiny size,
-judged by the reference; every planted fault judged incorrect; clients
-that follow a new leader; a new configuration, traffic mix and
+judged by the reference; every planted fault judged incorrect (and the
+routing fault on the sharded cell); clients that follow a new leader,
+and sharded clients that route by the cluster's map; a one-group cell
+making the calls it always made; a new configuration, traffic mix and
 per-layer metric found as files alone; and nothing under paxbench/
 importing JAX or the JAX package."""
 
 import ast
 import json
 import shutil
+import struct
 import tempfile
 import time
 from pathlib import Path
@@ -20,7 +23,8 @@ from paxbench import faults, spec
 from paxbench.run import metrics_line
 
 torch.set_num_threads(1)
-CELLS = ["apus3.set_c256p16", "apus3.set_c50"]
+CELLS = ["apus3.set_c256p16", "apus3.set_c50", "shard8.ycsb_a"]
+SHARDED = ["shard8.ycsb_a"]
 CARD = dict(name="cpu", power_limit="n/a")
 
 
@@ -72,6 +76,89 @@ def test_cell_runs_on_the_cpu_and_is_correct(name):
 def test_a_planted_fault_is_not_correct(name, fault):
     ce, res = run_tiny(name, faults.FAULTS[fault])
     assert not metrics_line(ce, res, False, CARD, 1)["correct"]
+
+
+@pytest.mark.parametrize("fault", sorted(faults.GROUP_FAULTS))
+@pytest.mark.parametrize("name", SHARDED)
+def test_a_group_fault_is_not_correct(name, fault):
+    ce, res = run_tiny(name, faults.GROUP_FAULTS[fault])
+    assert not metrics_line(ce, res, False, CARD, 1)["correct"]
+    assert res["checks"]["route_mismatch"] > 0
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_every_group_acks_and_each_row_rides_its_group(name):
+    ce, res = run_tiny(name)
+    G = ce["config"]["groups"]
+    by_group = res["diag"]["acked_by_group"]
+    assert len(by_group) == G and min(by_group) > 0
+    assert sum(by_group) == res["acked"]
+    assert res["checks"]["route_mismatch"] == 0
+    assert res["checks"]["groups_unacked"] == 0
+
+
+class Recorder:
+    """A driver whose method calls and other attribute reads are logged
+    by name."""
+
+    def __init__(self, inner, log):
+        object.__setattr__(self, "_inner", inner)
+        object.__setattr__(self, "_log", log)
+
+    def __getattr__(self, name):
+        v = getattr(self._inner, name)
+        if not callable(v):
+            self._log.append(name)
+            return v
+
+        def call(*a, **k):
+            self._log.append(name + "()")
+            return v(*a, **k)
+        return call
+
+
+def test_a_one_group_cell_makes_the_calls_it_always_made(monkeypatch):
+    """``groups: 1`` builds the ``ClusterDriver`` with the same
+    arguments, drives it through the same calls in the same order
+    (repeats of a poll counted once) and gives the ``ClosedLoop`` the
+    same arguments as before the sharded path existed."""
+    from rdma_paxos_tpu_torch.runtime import driver as drv
+    made, log, loops = [], [], []
+    real = drv.ClusterDriver
+
+    def cluster_driver(*a, **k):
+        made.append((a, k))
+        return Recorder(real(*a, **k), log)
+    monkeypatch.setattr(drv, "ClusterDriver", cluster_driver)
+
+    class Loop(C.ClosedLoop):
+        def __init__(self, *a):
+            loops.append(a)
+            super().__init__(*a)
+    monkeypatch.setattr(C, "ClosedLoop", Loop)
+
+    def no_groups(**_):
+        raise AssertionError("a one-group cell judged by groups")
+    monkeypatch.setattr(C.reference, "judge_groups", no_groups)
+    ce, res = run_tiny("apus3.set_c50")
+    assert metrics_line(ce, res, False, CARD, 1)["correct"]
+    (args, kw), = made
+    conf = ce["config"]
+    assert args[1:] == (3,) and args[0].n_slots == conf["log"]["n_slots"]
+    assert sorted(kw) == ["device", "fanout", "pipeline", "timeout_cfg",
+                          "workdir"]
+    assert (kw["fanout"], kw["pipeline"]) == ("psum", 2)
+    assert kw["timeout_cfg"].elec_timeout_low == 0.1
+    calls = [x for i, x in enumerate(log) if i == 0 or log[i - 1] != x]
+    assert calls == ["prewarm()", "run()", "leader()", "_make_handler()",
+                     "leader()", "cluster", "stop()", "cluster"]
+    assert log.count("_make_handler()") == 3
+    (pay, clients, outstanding, handlers, leader, cap), = loops
+    traffic = ce["traffic"]
+    assert (clients, outstanding) == (traffic["clients"],
+                                      traffic["outstanding"])
+    assert len(pay) == traffic["pool"] and len(handlers) == 3
+    assert cap == int(traffic["max_rate"] * (1.0 + 60))
 
 
 class FakeEvent:
@@ -155,6 +242,59 @@ def test_the_reference_holds_connects_like_requests():
     assert ref.stream_errors(got, exp, []) == 0
     assert ref.stream_errors(got[:3] + got[4:], exp, []) == 1
     assert ref.stream_errors(got[1:], exp, []) == 1
+
+
+def test_the_reference_holds_connects_until_the_first_send():
+    from paxbench import reference as ref
+    conns = np.array([5, 7, 5, 6, 6, 8, 8])
+    pidx = np.array([-1, -1, 0, -1, 1, -1, 0])
+    status = np.array([0, 0, 0, 0, -1, 0, 0])
+    pay = [b"x" * 130, b"y"]
+    exp = ref.expected_held(conns, pidx, status, pay, 128)
+    assert exp[5] == [(2, b"", False), (3, b"x" * 128, False),
+                      (3, b"xx", False)]
+    assert 7 not in exp                       # never sent: no CONNECT
+    assert exp[6] == [(2, b"", True), (3, b"y", True)]
+
+
+def judge_two_groups(g0, g1, store0=None):
+    """Two groups of one replica; connections 5 and 8 ride group 0,
+    connection 6 group 1."""
+    from paxbench import reference as ref
+    conns = np.array([5, 6, 8, 5, 6, 8])
+    pidx = np.array([-1, -1, -1, 0, 1, 1])
+    n = len(conns)
+
+    class Stream:
+        def __init__(self, entries):
+            self.entries = entries
+
+        def segments_from(self, _i):
+            return [[(t, c, 0, p) for t, c, p in self.entries]]
+    with tempfile.TemporaryDirectory() as wd:
+        path = f"{wd}/replica0.db"
+        with open(path, "wb") as f:
+            for t, c, p in (g0 + g1 if store0 is None else store0):
+                f.write(struct.pack("<IBi", 5 + len(p), t, c) + p)
+        return ref.judge_groups(
+            conns=conns, pidx=pidx, status=np.zeros(n, np.int16),
+            fired=np.ones(n, np.int8), order=np.arange(n),
+            groups=np.array([0, 1, 0, 0, 1, 0]), payloads=[b"a", b"b"],
+            slot_bytes=128, streams=[[Stream(g0)], [Stream(g1)]],
+            stores=[path])
+
+
+def test_the_reference_judges_each_group_and_its_routing():
+    g0 = [(2, 5, b""), (3, 5, b"a"), (2, 8, b""), (3, 8, b"b")]
+    g1 = [(2, 6, b""), (3, 6, b"b")]
+    ok = judge_two_groups(g0, g1)
+    assert all(v == 0 for v in ok.values()), ok
+    # the store interleaves the groups as it likes, each in its order
+    assert judge_two_groups(g0, g1, g1[:1] + g0[:2] + g1[1:] + g0[2:]) == ok
+    moved = judge_two_groups(g0 + g1, [])
+    assert moved["route_mismatch"] == 2 and moved["stream_mismatch"] == 2
+    late = judge_two_groups(g0[:2] + g0[3:], g1)   # a CONNECT lost
+    assert late["stream_mismatch"] == 1 and late["route_mismatch"] == 0
 
 
 def test_new_parts_are_found_as_files(tmp_path):

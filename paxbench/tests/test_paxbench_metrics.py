@@ -96,3 +96,29 @@ def test_the_trace_is_aligned_by_either_marker():
     assert _offset([99.99, 101.5], dev, 5.0, 15.0, 5.0)[1] == "start marker"
     assert _offset([], dev, 5.0, 15.0, 5.0) == (
         pytest.approx(95.0), "first activity")
+
+
+def test_apply_is_the_engines_apply_phase_per_step():
+    r = spec.reader("apply_ms_per_step")
+    assert r.read(dict(phases=dict(apply=30_000.0), part_steps=10)) == 3.0
+    assert r.read(dict(phases={}, part_steps=10)) is None
+
+
+class FakeTrace:
+    def __init__(self, events):
+        self.events = events
+
+
+def test_the_roofline_counts_every_group_and_replica():
+    """N = G x R instances: 24 at ``shard8``, 3 at ``apus3``."""
+    r = spec.reader("commit_window_roofline_pct")
+    dt = FakeTrace([("commit_window_kernel", 0.0, 8e-6)] * 4)
+    got = {}
+    for name in ("apus3", "shard8"):
+        conf = spec.config(name)
+        got[name] = r.read(dict(trace=dt, conf=conf,
+                                device_name=CARD["name"]))
+    need = peaks.commit_window_bytes(24, 3, 2048)
+    assert got["shard8"] == pytest.approx(100 * need / 3.35e12 / 8e-6)
+    assert got["shard8"] == pytest.approx(8 * got["apus3"])
+    assert got["shard8"] < 100
