@@ -15,7 +15,16 @@ and before the first timed request:
   the engine decodes it;
 * ``misroute`` (``GROUP_FAULTS``, a sharded deployment only): the
   driver routes the keys of group 1 to group 0, so that group's rows
-  ride another group's log.
+  ride another group's log;
+* ``replay_drop_follower`` (the control of a deployment with interposed
+  apps): one follower's replay into its app drops every
+  64th SEND run, which its committed stream and store still hold, so
+  only the read-back of the apps can see it;
+* ``early_release`` (the other control of that deployment): the
+  leader's proxy answers each of its app's reads at once, before the
+  bytes commit, so the shim releases the app's replies early while the
+  bytes still commit: the stream and store checks see nothing, and
+  ``early_acks`` counts the early answers.
 
 A cell on one chip has no exchange between chips, so that fault does
 not apply here."""
@@ -23,6 +32,8 @@ not apply here."""
 from __future__ import annotations
 
 from typing import Callable, Dict
+
+SEND = 3             # the entry type of a client's bytes
 
 
 def store_drop_followers(d) -> None:
@@ -86,9 +97,44 @@ def misroute(d) -> None:
     router.group_of = wrong
 
 
+def replay_drop_follower(d) -> None:
+    """The app cell's control: one follower's replay into its app drops
+    every 64th SEND run, so its app misses SETs that its committed
+    stream and store hold."""
+    lead = max(d.leader(), 0)
+    rt = next(rt for r, rt in enumerate(d.runtimes) if r != lead)
+    apply = rt.replay.apply
+    runs = [0]
+
+    def dropping(etype, conn_id, payload):
+        if etype == SEND:
+            runs[0] += 1
+            if runs[0] % 64 == 0:
+                return None
+        return apply(etype, conn_id, payload)
+    rt.replay.apply = dropping
+
+
+def early_release(d) -> None:
+    """The app cell's second control: the leader's proxy answers each
+    SEND of its app at once, and the answer its commit would have sent
+    goes nowhere, so the shim releases the replies before the bytes
+    commit (they still commit)."""
+    px = d.runtimes[max(d.leader(), 0)].proxy
+    on_event = px.on_event
+
+    def at_once(etype, conn_id, payload):
+        ev = on_event(etype, conn_id, payload)
+        if etype == SEND and hasattr(ev, "attach"):
+            return 0
+        return ev
+    px.on_event = at_once
+
+
 FAULTS: Dict[str, Callable] = dict(
     store_drop_followers=store_drop_followers,
     state_unchanged=state_unchanged, half_batch=half_batch,
     altered_answer=altered_answer)
 
 GROUP_FAULTS: Dict[str, Callable] = dict(misroute=misroute)
+

@@ -18,12 +18,17 @@ replica's stable store holds exactly its committed stream, record for
 record. Over G groups (``judge_groups``) all of this holds group by
 group, every connection's rows ride the one group the client sent them
 to, and a CONNECT, which the sharded driver holds until its
-connection's first SEND, is expected with that SEND.
+connection's first SEND, is expected with that SEND. With interposed
+apps (``judge_app``) the rule on each stream is on bytes (connection ids
+are the proxy's), every replica's app must hold what a plain interpreter
+of the committed stream (``toy_state``) holds, and no reply may reach a
+client before its request is committed (``early_acks``).
 """
 
 from __future__ import annotations
 
 import difflib
+import re
 import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -336,4 +341,209 @@ def judge_groups(*, conns: np.ndarray, pidx: np.ndarray,
     out.update(stream_mismatch=stream_bad, order_divergence=order_bad,
                store_mismatch=store_bad, log_mismatch=log_bad,
                route_mismatch=route_bad)
+    return out
+
+
+# ---- an interposed app: clients over TCP, the app's state read back ----
+
+CLOSE = 4
+TOY_SET = re.compile(rb"SET\s+(\S{1,63})\s+([^\n]{1,255})")
+TOY_DEL = re.compile(rb"DEL\s+(\S{1,63})")
+
+
+def toy_state(entries: Sequence[Entry]) -> Dict[bytes, bytes]:
+    """What ``native/toyserver.c`` holds after executing a committed
+    stream, worked out plainly: each connection's SEND bytes are cut
+    into lines as the app cuts them, and each line is applied in stream
+    order (``SET k v``, ``DEL k``; reads change nothing)."""
+    state: Dict[bytes, bytes] = {}
+    pend: Dict[int, bytes] = {}
+    for t, c, p in entries:
+        if t == SEND:
+            *lines, pend[c] = (pend.get(c, b"") + p).split(b"\n")
+            for line in lines:
+                m = TOY_SET.match(line)
+                if m:
+                    state[m.group(1)] = m.group(2)
+                    continue
+                m = TOY_DEL.match(line)
+                if m:
+                    state.pop(m.group(1), None)
+        else:
+            pend.pop(c, None)
+    return state
+
+
+def _joined(entries: Sequence[Entry]) -> Tuple[Dict[int, List[int]],
+                                                Dict[int, bytes]]:
+    """Per connection of a stream: its entries' types, and its SEND
+    bytes joined."""
+    types: Dict[int, List[int]] = {}
+    parts: Dict[int, List[bytes]] = {}
+    for t, c, p in entries:
+        types.setdefault(c, []).append(t)
+        if t == SEND:
+            parts.setdefault(c, []).append(p)
+    return types, {c: b"".join(parts.get(c, ())) for c in types}
+
+
+def app_stream_errors(entries: Sequence[Entry],
+                      sent: Sequence[bytes], need: Sequence[int],
+                      notes: List[str]) -> int:
+    """One replica's committed stream against the bytes each client
+    connection sent. Connection ids are the proxy's and the shim
+    forwards whatever ``read()`` returned, so the rule is on bytes:
+    every connection of the stream opens with its CONNECT and ends at
+    most with one CLOSE; its SEND bytes, joined, must be a prefix of the
+    bytes of exactly one client connection (``sent[k]``); each client
+    connection is matched by at most one connection of the stream, which
+    must cover its first ``need[k]`` bytes (through its last acked
+    request); and the stream holds no more connections than the clients
+    opened."""
+    types, joined = _joined(entries)
+    bad = 0
+    if len(types) > len(sent):
+        bad += len(types) - len(sent)
+        _note(notes, f"{len(types)} connections, {len(sent)} opened")
+    match: Dict[int, List[int]] = {k: [] for k in range(len(sent))}
+    for c, ts in types.items():
+        if (ts[0] != CONNECT or CONNECT in ts[1:] or CLOSE in ts[:-1]
+                or any(t not in (CONNECT, SEND, CLOSE) for t in ts)):
+            bad += 1
+            _note(notes, f"conn {c}: events out of order: {ts[:8]}")
+        b = joined[c]
+        if not b:
+            continue
+        hits = [k for k, s in enumerate(sent) if s.startswith(b)]
+        if len(hits) != 1:
+            bad += 1
+            _note(notes, f"conn {c}: {len(b)} B sent by {len(hits)} "
+                  f"client connections: {b[:60]!r}")
+        else:
+            match[hits[0]].append(c)
+    for k, cs in match.items():
+        if len(cs) > 1:
+            bad += 1
+            _note(notes, f"client connection {k}: in conns {cs}")
+        got = max((len(joined[c]) for c in cs), default=0)
+        if got < need[k]:
+            bad += 1
+            _note(notes, f"client connection {k}: {got} B committed, "
+                  f"{need[k]} B acked")
+    return bad
+
+
+def early_acks(entries: Sequence[Entry], sent: Sequence[bytes],
+               acks: Sequence[Tuple[np.ndarray, np.ndarray]],
+               absent_t: np.ndarray, absent_n: np.ndarray,
+               notes: List[str]) -> int:
+    """Acked requests whose ``+OK`` reached the client before the
+    request's last byte was in any replica's committed stream: the
+    guarantee that a reply leaves only once its input is committed
+    (speculative output commit). ``entries`` is the leader's committed
+    stream; ``acks[k]`` gives client connection k's acked requests as
+    the offset just past each one's last byte in the connection's bytes
+    (``sent[k]``) and the time its answer arrived. At time
+    ``absent_t[j]`` no replica's committed stream held an entry from
+    index ``absent_n[j]`` on. A request whose last byte lies in entry i
+    counts where its answer arrived before the latest such time with
+    ``absent_n[j] <= i``. A request the stream does not hold is
+    ``stream_mismatch``'s to count."""
+    order = np.argsort(absent_n, kind="stable")
+    ns = absent_n[order]
+    ts = np.maximum.accumulate(absent_t[order]) if ns.size else ns
+    _types, joined = _joined(entries)
+    ends: Dict[int, List[int]] = {}
+    index: Dict[int, List[int]] = {}
+    for i, (t, c, p) in enumerate(entries):
+        if t == SEND:
+            e = ends.setdefault(c, [])
+            e.append((e[-1] if e else 0) + len(p))
+            index.setdefault(c, []).append(i)
+    early = 0
+    for c, e in ends.items():
+        hits = [k for k, s in enumerate(sent) if s.startswith(joined[c])]
+        if len(hits) != 1:
+            continue
+        off, t_ack = acks[hits[0]]
+        pos = np.searchsorted(np.asarray(e), off, side="left")
+        held = pos < len(e)
+        entry = np.asarray(index[c])[pos[held]]
+        j = np.searchsorted(ns, entry, side="right")
+        seen = j > 0
+        gone = ts[j[seen] - 1]
+        n = int((t_ack[held][seen] < gone).sum())
+        if n:
+            _note(notes, f"conn {c}: {n} answers before their request "
+                  "was committed")
+        early += n
+    return early
+
+
+def judge_app(*, conn: np.ndarray, pidx: np.ndarray, answer: np.ndarray,
+              t_ack: np.ndarray, extra_replies: int, n_conns: int,
+              payloads: Sequence[bytes],
+              streams: Sequence[Sequence[Entry]],
+              stores: Sequence[Sequence[Entry]], log_bad: int, lead: int,
+              absent_t: np.ndarray, absent_n: np.ndarray,
+              dumps: Sequence[Optional[Dict[bytes, bytes]]],
+              notes: Optional[List[str]] = None) -> Dict[str, int]:
+    """Every number compared for an interposed app, each to be held at
+    0. ``conn``/``pidx``/``answer``/``t_ack`` describe every request the
+    clients sent, in send order: its client connection (0 to
+    ``n_conns`` - 1), pool index, answer (0 none, 1 ``+OK``, 2 another
+    line, 3 failed: the app severed the connection) and when the answer
+    arrived; ``extra_replies`` counts lines that answered no request.
+    ``streams[r]`` and ``stores[r]`` are replica r's committed stream
+    and store, read once the clients were done and the streams had
+    settled; ``log_bad`` is ``log_errors`` summed over the replicas'
+    rings; ``lead`` the replica that led; ``absent_t``/``absent_n`` the
+    commit clock's stamps (``early_acks``); ``dumps[r]`` replica r's
+    app's whole state, read back (None where it gave none)."""
+    notes = notes if notes is not None else []
+    sent: List[List[bytes]] = [[] for _ in range(n_conns)]
+    size, need = [0] * n_conns, [0] * n_conns
+    offs: List[List[int]] = [[] for _ in range(n_conns)]
+    rows: List[List[int]] = [[] for _ in range(n_conns)]
+    for i, (k, p, a) in enumerate(zip(conn.tolist(), pidx.tolist(),
+                                      answer.tolist())):
+        sent[k].append(payloads[p])
+        size[k] += len(payloads[p])
+        if a == 1:
+            need[k] = size[k]
+            offs[k].append(size[k])
+            rows[k].append(i)
+    sent_b = [b"".join(s) for s in sent]
+    out = dict(unanswered=int((answer == 0).sum()),
+               bad_reply=int((answer == 2).sum()) + int(extra_replies))
+    stream_bad = order_bad = 0
+    for r, entries in enumerate(streams):
+        n = len(notes)
+        stream_bad += app_stream_errors(entries, sent_b, need, notes)
+        notes[n:] = [f"replica {r}: {m}" for m in notes[n:]]
+        if r:
+            order_bad += divergence(streams[0], entries)
+    store_bad = sum(divergence(e, s) for e, s in zip(streams, stores))
+    acks = [(np.asarray(o, np.int64), t_ack[np.asarray(i, np.int64)])
+            for o, i in zip(offs, rows)]
+    early = early_acks(streams[lead], sent_b, acks, absent_t, absent_n,
+                       notes)
+    state = toy_state(streams[lead])
+    app_bad = 0
+    for r, got in enumerate(dumps):
+        if got is None:
+            app_bad += len(state) + 1
+            _note(notes, f"app {r}: no state read back")
+            continue
+        wrong = [k for k in state.keys() | got.keys()
+                 if got.get(k) != state.get(k)]
+        app_bad += len(wrong)
+        if wrong:
+            k = min(wrong)
+            _note(notes, f"app {r}: {len(wrong)} of {len(state)} keys "
+                  f"differ, first {k!r}: got {got.get(k)!r} expected "
+                  f"{state.get(k)!r}")
+    out.update(stream_mismatch=stream_bad, order_divergence=order_bad,
+               store_mismatch=store_bad, log_mismatch=int(log_bad),
+               early_acks=early, app_mismatch=app_bad)
     return out

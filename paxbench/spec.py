@@ -10,7 +10,11 @@ one:
 * ``traffic/<traffic>.json``: the parameters of one mix, whose
   ``kind`` names the generator ``generators/<kind>.py``;
 * ``metrics/<metric>.py``: the reader of one per-layer metric, a
-  ``read(ctx)`` returning a number, or None where it finds nothing.
+  ``read(ctx)`` returning a number, or None where it finds nothing;
+* ``runners/<runner>.py``, where a configuration names a ``runner``:
+  the deployment's own ``run(cell, ...)``, with ``cell.run``'s
+  arguments and result (a configuration without one runs ``cell.run``'s
+  in-process clients).
 """
 
 from __future__ import annotations
@@ -69,6 +73,15 @@ def reader(metric: str, base: Path = HERE) -> ModuleType:
     """The reader module of a per-layer metric."""
     return _module(base / "metrics" / f"{check_name(metric)}.py",
                    f"paxbench.metrics.{metric}")
+
+
+def runner(name: Optional[str], base: Path = HERE) -> Optional[ModuleType]:
+    """The runner module a configuration's ``runner`` names, or None
+    where it names none."""
+    if name is None:
+        return None
+    return _module(base / "runners" / f"{check_name(name)}.py",
+                   f"paxbench.runners.{name}")
 
 
 def _covers(metric: dict, workload: str) -> bool:

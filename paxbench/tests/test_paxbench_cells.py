@@ -1,6 +1,7 @@
 """Each cell through the harness's own path on the CPU at a tiny size,
 judged by the reference; every planted fault judged incorrect (and the
-routing fault on the sharded cell); clients that follow a new leader,
+routing fault on the sharded cell, the replay fault on the app cell:
+``test_paxbench_app.py``); clients that follow a new leader,
 and sharded clients that route by the cluster's map; a one-group cell
 making the calls it always made; a new configuration, traffic mix and
 per-layer metric found as files alone; and nothing under paxbench/
@@ -25,16 +26,24 @@ from paxbench.run import metrics_line
 torch.set_num_threads(1)
 CELLS = ["apus3.set_c256p16", "apus3.set_c50", "shard8.ycsb_a"]
 SHARDED = ["shard8.ycsb_a"]
+APP = ["apus3_app.toy_set_c50"]         # interposed apps (runners/app.py)
+# the app cell's entry: the harness runs it, BENCHMARK.json leaves it out
+# (its runs on the card spread too widely to hold a bound: PERF.md)
+APP_ENTRY = dict(name=APP[0], config="apus3_app", traffic="toy_set_c50",
+                 chips=1, why="APUS as deployed: 50 clients over TCP to an "
+                 "unmodified app under LD_PRELOAD")
 CARD = dict(name="cpu", power_limit="n/a")
 
 
 def bench_with_all():
-    """BENCHMARK.json with every metric listed for every cell, so that
-    each cell's run is checked against all of them."""
+    """BENCHMARK.json with the app cell and every metric listed for every
+    cell, so that each cell's run is checked against all of them."""
     bench = spec.benchmark()
+    if all(w["name"] != APP[0] for w in bench["workloads"]):
+        bench["workloads"].append(dict(APP_ENTRY))
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = CELLS
+            m["workloads"] = CELLS + APP
     return bench
 
 
@@ -60,7 +69,7 @@ def run_tiny(name, fault=None, seconds=1.0):
     return ce, res
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", CELLS + APP)
 def test_cell_runs_on_the_cpu_and_is_correct(name):
     ce, res = run_tiny(name)
     line = metrics_line(ce, res, False, CARD, 1)
@@ -72,7 +81,7 @@ def test_cell_runs_on_the_cpu_and_is_correct(name):
 
 
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", CELLS + APP)
 def test_a_planted_fault_is_not_correct(name, fault):
     ce, res = run_tiny(name, faults.FAULTS[fault])
     assert not metrics_line(ce, res, False, CARD, 1)["correct"]
@@ -192,6 +201,52 @@ class FakeFront:
         while len(self.events) < n and time.monotonic() < end:
             time.sleep(0.001)
         assert len(self.events) >= n, self.events
+
+
+class LossyTrace:
+    """A device capture in place of the profiler's: the first one taken
+    holds only copies (its kernel records lost), every later one a
+    commit window kernel and a copy each millisecond."""
+    taken = 0
+
+    def __init__(self, workdir):
+        self.events, self.aligned_by = [], "fake"
+
+    def start(self):
+        self.t0 = time.monotonic()
+
+    def stop(self):
+        self.t1 = time.monotonic()
+        LossyTrace.taken += 1
+        ts = np.arange(self.t0, self.t1, 1e-3)
+        names = (["Memcpy HtoD"] if LossyTrace.taken == 1
+                 else ["commit_window_kernel", "Memcpy HtoD"])
+        self.events = [(n, a, a + 1e-4) for a in ts for n in names]
+
+    @property
+    def window_s(self):
+        return self.t1 - self.t0
+
+
+def test_a_capture_that_lost_its_kernels_is_taken_again(monkeypatch):
+    from paxbench import trace as tr
+    monkeypatch.setattr(tr, "DeviceTrace", LossyTrace)
+    monkeypatch.setattr(tr, "warm_profiler", lambda: None)
+    LossyTrace.taken = 0
+    ce = tiny("apus3.set_c50")
+    with tempfile.TemporaryDirectory() as wd:
+        res = C.run(ce, seed=2 ** 31 + 7, seconds=2.0, trace=True,
+                    device=torch.device("cpu"), workdir=wd,
+                    t_start=time.perf_counter(), drain_s=3.0)
+    caps = res["diag"]["trace_captures"]
+    assert LossyTrace.taken == 2 and len(caps) == 2
+    assert caps[0]["steps"] > 0 and caps[0]["commit_window"] == 0
+    assert caps[1]["commit_window"] >= caps[1]["steps"] > 0
+    h100 = dict(name="NVIDIA H100 80GB HBM3", power_limit="n/a")
+    line = metrics_line(ce, res, True, h100, 1)
+    assert line["correct"], res["checks"]
+    assert "commit_window_roofline_pct" in line["metrics"]
+    assert 0 < line["device"]["busy_s"] <= line["device"]["window_s"]
 
 
 def test_a_failed_client_reconnects_at_the_new_leader():

@@ -122,3 +122,18 @@ def test_the_roofline_counts_every_group_and_replica():
     assert got["shard8"] == pytest.approx(100 * need / 3.35e12 / 8e-6)
     assert got["shard8"] == pytest.approx(8 * got["apus3"])
     assert got["shard8"] < 100
+
+
+@pytest.mark.parametrize("per_step, steps, lost", [
+    (1, 400, False),        # a sound capture: one launch a step
+    (0, 400, True),         # every kernel record gone, copies kept
+    (0.01, 400, True),      # 1 % of them kept
+    (0, 0, False),          # no step ran while the capture was on
+])
+def test_a_capture_that_lost_its_kernel_records_is_known(per_step, steps,
+                                                         lost):
+    from paxbench.trace import kernels_lost
+    n = int(per_step * steps)
+    events = ([("commit_window_kernel", 0.0, 1e-5)] * n
+              + [("Memcpy HtoD (Pageable -> Device)", 0.0, 1e-5)] * 40)
+    assert kernels_lost(events, steps) is lost

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 from paxbench import spec
-from paxbench.generators import redis_set, ycsb_a
+from paxbench.generators import redis_set, toy_set, ycsb_a
 
 SEED = 2 ** 31 + 12345
 
@@ -19,7 +19,8 @@ def small(name, **kw):
     return t
 
 
-@pytest.mark.parametrize("name", ["set_c256p16", "set_c50", "ycsb_a"])
+@pytest.mark.parametrize("name", ["set_c256p16", "set_c50", "ycsb_a",
+                                  "toy_set_c50"])
 def test_same_seed_same_bytes(name):
     t = small(name)
     gen = spec.generator(t["kind"])
@@ -38,6 +39,21 @@ def test_redis_set_is_redis_benchmarks_set():
     assert 0 <= min(keys) and max(keys) < t["keyspace"]
     n, space = len(keys), t["keyspace"]
     assert len(set(keys)) > 0.9 * n * (1 - n / 2 / space)
+
+
+def test_toy_set_is_redis_benchmarks_set_in_the_toy_protocol():
+    t = small("toy_set_c50")
+    pool = toy_set.make(t, SEED)
+    keys = [int(p[8:20]) for p in pool.payloads]
+    values = [p[21:24] for p in pool.payloads]
+    assert all(p == toy_set.command(k, v)
+               for p, k, v in zip(pool.payloads, keys, values))
+    assert {len(p) for p in pool.payloads} == {25}
+    assert all(v.isalnum() and v.isascii() for v in values)
+    assert 0 <= min(keys) and max(keys) < t["keyspace"]
+    n, space = len(keys), t["keyspace"]
+    assert len(set(keys)) > 0.9 * n * (1 - n / 2 / space)
+    assert len(set(values)) > 0.9 * n       # distinct values, not xxx
 
 
 def parse_resp(p):

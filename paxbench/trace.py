@@ -193,3 +193,14 @@ def kernel_times(events: Sequence[Tuple[str, float, float]], needle: str
     """(count, mean seconds) of the kernels whose name holds ``needle``."""
     d = [b - a for n, a, b in events if needle in n]
     return (len(d), sum(d) / len(d)) if d else None
+
+
+def kernels_lost(events: Sequence[Tuple[str, float, float]], steps: int
+                 ) -> bool:
+    """Whether a capture lost its kernel records: steps ran while it
+    was on, but it holds the commit window kernel, which every step
+    launches once, for fewer than half of them. Such a capture keeps
+    its copies and drops nearly all kernels (one on the H100 held 1 %
+    of a step's kernels and every copy)."""
+    n = sum(1 for name, _a, _b in events if "commit_window" in name)
+    return steps > 0 and 2 * n < steps
