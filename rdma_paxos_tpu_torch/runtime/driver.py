@@ -1981,10 +1981,12 @@ class ClusterDriver:
             self._phase_prof.stop(PHASE_GC, observe=False)
 
     def prewarm(self) -> None:
-        """Build and load the CUDA kernels, allocate every staging tier
-        and run each step variant once, so the first served step never
-        pays for ``nvcc``. A failure here is a loop crash: it is
-        recorded in ``loop_error``, every waiter fails, and it raises."""
+        """Build and load the CUDA kernels, allocate every staging tier,
+        run each step variant once and record the stable step's CUDA
+        graphs (a stacked engine on the card), so the first served step
+        never pays for ``nvcc`` and no capture runs beside the driver's
+        threads. A failure here is a loop crash: it is recorded in
+        ``loop_error``, every waiter fails, and it raises."""
         try:
             self.cluster.prewarm()
         except Exception as exc:

@@ -55,6 +55,15 @@ as ``res["txn_vote"]``; bursts and scans never carry the lane.
 Every device result a finish needs (the audit windows and telemetry
 vectors included) is read back in ONE transfer, and a replay sweep
 fetches only as many rows as the furthest-behind replica decodes.
+
+On the card a stacked engine replays its stable step from CUDA graphs
+(``parallel/graph.py``) that :meth:`SimCluster.prewarm` records: the
+serial stable step and each of a burst's K steps are one replay each,
+the same kernels on the engine's own state. The election step, the scan
+tier, CPU engines and device-list engines stay eager.
+``graph_replays`` (by path) and ``eager_steps`` (by reason) count the
+protocol steps each way, and so do ``step_graph_replays_total`` and
+``step_eager_total`` in an attached registry.
 """
 
 from __future__ import annotations
@@ -75,8 +84,9 @@ from rdma_paxos_tpu_torch.consensus.log import EntryType, M_GIDX, META_W
 from rdma_paxos_tpu_torch.consensus.snapshot import rebase_offsets
 from rdma_paxos_tpu_torch.consensus.state import Role, clone_state
 from rdma_paxos_tpu_torch.consensus.step import (
-    SCAN_KEYS, StepInput, build_redigest, fetch_window)
+    SCAN_KEYS, VARIANT_FIELDS, StepInput, build_redigest, fetch_window)
 from rdma_paxos_tpu_torch.obs import device as obs_device
+from rdma_paxos_tpu_torch.parallel.graph import StepGraph
 from rdma_paxos_tpu_torch.parallel.mesh import (
     DeviceLayout, DeviceWorld, build_sim_burst, build_sim_scan,
     build_sim_step, build_spmd_burst, build_spmd_scan, build_spmd_step,
@@ -252,10 +262,10 @@ class StepTicket:
     """One dispatched-but-not-finished step or burst."""
 
     __slots__ = ("kind", "out", "taken", "timeouts", "K", "bufs",
-                 "applied0")
+                 "applied0", "graph")
 
     def __init__(self, kind: str, out, taken, timeouts, K: int, bufs,
-                 applied0=None):
+                 applied0=None, graph=None):
         self.kind = kind          # "step" | "burst" | "scan"
         self.out = out
         self.taken = taken
@@ -263,6 +273,8 @@ class StepTicket:
         self.K = K
         self.bufs = bufs
         self.applied0 = applied0  # scan: the replay rows start here
+        # the StepGraph replayed (``out["packed"]``: its rows), or None
+        self.graph = graph
 
 
 class StagingPool:
@@ -410,6 +422,13 @@ class SimCluster:
             self._burst = self._on_world(build_spmd_burst(
                 cfg, n_replicas, self.mesh, fanout=fanout, **variants))
         self._scans: Dict[int, object] = {}
+        # the stable dispatches recorded as CUDA graphs ("step", "burst"):
+        # by prewarm() on a stacked engine on the card, else none
+        self._graphs: Dict[str, StepGraph] = {}
+        # protocol steps replayed from a graph, by path, and run eagerly,
+        # by reason ("elections": a timer fired; "no_capture": no graph)
+        self.graph_replays = {"step": 0, "burst": 0}
+        self.eager_steps = {"elections": 0, "no_capture": 0}
         # guarded-by: _host_lock [writes]
         self.state = stack_states(cfg, n_replicas, self.group_size,
                                   device=self.device)
@@ -739,34 +758,57 @@ class SimCluster:
         tmo = np.zeros((R,), np.int32)
         for r in timeouts:
             tmo[r] = 1
-        inp = StepInput(
-            batch_data=self._dev(bufs["data"]),
-            batch_meta=self._dev(bufs["meta"]),
-            batch_count=self._dev(count), timeout_fired=self._dev(tmo),
-            peer_mask=self._dev(mask),
-            apply_done=self._dev(applied), queue_depth=self._dev(qdepth))
+        host = dict(batch_data=bufs["data"], batch_meta=bufs["meta"],
+                    batch_count=count, timeout_fired=tmo, peer_mask=mask,
+                    apply_done=applied, queue_depth=qdepth)
         if self._txn:
             # the card compares log offsets: shift the armed ABSOLUTE
             # index by the rollovers applied so far
             watch = (self._txn_watch - self.rebased_total
                      if self._txn_watch >= 0 else -1)
-            inp.txn_watch = self._dev(np.full((R,), watch, np.int32))
-            inp.txn_term = self._dev(np.full((R,), self._txn_wterm,
-                                             np.int32))
-        # no timer fired => Phase B is a no-op: the stable step
-        fn = self._steps[not (self._stable_fast_path and not timeouts)]
+            host["txn_watch"] = np.full((R,), watch, np.int32)
+            host["txn_term"] = np.full((R,), self._txn_wterm, np.int32)
+        # no timer fired => Phase B is a no-op: the stable step, replayed
+        # from its graph where one was recorded
+        stable = self._stable_fast_path and not timeouts
+        graph = self._graphs.get("step") if stable else None
+        if graph is None:
+            inp = StepInput(**{k: self._dev(a) for k, a in host.items()})
+        else:
+            graph.stage(**host)
+        fn = self._steps[not stable]
         if prof is not None:
             prof.stop("host_encode")
             prof.start("device_dispatch")
         with self._host_lock:
-            st, out = fn(self._live(), inp)
-            self._store(st)
+            if graph is None:
+                st, out = fn(self._live(), inp)
+                self._store(st)
+            else:
+                self._store(graph.bind(self._live()))
+                out = {"packed": graph.replay()}
             ticket = self._enqueue(
-                StepTicket("step", out, taken, timeouts, 1, bufs))
+                StepTicket("step", out, taken, timeouts, 1, bufs,
+                           graph=graph))
         if prof is not None:
             prof.stop("device_dispatch")
+        self._note_steps(graph, "step" if graph is not None else
+                         "no_capture" if stable else "elections", 1)
         self._dispatch_clock += 1
         return ticket
+
+    def _note_steps(self, graph, key: str, n: int) -> None:
+        """Count the ``n`` protocol steps of a dispatch: replayed from
+        ``graph`` (``key``: the path, ``step`` or ``burst``) or run
+        eagerly (``key``: why), here and in an attached registry."""
+        if graph is not None:
+            self.graph_replays[key] += n
+            name, label = "step_graph_replays_total", dict(path=key)
+        else:
+            self.eager_steps[key] += n
+            name, label = "step_eager_total", dict(reason=key)
+        if self.obs is not None:
+            self.obs.metrics.inc(name, n, **label)
 
     def _tiers(self, max_k: Optional[int]) -> Tuple[int, ...]:
         return cap_tiers(self.K_TIERS, max_k)
@@ -828,24 +870,37 @@ class SimCluster:
             for k in range(K):
                 count[k, r] = max(0, min(n - k * B, B))
         scan = self.scan
+        graph = None if scan else self._graphs.get("burst")
+        if graph is not None:
+            graph.stage_steps(batch_data=bufs["data"],
+                              batch_meta=bufs["meta"], batch_count=count)
+            graph.stage(timeout_fired=np.zeros((R,), np.int32),
+                        peer_mask=mask, apply_done=applied,
+                        queue_depth=qdepth)
         fn = self._scan_fn(K) if scan else self._burst
         if prof is not None:
             prof.stop("host_encode")
             prof.start("device_dispatch")
         with self._host_lock:
-            st, outs = fn(
-                self._live(), self._dev(bufs["data"]),
-                self._dev(bufs["meta"]), self._dev(count),
-                self._dev(mask), self._dev(applied),
-                self._dev(qdepth))
-            self._store(st)
+            if graph is None:
+                st, outs = fn(
+                    self._live(), self._dev(bufs["data"]),
+                    self._dev(bufs["meta"]), self._dev(count),
+                    self._dev(mask), self._dev(applied),
+                    self._dev(qdepth))
+                self._store(st)
+            else:
+                self._store(graph.bind(self._live()))
+                outs = {"packed": graph.replay_steps(K)}
             if scan:
                 self.scan_dispatches += 1
             ticket = self._enqueue(StepTicket(
                 "scan" if scan else "burst", outs, taken, (), K, bufs,
-                applied0=applied if scan else None))
+                applied0=applied if scan else None, graph=graph))
         if prof is not None:
             prof.stop("device_dispatch")
+        self._note_steps(graph, "burst" if graph is not None else
+                         "no_capture", K)
         self._dispatch_clock += K
         return ticket
 
@@ -905,6 +960,25 @@ class SimCluster:
         res["peer_acked"] = mat[..., ncols:]
         return res, dict(zip(extra, arrs[1:]))
 
+    def _graph_readback(self, ticket: StepTicket
+                        ) -> Tuple[Dict[str, np.ndarray],
+                                   Dict[str, np.ndarray]]:
+        """:meth:`_readback` of a replayed ticket: its packed rows, one
+        per protocol step, in ONE transfer, read as the same result dict
+        and per-step arrays."""
+        f = ticket.graph.unpack(ticket.out["packed"].cpu().numpy())
+        res = {k: f[k][-1] for k in self.RES_KEYS
+               if k not in ("accepted", "peer_acked")}
+        res["accepted"] = f["accepted"].sum(0).astype(np.int32)
+        res["peer_acked"] = f["peer_acked"][-1]
+        extra = [k for k in VARIANT_FIELDS if k in f]
+        if ticket.kind == "step":
+            return res, {k: f[k][0] for k in extra}
+        var = {k: f[k] for k in extra}
+        if self._audit:
+            var["audit_commit"] = f["commit"]
+        return res, var
+
     def finish(self, ticket: StepTicket) -> Dict[str, np.ndarray]:
         """Block on ``ticket``'s outputs and run every post-step host
         rule (requeue, replay, rebase) — tickets finish in FIFO order."""
@@ -916,7 +990,8 @@ class SimCluster:
         if prof is not None:
             prof.sync(out)              # fenced device_sync (opt-in)
             prof.start("quorum_wait")
-        res, var = self._readback(ticket)
+        res, var = (self._readback(ticket) if ticket.graph is None
+                    else self._graph_readback(ticket))
         if prof is not None:
             prof.stop("quorum_wait")
             prof.start(PHASE_FINISH_RULES)
@@ -1028,8 +1103,9 @@ class SimCluster:
     def prewarm(self, tiers: Optional[Sequence[int]] = None) -> None:
         """Pay every first-use cost before serving: build and load the
         CUDA kernels (on the card), allocate the staging sets of the
-        serial step and of every burst tier, and run each step variant
-        and burst tier once on a copy of the live state."""
+        serial step and of every burst tier, run each step variant and
+        burst tier once on a copy of the live state, and, on a stacked
+        engine on the card, record the stable step's CUDA graphs."""
         from rdma_paxos_tpu_torch.consensus.step import make_step_input
         if self.device.type == "cuda":
             from rdma_paxos_tpu_torch.ops import quorum
@@ -1058,6 +1134,32 @@ class SimCluster:
                    inp.peer_mask, z, z)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            if self.world is None and not self._graphs:
+                self._capture_graphs(
+                    lambda: make_step_input(cfg, R, device=self.device),
+                    build_sim_step(cfg, R, fanout=self._fanout,
+                                   elections=False, audit=self._audit,
+                                   telemetry=self._telemetry)
+                    if self._txn else None)
+
+    def _capture_graphs(self, make_input, burst_step) -> None:
+        """Record the stable step as CUDA graphs over the live state:
+        the serial step's, and a burst's (``burst_step``: the stable step
+        without the transaction lane; None where that is the serial
+        one). Once, from :meth:`prewarm`, before a driver's threads run;
+        a failure raises."""
+        fields = self.RES_KEYS + VARIANT_FIELDS
+        steps = max(self.K_TIERS)
+        with self._host_lock:
+            inp = make_input()
+            if self._txn:
+                inp.txn_watch = torch.full_like(inp.batch_count, -1)
+                inp.txn_term = torch.zeros_like(inp.batch_count)
+            step = StepGraph(self._steps[False], self._state, inp, fields,
+                             steps)
+            burst = step if burst_step is None else StepGraph(
+                burst_step, self._state, make_input(), fields, steps)
+            self._graphs = {"step": step, "burst": burst}
 
     def step_burst(self, max_k: Optional[int] = None
                    ) -> Dict[str, np.ndarray]:

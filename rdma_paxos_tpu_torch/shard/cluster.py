@@ -26,7 +26,9 @@ group at dispatch), the ``[G, R]`` vote matrix of every serial step as
 records' appends and observing every ``finish``.
 
 Single-group is the G = 1 case of this machinery: its results equal
-``SimCluster``'s bit for bit on the same inputs.
+``SimCluster``'s bit for bit on the same inputs. Without a mesh on the
+card its stable steps replay from CUDA graphs as ``SimCluster``'s do
+(``parallel/graph.py``), one replay for every group's step.
 
 An adaptive dispatch governor (``runtime/governor.py:attach_governor``)
 is observed at the tail of every ``finish``, with one ladder rung per
@@ -178,6 +180,11 @@ class ShardedCluster:
             "group-burst", (), build_sim_group_burst, build_spmd_group_burst,
             **variants)
         self._scans: Dict[int, object] = {}
+        # the stable dispatches' CUDA graphs and the step counts by path
+        # and reason (see SimCluster)
+        self._graphs: Dict[str, object] = {}
+        self.graph_replays = {"step": 0, "burst": 0}
+        self.eager_steps = {"elections": 0, "no_capture": 0}
         # guarded-by: _host_lock [writes]
         self.state = stack_group_states(cfg, self.G, self.R,
                                         self.group_size, device=self.device)
@@ -337,6 +344,9 @@ class ShardedCluster:
     _tiers = SimCluster._tiers
     _scan_slots = SimCluster._scan_slots
     _readback = SimCluster._readback
+    _graph_readback = SimCluster._graph_readback
+    _note_steps = SimCluster._note_steps
+    _capture_graphs = SimCluster._capture_graphs
     drain = SimCluster.drain
     _span_recorder = SimCluster._span_recorder
 
@@ -428,9 +438,10 @@ class ShardedCluster:
 
     def prewarm(self, tiers: Optional[Sequence[int]] = None) -> None:
         """Pay every first-use cost before serving: build and load the
-        CUDA kernels (on the card), allocate the staging sets, and run
-        each step variant and burst tier once on a copy of the live
-        state — one warm-up covers every group."""
+        CUDA kernels (on the card), allocate the staging sets, run each
+        step variant and burst tier once on a copy of the live state —
+        one warm-up covers every group — and, without a mesh on the
+        card, record the stable step's CUDA graphs."""
         from rdma_paxos_tpu_torch.consensus.step import make_step_input
         if self.device.type == "cuda":
             from rdma_paxos_tpu_torch.ops import quorum
@@ -459,6 +470,14 @@ class ShardedCluster:
                    inp.peer_mask, z, z)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            if self.world is None and not self._graphs:
+                self._capture_graphs(
+                    lambda: make_step_input(cfg, R, n_groups=G,
+                                            device=self.device),
+                    build_sim_group_step(
+                        cfg, R, fanout=self._fanout, elections=False,
+                        audit=self._audit, telemetry=self._telemetry)
+                    if self._txn else None)
 
     def begin_step(self, timeouts: TimeoutsLike = (),
                    take_batch: bool = True) -> StepTicket:
@@ -499,35 +518,44 @@ class ShardedCluster:
         for g, rs in tmo.items():
             for r in rs:
                 tmo_arr[g, r] = 1
-        inp = StepInput(
-            batch_data=self._dev(bufs["data"]),
-            batch_meta=self._dev(bufs["meta"]),
-            batch_count=self._dev(count), timeout_fired=self._dev(tmo_arr),
-            peer_mask=self._dev(mask), apply_done=self._dev(applied),
-            queue_depth=self._dev(qdepth))
+        host = dict(batch_data=bufs["data"], batch_meta=bufs["meta"],
+                    batch_count=count, timeout_fired=tmo_arr,
+                    peer_mask=mask, apply_done=applied, queue_depth=qdepth)
         if self._txn:
             # the card compares log offsets: each armed ABSOLUTE index
             # shifted by its group's rollovers, repeated over the replicas
             watch = np.where(self._txn_watch >= 0,
                              self._txn_watch - self.rebased_total, -1)
-            inp.txn_watch = self._dev(np.broadcast_to(
-                watch[:, None], (G, R)).astype(np.int32))
-            inp.txn_term = self._dev(np.broadcast_to(
-                self._txn_wterm[:, None], (G, R)).astype(np.int32))
+            host["txn_watch"] = np.broadcast_to(
+                watch[:, None], (G, R)).astype(np.int32)
+            host["txn_term"] = np.broadcast_to(
+                self._txn_wterm[:, None], (G, R)).astype(np.int32)
         # no timer fired in ANY group => Phase B is a no-op for every
-        # group: the stable step
-        fn = self._steps[not (self._stable_fast_path and not tmo)]
+        # group: the stable step, replayed from its graph where recorded
+        stable = self._stable_fast_path and not tmo
+        graph = self._graphs.get("step") if stable else None
+        if graph is None:
+            inp = StepInput(**{k: self._dev(a) for k, a in host.items()})
+        else:
+            graph.stage(**host)
+        fn = self._steps[not stable]
         if prof is not None:
             prof.stop("host_encode")
             prof.start("device_dispatch")
         with self._host_lock:
-            st, out = fn(self._live(), inp)
-            self._store(st)
+            if graph is None:
+                st, out = fn(self._live(), inp)
+                self._store(st)
+            else:
+                self._store(graph.bind(self._live()))
+                out = {"packed": graph.replay()}
             self.programs_used.add(self._keys[id(fn)])
             ticket = self._enqueue(
-                StepTicket("step", out, taken, tmo, 1, bufs))
+                StepTicket("step", out, taken, tmo, 1, bufs, graph=graph))
         if prof is not None:
             prof.stop("device_dispatch")
+        self._note_steps(graph, "step" if graph is not None else
+                         "no_capture" if stable else "elections", 1)
         self.dispatches += 1
         self._dispatch_clock += 1
         return ticket
@@ -579,24 +607,37 @@ class ShardedCluster:
                 for k in range(K):
                     count[k, g, r] = max(0, min(n - k * B, B))
         scan = self.scan
+        graph = None if scan else self._graphs.get("burst")
+        if graph is not None:
+            graph.stage_steps(batch_data=bufs["data"],
+                              batch_meta=bufs["meta"], batch_count=count)
+            graph.stage(timeout_fired=np.zeros((G, R), np.int32),
+                        peer_mask=mask, apply_done=applied,
+                        queue_depth=qdepth)
         fn = self._scan_fn(K) if scan else self._burst
         if prof is not None:
             prof.stop("host_encode")
             prof.start("device_dispatch")
         with self._host_lock:
-            st, outs = fn(
-                self._live(), self._dev(bufs["data"]),
-                self._dev(bufs["meta"]), self._dev(count),
-                self._dev(mask), self._dev(applied), self._dev(qdepth))
-            self._store(st)
+            if graph is None:
+                st, outs = fn(
+                    self._live(), self._dev(bufs["data"]),
+                    self._dev(bufs["meta"]), self._dev(count),
+                    self._dev(mask), self._dev(applied), self._dev(qdepth))
+                self._store(st)
+            else:
+                self._store(graph.bind(self._live()))
+                outs = {"packed": graph.replay_steps(K)}
             self.programs_used.add(self._keys[id(fn)])
             if scan:
                 self.scan_dispatches += 1
             ticket = self._enqueue(StepTicket(
                 "scan" if scan else "burst", outs, taken, {}, K, bufs,
-                applied0=applied if scan else None))
+                applied0=applied if scan else None, graph=graph))
         if prof is not None:
             prof.stop("device_dispatch")
+        self._note_steps(graph, "burst" if graph is not None else
+                         "no_capture", K)
         self.dispatches += 1
         self._dispatch_clock += K
         return ticket
@@ -613,7 +654,8 @@ class ShardedCluster:
         if prof is not None:
             prof.sync(out)
             prof.start("quorum_wait")
-        res, var = self._readback(ticket)
+        res, var = (self._readback(ticket) if ticket.graph is None
+                    else self._graph_readback(ticket))
         if prof is not None:
             prof.stop("quorum_wait")
             prof.start(PHASE_FINISH_RULES)

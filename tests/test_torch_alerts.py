@@ -333,13 +333,17 @@ def test_driver_health_alerts_and_series_match_jax(tmp_path):
         js, ts = jd.series.to_dict(), td.series.to_dict()
         assert ts["samples"] == js["samples"] == 2
         # the port's driver times the phases of its threads beyond the
-        # JAX package's, and keeps no timer_device_step_us histogram
+        # JAX package's, counts its steps by how they ran (replayed from
+        # a CUDA graph, or eager and why), and keeps no
+        # timer_device_step_us histogram
         port_phases = {getattr(tdriver, k) for k in vars(tdriver)
                        if k.startswith("PHASE_")} | {PHASE_FINISH_RULES}
 
         def port_only(key):
             return (key.startswith("step_phase_us{phase=")
-                    and key[20:].split(",")[0] in port_phases)
+                    and key[20:].split(",")[0] in port_phases
+                    or key.startswith(("step_eager_total{",
+                                       "step_graph_replays_total{")))
         assert any(port_only(k) for k in ts["series"])
         assert sorted(k for k in ts["series"] if not port_only(k)) == \
             sorted(k for k in js["series"]

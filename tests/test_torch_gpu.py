@@ -613,3 +613,36 @@ def test_one_rank_node_daemon_on_the_card(tmp_path):
     finally:
         node.close()
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("variant", ["plain", "audit_telemetry"])
+@pytest.mark.parametrize("kind", ["sim", "shard"])
+def test_graphed_engine_equals_the_cpu_engine(kind, variant):
+    """The stable step replayed from its CUDA graphs (recorded by
+    ``prewarm``) against the same engine on the CPU, step for step
+    (``tests/test_torch_graph.py:drive_graphed``: serial and no-take
+    steps, bursts of every tier, two tickets in flight, eager elections
+    between replays, a rebase and a rebound state): every result and
+    state field bit for bit, ``commit_window`` launched once per
+    protocol step, and the steps split by path and reason."""
+    _need_card()
+    from rdma_paxos_tpu_torch.ops.quorum import commit_window
+    from tests.test_torch_graph import ENGINES, VARIANTS, drive_graphed
+    make, launches = ENGINES[kind], []
+
+    def build(device, **kw):
+        e = make(device, **kw)
+        if device == "cuda":
+            e.c.prewarm()
+            assert set(e.c._graphs) == {"step", "burst"}
+            launches.append(commit_window.launches)
+        return e
+    ea, want = drive_graphed(build, "cuda", "cpu", **VARIANTS[variant])
+    a = ea.c
+    torch.cuda.synchronize()
+    assert commit_window.launches - launches[0] == a.step_index == sum(
+        want.values())
+    assert a.graph_replays == {"step": want["step"],
+                               "burst": want["burst"]}
+    assert a.eager_steps == {"elections": want["elections"],
+                             "no_capture": 0}

@@ -36,6 +36,8 @@ PORT_EXTRAS = {
     "convert.py": "numpy converters between the two packages' states, "
                   "for the parity tests",
     "ops/_build.py": "builds csrc/*.cu with nvcc and binds it by ctypes",
+    "parallel/graph.py": "the stable step recorded as a CUDA graph and "
+                         "replayed; JAX compiles the step instead",
     "runtime/launch_node.py": "the port's launcher of one NodeDaemon "
                               "beside its interposed app",
 }
